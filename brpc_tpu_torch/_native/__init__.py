@@ -46,6 +46,7 @@ KERNELS_NAME = "libbrpc_tpu_torch_kernels.so"
 CXXFLAGS = ["-std=gnu++17", "-O2", "-DNDEBUG", "-fPIC", "-pthread"]
 NVCCFLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+PTXAS_REPORT = os.path.join(BUILD_DIR, KERNELS_NAME + ".ptxas.txt")
 
 # wall seconds of each build this process ran (absent: it was current)
 build_seconds: Dict[str, float] = {}
@@ -96,11 +97,13 @@ def _build(name: str, inputs: List[str], flags: List[str],
     return out
 
 
-def _run(cmd: List[str]) -> None:
+def _run(cmd: List[str]) -> str:
+    """Run one build step; returns what it printed."""
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"build step failed: {' '.join(cmd)}\n"
                            f"{r.stdout}{r.stderr}")
+    return r.stdout + r.stderr
 
 
 def _core_sources() -> List[str]:
@@ -169,8 +172,10 @@ def _nvcc() -> str:
 
 def build_kernels() -> str:
     """Build (if stale) and return the path of the kernel library, one
-    nvcc for each .cu source, all started together."""
+    nvcc for each .cu source, all started together.  What ptxas -v
+    reported for each kernel is kept beside it, in PTXAS_REPORT."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    cflags = [f for f in NVCCFLAGS if f != "-shared"] + ["-Xptxas=-v"]
 
     def make(out: str) -> None:
         nvcc = _nvcc()
@@ -178,16 +183,17 @@ def build_kernels() -> str:
         try:
             objs = [os.path.join(objdir, f"{i}.o")
                     for i in range(len(sources))]
-            cflags = [f for f in NVCCFLAGS if f != "-shared"]
             with ThreadPoolExecutor(max(1, len(sources))) as ex:
-                for fut in [ex.submit(_run, [nvcc, *cflags, "-c", s, "-o", o])
-                            for s, o in zip(sources, objs)]:
-                    fut.result()
+                futs = [ex.submit(_run, [nvcc, *cflags, "-c", s, "-o", o])
+                        for s, o in zip(sources, objs)]
+                report = "".join(f.result() for f in futs)
             _run([nvcc, *NVCCFLAGS, *objs, "-o", out])
+            with open(PTXAS_REPORT, "w") as f:
+                f.write(report)
         finally:
             shutil.rmtree(objdir, ignore_errors=True)
 
-    return _build(KERNELS_NAME, sources, NVCCFLAGS, make)
+    return _build(KERNELS_NAME, sources, cflags, make)
 
 
 def lib() -> ctypes.CDLL:

@@ -14,10 +14,13 @@ write ``k_new[n]`` / ``v_new[n]`` into row ``p[n]`` of the layer's caches
 ``decode_attention`` launches the kernel for CUDA tensors (and raises if
 it cannot); for CPU tensors it runs :func:`decode_attention_plain`, which
 nothing on the CUDA path calls.  ``decode_attention.launches`` counts the
-kernel's launches.
+kernel's launches.  The kernel takes head dims ``KERNEL_HEAD_DIMS``; the
+plain version any head dim up to ``MAX_HEAD_DIM``.
 
 Bound on the card: memory — the K/V rows of the valid window are read
-once and two rows written per (n, h); see the kernel's source note.
+once and two rows written per (n, h).  The kernel splits each (n, h)'s
+window over a cluster of eight blocks and merges the eight partial
+softmaxes in the same launch; see its source note.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from brpc_tpu_torch import _native
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_HEAD_DIM = 128
+KERNEL_HEAD_DIMS = (16, 64, 128)
+_MISALIGNED = 716   # cudaErrorMisalignedAddress
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -92,6 +97,9 @@ def _check(q, k_new, v_new, k_cache_l, v_cache_l, p) -> None:
         raise ValueError("decode_attention takes contiguous tensors")
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
+    if q.device.type == "cuda" and hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the decode_attention kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, not {hd}")
 
 
 def decode_attention(q, k_new, v_new, k_cache_l, v_cache_l, p):
@@ -116,8 +124,10 @@ def decode_attention(q, k_new, v_new, k_cache_l, v_cache_l, p):
             o.data_ptr(), N, k_cache_l.shape[1], H, hd, _DTYPES[q.dtype],
             math.sqrt(hd), stream)
     if rc != 0:
+        why = (" (a tensor is not 16-byte aligned)" if rc == _MISALIGNED
+               else "")
         raise RuntimeError(f"decode_attention kernel launch failed: "
-                           f"cudaError {rc}")
+                           f"cudaError {rc}{why}")
     decode_attention.launches += 1
     return o
 
