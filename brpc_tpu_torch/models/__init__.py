@@ -1,6 +1,6 @@
-"""models/ — the transformer LM and its KV-cached decode, on PyTorch
-(port of brpc_tpu/models/: the dense single-device model; MoE, the
-sequence-parallel attention paths and training are not ported yet)."""
+"""models/ — the transformer LM (dense and MoE), its KV-cached decode and
+its training step, on PyTorch (port of brpc_tpu/models/ on one device;
+the sequence-parallel attention paths and meshes are not ported yet)."""
 
 from brpc_tpu_torch.models.transformer import (  # noqa: F401
     ModelConfig,
@@ -12,4 +12,9 @@ from brpc_tpu_torch.models.decode import (  # noqa: F401
     decode_step,
     init_cache,
     prefill,
+)
+from brpc_tpu_torch.models.train import (  # noqa: F401
+    TrainState,
+    loss_fn,
+    make_train_step,
 )

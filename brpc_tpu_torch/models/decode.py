@@ -5,11 +5,13 @@ brpc_tpu/models/decode.py.
 the per-layer K/V it produced; ``decode_step()`` then extends N slots by
 one token each against the slot cache ``k/v [L, N, S, H, hd]`` in
 ``cfg.dtype`` plus ``pos [N]`` int32.  The step's attention is the
-hand-written kernel ``ops.decode_attention`` (one launch per layer).
+hand-written kernel ``ops.decode_attention`` (one launch per layer), the
+prefill's the hand-written ``ops.causal_attention`` forward.
 
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
-cache's tensors and return the same dict.  Dense only.
+cache's tensors and return the same dict.  Dense only, as the reference
+(decode.py:16-18): an MoE config raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -36,13 +38,19 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
         KV_WIRE_DTYPE().itemsize
 
 
+def _check_dense(cfg: ModelConfig) -> None:
+    check_supported(cfg)
+    if cfg.n_experts > 0:
+        raise ValueError("decode path is dense-only (cfg.n_experts == 0)")
+
+
 # ---------------------------------------------------------------------------
 # cache
 
 
 def init_cache(cfg: ModelConfig, slots: int, max_len: int,
                device="cuda") -> Dict[str, torch.Tensor]:
-    check_supported(cfg)
+    _check_dense(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, slots, max_len, cfg.n_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
@@ -83,7 +91,7 @@ def reset_slot(cache: Dict, slot: int) -> Dict:
 def prefill(model: TransformerLM, tokens, cfg: ModelConfig) -> Tuple:
     """tokens [B, S] int -> (last-position logits [B, vocab] f32,
     k [L, B, S, H, hd], v [L, B, S, H, hd]) in cfg.dtype."""
-    check_supported(cfg)
+    _check_dense(cfg)
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     S = tokens.shape[1]
@@ -98,7 +106,7 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig) -> Tuple:
         v = torch.einsum("bsd,dhk->bshk", hc, lp["wv"][i].to(dt))
         ks.append(k)
         vs.append(v)
-        o = _causal_attention(q, k, v, cfg)
+        o = _causal_attention(q, k, v)
         x = x + torch.einsum("bshk,hkd->bsd", o.to(dt), lp["wo"][i].to(dt))
         h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
         hf = _gelu(torch.einsum("bsd,df->bsf", h.to(dt), lp["w1"][i].to(dt)))
@@ -120,7 +128,7 @@ def decode_step(model: TransformerLM, cache: Dict, tokens, active,
     each writes its K/V at p = min(pos, S-1), inactive slots too — on a
     row the next install overwrites — and only active slots advance
     `pos`.  The cache is updated in place."""
-    check_supported(cfg)
+    _check_dense(cfg)
     dev = model.embed.device
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
     S = k_cache.shape[2]

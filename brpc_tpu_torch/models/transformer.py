@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM on PyTorch — port of the dense,
-single-device part of brpc_tpu/models/transformer.py.
+"""Decoder-only transformer LM on PyTorch — port of the single-device
+part of brpc_tpu/models/transformer.py, dense and MoE blocks.
 
 Parameters keep the reference's tree names and layouts, so a checkpoint
 or a parameter tree moves between the two by name
@@ -9,6 +9,8 @@ or a parameter tree moves between the two by name
     blocks.{ln1_g, ln1_b, ln2_g, ln2_b} [L, D]
     blocks.{wq, wk, wv} [L, D, H, hd]   blocks.wo [L, H, hd, D]
     blocks.w1 [L, D, F]   blocks.w2 [L, F, D]
+    moe.router [n_moe, D, E]   moe.we1 [n_moe, E, D, F]
+    moe.we2 [n_moe, E, F, D]   (stacked over the MoE layers only)
 
 Parameters are f32; the products run in ``cfg.dtype`` (bf16 by default)
 with f32 layernorm, f32 softmax and f32 logits, as in the reference.
@@ -16,15 +18,24 @@ Numerics the port keeps on purpose:
 
 * GELU is the tanh approximation (``jax.nn.gelu``'s default), not
   PyTorch's erf default.
-* Attention scores are computed in ``cfg.dtype``, divided by sqrt(hd),
-  then upcast to f32 before the -1e30 causal mask and the softmax; the
-  weights go back to ``cfg.dtype`` before the product with V.
+* Attention scores are computed in ``cfg.dtype``, then divided by
+  sqrt(hd) in f32 (JAX promotes them against the numpy scalar) before
+  the -1e30 causal mask and the softmax; the weights go back to
+  ``cfg.dtype`` before the product with V.  On the card this is the
+  hand-written kernel ``ops.causal_attention``, forward and backward.
+* MoE blocks are the reference's dense top-k switch: every expert runs
+  on every token, weighted by the renormalised top-k gate.
 * The logits use the tied ``embed``.
 
-Not ported here: the sharding constraints (one device), MoE blocks and
-the ring/Ulysses attention paths — a config asking for them raises.
-Every entry point takes an explicit ``device`` and runs on ``cuda``
-unless the caller asks for ``cpu``.
+:func:`apply` carries gradients (training differentiates it); the
+inference paths (``decode.prefill``, ``decode.decode_step``) run under
+``torch.no_grad()``.  The reference's per-block ``jax.checkpoint`` is a
+memory policy that changes no number and is not ported.
+
+Not ported here: the sharding constraints (one device) and the
+ring/Ulysses attention paths — a config asking for them raises.  Every
+entry point takes an explicit ``device`` and runs on ``cuda`` unless the
+caller asks for ``cpu``.
 """
 
 from __future__ import annotations
@@ -33,10 +44,11 @@ import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from brpc_tpu_torch.ops.causal_attention import causal_attention
 
 
 @dataclass(frozen=True)
@@ -47,7 +59,7 @@ class ModelConfig:
     n_layers: int = 4
     d_ff: int = 2048
     max_seq: int = 1024
-    n_experts: int = 0       # 0 = dense-only (the only form ported)
+    n_experts: int = 0       # 0 = dense-only
     moe_every: int = 2
     moe_topk: int = 1
     dtype: Any = torch.bfloat16
@@ -69,10 +81,7 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense gather-attention model only."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks are not ported yet "
-                                  "(cfg.n_experts must be 0)")
+    """The port runs the gather-attention model only."""
     if cfg.attn_impl != "gather":
         raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
                                   f"ported yet (use 'gather')")
@@ -102,8 +111,7 @@ class TransformerLM(nn.Module):
                            cfg.head_dim, cfg.d_ff)
 
         def p(*shape):
-            return nn.Parameter(torch.zeros(shape, device=dev),
-                                requires_grad=False)
+            return nn.Parameter(torch.zeros(shape, device=dev))
 
         self.cfg = cfg
         self.embed = p(cfg.vocab, D)
@@ -116,6 +124,12 @@ class TransformerLM(nn.Module):
             "wo": p(L, H, hd, D),
             "w1": p(L, D, F_), "w2": p(L, F_, D),
         })
+        E, n_moe = cfg.n_experts, moe_slot(cfg, L)
+        if n_moe:
+            self.moe = nn.ParameterDict({
+                "router": p(n_moe, D, E),
+                "we1": p(n_moe, E, D, F_), "we2": p(n_moe, E, F_, D),
+            })
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -146,7 +160,17 @@ def init(generator: torch.Generator, cfg: ModelConfig,
         for name in ("wq", "wk", "wv", "wo", "w1"):
             dense(bl[name], D)
         dense(bl["w2"], F_)
+        if moe_slot(cfg, cfg.n_layers):
+            dense(model.moe["router"], D)
+            dense(model.moe["we1"], D)
+            dense(model.moe["we2"], F_)
     return model
+
+
+def moe_slot(cfg: ModelConfig, layer: int) -> int:
+    """Index into the stacked MoE leaves for a MoE layer (the number of
+    MoE layers for layer = n_layers)."""
+    return sum(1 for j in range(layer) if cfg.is_moe(j))
 
 
 # ---------------------------------------------------------------------------
@@ -164,15 +188,10 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _causal_attention(q, k, v, cfg: ModelConfig):
-    """q/k/v [B, S, H, hd] in cfg.dtype -> o [B, S, H, hd]."""
-    S = q.shape[1]
-    scores = torch.einsum("bshk,bthk->bhst", q, k) / np.sqrt(cfg.head_dim)
-    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
-    scores = torch.where(mask[None, None], scores.float(),
-                         torch.tensor(-1e30, device=q.device))
-    w = torch.softmax(scores, dim=-1).to(cfg.dtype)
-    return torch.einsum("bhst,bthk->bshk", w, v)
+def _causal_attention(q, k, v):
+    """q/k/v [B, S, H, hd] in cfg.dtype -> o [B, S, H, hd]: the kernel on
+    the card, its plain version on the CPU."""
+    return causal_attention(q, k, v)
 
 
 def _attention(x, lp, i, cfg: ModelConfig):
@@ -180,7 +199,7 @@ def _attention(x, lp, i, cfg: ModelConfig):
     q = torch.einsum("bsd,dhk->bshk", xc, lp["wq"][i].to(cfg.dtype))
     kk = torch.einsum("bsd,dhk->bshk", xc, lp["wk"][i].to(cfg.dtype))
     v = torch.einsum("bsd,dhk->bshk", xc, lp["wv"][i].to(cfg.dtype))
-    o = _causal_attention(q, kk, v, cfg)
+    o = _causal_attention(q, kk, v)
     return torch.einsum("bshk,hkd->bsd", o.to(cfg.dtype),
                         lp["wo"][i].to(cfg.dtype))
 
@@ -191,6 +210,21 @@ def _ffn(x, lp, i, cfg: ModelConfig):
     return torch.einsum("bsf,fd->bsd", h, lp["w2"][i].to(cfg.dtype))
 
 
+def _moe_ffn(x, mp, i, cfg: ModelConfig):
+    """Dense top-k switch layer (transformer.py:218-236): every expert
+    runs on every token, weighted by the renormalised top-k gate."""
+    xc = x.to(cfg.dtype)
+    logits = torch.einsum("bsd,de->bse", xc, mp["router"][i].to(cfg.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    topv, topi = torch.topk(probs, cfg.moe_topk, dim=-1)
+    oh = F.one_hot(topi, cfg.n_experts).to(probs.dtype)
+    gates = (oh * topv[..., None]).sum(-2)          # [B, S, E]
+    gates = (gates / (gates.sum(-1, keepdim=True) + 1e-9)).to(cfg.dtype)
+    h = _gelu(torch.einsum("bsd,edf->besf", xc, mp["we1"][i].to(cfg.dtype)))
+    y = torch.einsum("besf,efd->besd", h, mp["we2"][i].to(cfg.dtype))
+    return torch.einsum("besd,bse->bsd", y, gates)
+
+
 def logits_of(model: TransformerLM, x, cfg: ModelConfig):
     """Final norm + tied-embedding logits in f32; x [..., D]."""
     x = _layernorm(x, model.ln_f["g"], model.ln_f["b"])
@@ -198,9 +232,9 @@ def logits_of(model: TransformerLM, x, cfg: ModelConfig):
                         model.embed.to(cfg.dtype)).float()
 
 
-@torch.no_grad()
 def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None):
-    """tokens [B, S] int -> logits [B, S, vocab] f32."""
+    """tokens [B, S] int -> logits [B, S, vocab] f32; differentiable
+    with respect to the parameters."""
     cfg = cfg or model.cfg
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=model.embed.device).long()
@@ -210,7 +244,10 @@ def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None):
     for i in range(cfg.n_layers):
         x = x + _attention(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]),
                            lp, i, cfg)
-        x = x + _ffn(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]),
-                     lp, i, cfg)
+        h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
+        if cfg.is_moe(i):
+            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg)
+        else:
+            x = x + _ffn(h, lp, i, cfg)
     return logits_of(model, x, cfg)
 

@@ -1,6 +1,11 @@
 """ops/ — hand-written CUDA kernels (sources in ../csrc) and the plain
 PyTorch version beside each."""
 
+from brpc_tpu_torch.ops.causal_attention import (  # noqa: F401
+    CausalAttention,
+    causal_attention,
+    causal_attention_plain,
+)
 from brpc_tpu_torch.ops.decode_attention import (  # noqa: F401
     decode_attention,
     decode_attention_plain,

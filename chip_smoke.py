@@ -27,6 +27,16 @@ printing one JSON line; any failure exits non-zero with no result line:
              the same window timed the same way (a yardstick the port
              never calls), a one-element add_ (the floor of one graph
              node) and the wrapper's host-inclusive time (host_call_ms)
+  attention  causal_attention's three kernels (forward; backward dq, which
+             also writes the softmax backward's row sums; backward dk/dv)
+             under autograd against autograd of the plain version at
+             B=8, S=1024, H=8, hd=64 and at S=1000, f32 and bf16: o, dq,
+             dk, dv within ATTN_TOL (the attention_check line prints the
+             errors and the share of the limit used).  Each kernel timed
+             in bf16 on the device alone like decode_attention, beside its
+             bound, the plain version (CUDA events) and
+             scaled_dot_product_attention(is_causal=True) forward and
+             backward (a yardstick the port never calls)
   serving    ServingEngine at the full width of ModelConfig() on a Server:
              6 streaming LLM.Generate clients (prompts 32..256, 16 new
              tokens) and one that cancels mid-stream; every full client
@@ -36,7 +46,21 @@ printing one JSON line; any failure exits non-zero with no result line:
              more clients (device busy share, top device kernels); then
              one decode step through the kernel agrees with the same
              step through the plain version (logits atol 0.1: bf16
-             rounding carried through four layers)
+             rounding carried through four layers), and a prefill of
+             PREFILL_LEN tokens through the causal_attention kernel
+             against the plain version (same limit)
+  train      the training path at the full width of ModelConfig() with
+             the reference's MoE setting (n_experts 4, moe_every 2,
+             top-1: layers 1 and 3 MoE), 8 x 1025 tokens (S = 1024):
+             one AdamW step through the kernels and one through the plain
+             version from the same state, in f32 and in bf16 (loss within
+             LOSS_RTOL, each gradient within GRAD_REL of the plain one in
+             norm); 5 kernel steps at lr 1e-2 on a fixed seeded batch,
+             counted (each kernel launched 5 x 4 times, decode_attention
+             never) and timed, the loss must fall; save, restore into a
+             fresh state and one more step on each: the same loss, step
+             7; step ms, tokens/s and peak device memory; a
+             torch.profiler window over one more step
 
 Before the last line it prints the kernels' JSON line and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -62,6 +86,7 @@ BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor rate
 KERNEL_TOL = {"bf16": dict(atol=4e-3, rtol=1e-2),
               "f32": dict(atol=1e-5, rtol=1e-5)}
 STEP_LOGITS_ATOL = 0.1        # bf16 through four layers
+PREFILL_LEN = 300             # prompt length of the prefill comparison
 GRAPH_LAUNCHES = 20           # launches captured in one timing graph
 GRAPH_ROUNDS = 5              # replays of each graph, alternated
 FLUSH_BYTES = 256 << 20       # read between launches: > 5x the 50 MB L2
@@ -323,6 +348,339 @@ def phase_kernel():
     return results
 
 
+ATTN_SHAPE = (8, 1024, 8, 64)    # B, S, H, hd: one layer of the train step
+ATTN_RAGGED_S = 1000
+# o, dq, dk, dv against the plain version: a flip of one bf16 rounding of
+# a score, weight, dW or dS moves an output by about one weight step
+# times |v| (largest reading 0.0078); f32 the same sums in another order
+# (largest reading 1.9e-6)
+ATTN_TOL = {"bf16": dict(atol=1e-2, rtol=2e-2),
+            "f32": dict(atol=1e-5, rtol=1e-5)}
+ATTN_OUTPUTS = ("o", "dq", "dk", "dv")
+
+
+def attention_bounds(B, S, H, hd, elt):
+    """{kernel: (least ms, what bounds it)}: each input read once and
+    each output written once (n: one [B, S, H, hd] tensor, rows: one
+    [B, H, S] f32 row statistic), the products of the causal half (pairs
+    t <= s) at the bf16 rate.  fwd: q, k, v -> o, lse with q.k and w.v;
+    bwd_dq: q, k, v, dO, lse -> dq, D with q.k, dO.v and dS.k; bwd_dkdv:
+    q, k, v, dO, lse, D -> dk, dv with q.k, dO.v, p.dO and dS.q; bwd (the
+    backward as one function): q, k, v, o, dO -> dq, dk, dv with five
+    products; fwd_bwd: q, k, v, dO -> dq, dk, dv with seven."""
+    n, rows = B * S * H * hd * elt, B * H * S * 4
+    mac = 2 * hd * B * H * S * (S + 1) // 2     # flops of one product
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+    return {"fwd": bound(4 * n + rows, 2 * mac),
+            "bwd_dq": bound(5 * n + 2 * rows, 3 * mac),
+            "bwd_dkdv": bound(6 * n + 2 * rows, 4 * mac),
+            "bwd": bound(8 * n, 5 * mac),
+            "fwd_bwd": bound(7 * n, 7 * mac)}
+
+
+def attention_grads(fn, q, k, v, do):
+    """[o, dq, dk, dv] of fn(q, k, v) with cotangent do, as f32."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*leaves)
+    return [o.detach().float()] + [
+        t.float() for t in torch.autograd.grad(o, leaves, do)]
+
+
+def check_attention(g):
+    """The kernels (CausalAttention) against the plain version's autograd
+    on the same inputs, at ATTN_SHAPE and at S = ATTN_RAGGED_S, in f32
+    and bf16: {case: {output: max abs error}} and {case: {output: largest
+    |got - plain| / (atol + rtol |plain|)}} under ATTN_TOL."""
+    import torch
+    from brpc_tpu_torch.ops.causal_attention import (CausalAttention,
+                                                     causal_attention_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain f32 einsums
+    B, _, H, hd = ATTN_SHAPE
+    errs, shares = {}, {}
+    for S in (ATTN_SHAPE[1], ATTN_RAGGED_S):
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            args = [torch.randn(B, S, H, hd, generator=g,
+                                device="cuda").to(dtype) for _ in range(4)]
+            got = attention_grads(CausalAttention.apply, *args)
+            want = attention_grads(causal_attention_plain, *args)
+            torch.cuda.synchronize()
+            tol = ATTN_TOL[name]
+            case = f"{name}_S{S}"
+            errs[case], shares[case] = {}, {}
+            for out, a, w in zip(ATTN_OUTPUTS, got, want):
+                diff = (a - w).abs()
+                errs[case][out] = float(diff.max())
+                shares[case][out] = float(
+                    (diff / (tol["atol"] + tol["rtol"] * w.abs())).max())
+            del got, want, args
+    return errs, shares
+
+
+def phase_attention():
+    """causal_attention's three kernels: checked against the plain
+    version, then timed in bf16 at ATTN_SHAPE on the device alone (as
+    decode_attention: L2-warm ms and L2-cold cold_ms), each beside its
+    bound, the plain version's time (CUDA events around its calls) and
+    scaled_dot_product_attention(is_causal=True) on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from brpc_tpu_torch.ops.causal_attention import (
+        CausalAttention, causal_attention_backward_dkdv,
+        causal_attention_backward_dq, causal_attention_forward,
+        causal_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    errs, shares = check_attention(g)
+    emit({"phase": "attention_check", "shape": ATTN_SHAPE,
+          "ragged_S": ATTN_RAGGED_S, "max_abs_err": errs,
+          "share_of_tolerance": shares, "tolerance": ATTN_TOL})
+    bad = {c: v for c, sh in shares.items() for o, v in sh.items() if v > 1}
+    assert not bad, f"causal_attention differs from the plain version: {bad}"
+
+    B, S, H, hd = ATTN_SHAPE
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    flush = flush_buf.sum
+    _, lse = causal_attention_forward(q, k, v)
+    _, delta = causal_attention_backward_dq(q, k, v, do, lse)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd(fn, cot):
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    def sdpa(*a):
+        return F.scaled_dot_product_attention(*a, is_causal=True)
+
+    def sdpa_bshk(*a):        # [B, S, H, hd] through [B, H, S, hd] views
+        return sdpa(*(x.transpose(1, 2) for x in a)).transpose(1, 2)
+
+    t = {"fwd": device_ms(lambda: causal_attention_forward(q, k, v), flush),
+         "bwd_dq": device_ms(
+             lambda: causal_attention_backward_dq(q, k, v, do, lse), flush),
+         "bwd_dkdv": device_ms(
+             lambda: causal_attention_backward_dkdv(q, k, v, do, lse, delta),
+             flush),
+         "fwd_bwd": device_ms(fwd_bwd(CausalAttention.apply, do), flush),
+         "sdpa_fwd": device_ms(lambda: sdpa_bshk(q, k, v), flush),
+         "sdpa_fwd_bwd": device_ms(fwd_bwd(sdpa_bshk, do), flush)}
+    plain_fwd = cuda_ms(lambda: causal_attention_plain(q, k, v), 10)
+    plain_fwd_bwd = cuda_ms(fwd_bwd(causal_attention_plain, do), 5)
+    bounds = attention_bounds(B, S, H, hd, 2)
+    # the backward alone (the library's and the plain version's): fwd+bwd
+    # less fwd, L2-warm
+    sdpa_bwd = t["sdpa_fwd_bwd"][0] - t["sdpa_fwd"][0]
+    sdpa_bwd_cold = t["sdpa_fwd_bwd"][1] - t["sdpa_fwd"][1]
+    plain_bwd = plain_fwd_bwd - plain_fwd
+    rows = {}
+    for name, library, library_cold, plain in (
+            ("fwd", t["sdpa_fwd"][0], t["sdpa_fwd"][1], plain_fwd),
+            ("bwd_dq", sdpa_bwd, sdpa_bwd_cold, plain_bwd),
+            ("bwd_dkdv", sdpa_bwd, sdpa_bwd_cold, plain_bwd)):
+        ms, cold_ms = t[name]
+        bound_ms, bound_by = bounds[name]
+        rows[name] = {"ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
+                      "library_ms": library, "library_cold_ms": library_cold,
+                      "plain_ms": plain}
+    emit({"phase": "attention", "name": "causal_attention",
+          "shape": dict(zip(("B", "S", "H", "hd"), ATTN_SHAPE)),
+          "dtype": "bf16", "kernels": rows,
+          "fwd_bwd_ms": t["fwd_bwd"][0], "fwd_bwd_cold_ms": t["fwd_bwd"][1],
+          "fwd_bwd_bound": bounds["fwd_bwd"], "bwd_bound": bounds["bwd"],
+          "sdpa_fwd_bwd_ms": t["sdpa_fwd_bwd"][0],
+          "sdpa_fwd_bwd_cold_ms": t["sdpa_fwd_bwd"][1],
+          "plain_fwd_bwd_ms": plain_fwd_bwd,
+          "library": "torch.nn.functional.scaled_dot_product_attention("
+                     "is_causal=True); its backward and the plain "
+                     "version's: fwd+bwd less fwd"})
+    return {"errs": errs, "rows": rows}
+
+
+TRAIN_MOE = dict(n_experts=4, moe_every=2, moe_topk=1)
+TRAIN_TOKENS = (8, 1025)     # B x (S + 1): S = 1024 = max_seq
+TRAIN_LR = 1e-2
+TRAIN_STEPS = 5
+# one step through the kernels against one through the plain version,
+# from the same state, in the working type and in f32: the loss within
+# LOSS_RTOL, each gradient's ||kernel - plain|| / ||plain|| within
+# GRAD_REL.  f32 is the check of the kernels inside the model (largest
+# reading 1.7e-6).  In bf16 one flipped rounding in attention makes every
+# later bf16 rounding its own, so the two gradients differ at the bf16
+# noise level of the whole step (largest reading 0.060).  A parameter
+# whose plain gradient stays below GRAD_FLOOR of the largest gradient
+# element anywhere is printed but not held: the top-1 router, whose gates
+# renormalise to 1, so that its gradient (~3e-10) comes only through the
+# 1e-9 of the renormalisation.
+LOSS_RTOL = {"bf16": 1e-3, "f32": 1e-5}
+GRAD_REL = {"bf16": 0.1, "f32": 1e-4}
+GRAD_FLOOR = 1e-6
+
+
+def _twin_steps(cfg, tokens):
+    """One AdamW step from a fresh seeded state through the kernels and
+    one from a copy of it through the plain version: (the kernel-stepped
+    state, loss through the kernels, loss through the plain version,
+    {parameter: [max |kernel - plain| / max |plain|,
+    ||kernel - plain|| / ||plain||, max |plain|]} of the gradients)."""
+    import torch
+
+    from brpc_tpu_torch import weights
+    from brpc_tpu_torch.models import train
+    from brpc_tpu_torch.models import transformer as T
+    from brpc_tpu_torch.ops.causal_attention import causal_attention_plain
+    tx, step = train.make_train_step(cfg, lr=TRAIN_LR, device="cuda")
+    model = T.init(torch.Generator().manual_seed(0), cfg, "cuda")
+    state = train.TrainState(model, tx(model),
+                             torch.zeros((), dtype=torch.int32))
+    twin = weights.train_state_from_jax(
+        weights.train_state_to_flat(state), cfg, lr=TRAIN_LR, device="cuda")
+    state, loss_kernel = step(state, tokens)
+    saved = T.causal_attention
+    T.causal_attention = causal_attention_plain
+    try:
+        twin, loss_plain = step(twin, tokens)
+    finally:
+        T.causal_attention = saved
+    grads = {}
+    for (name, p), (_, pp) in zip(state.params.named_parameters(),
+                                  twin.params.named_parameters()):
+        d, top = p.grad - pp.grad, pp.grad.abs().max()
+        grads[name] = [float(d.abs().max() / top),
+                       float(d.norm() / pp.grad.norm()), float(top)]
+    return state, loss_kernel.item(), loss_plain.item(), grads
+
+
+def phase_train():
+    """The training path at the full width of ModelConfig() with the
+    reference's MoE setting (layers 1 and 3 MoE): one AdamW step through
+    the kernels and one through the plain version from the same state,
+    in bf16 and in f32; TRAIN_STEPS kernel steps on a fixed seeded batch
+    (the main path: the launch counts are read over it), the loss must
+    fall; save, restore into a fresh state, one more step on each: the
+    same loss and step 7; a torch.profiler window over one more step."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch.models import checkpoint, train
+    from brpc_tpu_torch.models import transformer as T
+    from brpc_tpu_torch.ops.causal_attention import (
+        causal_attention_backward_dkdv, causal_attention_backward_dq,
+        causal_attention_forward)
+    from brpc_tpu_torch.ops.decode_attention import decode_attention
+
+    cfg = T.ModelConfig(**TRAIN_MOE)
+    assert [cfg.is_moe(i) for i in range(cfg.n_layers)] == \
+        [False, True, False, True]
+    tx, step = train.make_train_step(cfg, lr=TRAIN_LR, device="cuda")
+
+    def fresh(seed):
+        model = T.init(torch.Generator().manual_seed(seed), cfg, "cuda")
+        return train.TrainState(model, tx(model),
+                                torch.zeros((), dtype=torch.int32))
+
+    tokens = torch.randint(0, cfg.vocab, TRAIN_TOKENS,
+                           generator=torch.Generator().manual_seed(2))
+    tokens = tokens.to("cuda")
+
+    # 1. the kernels against the plain version, one step each, from the
+    #    same state: in f32 (then dropped), and in bf16, whose kernel-
+    #    stepped state goes on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    twins = {}
+    _, *twins["f32"] = _twin_steps(
+        dataclasses.replace(cfg, dtype=torch.float32), tokens)
+    state, *twins["bf16"] = _twin_steps(cfg, tokens)
+    loss_kernel = twins["bf16"][0]
+    held = {}
+    for dt, (_, _, grads) in twins.items():
+        floor = GRAD_FLOOR * max(g[2] for g in grads.values())
+        held[dt] = [n for n, g in grads.items() if g[2] >= floor]
+    torch.cuda.empty_cache()
+    # 2. the main path: TRAIN_STEPS kernel steps, counted and timed
+    counters = (causal_attention_forward, causal_attention_backward_dq,
+                causal_attention_backward_dkdv)
+    for c in counters:
+        c.launches = 0
+    decode_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, tokens)
+        losses.append(loss.item())          # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {c.__name__: c.launches for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    # 3. save, restore into a fresh state, one more step on each
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        nbytes = checkpoint.save(path, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(path, fresh(1))
+        restore_s = time.perf_counter() - t0
+    assert int(restored.step) == int(state.step) == 1 + TRAIN_STEPS
+    state, loss_next = step(state, tokens)
+    restored, loss_restored = step(restored, tokens)
+    assert int(restored.step) == int(state.step) == 7
+
+    # 4. one more step under torch.profiler
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        restored, _ = step(restored, tokens)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    prof_line = device_profile(prof, window_us)
+    by_name = prof_line.pop("_by_name", {})
+    attn_us = sum(v[1] for k, v in by_name.items() if "causal_" in k)
+
+    line = {"phase": "train", "device_name": torch.cuda.get_device_name(0),
+            "config": dict(vocab=cfg.vocab, d_model=cfg.d_model,
+                           n_heads=cfg.n_heads, n_layers=cfg.n_layers,
+                           d_ff=cfg.d_ff, max_seq=cfg.max_seq, **TRAIN_MOE),
+            "tokens_shape": TRAIN_TOKENS, "lr": TRAIN_LR,
+            "twin_steps": {dt: {"loss_kernel": lk, "loss_plain": lp,
+                                "grads": grads}
+                           for dt, (lk, lp, grads) in twins.items()},
+            "twin_grads_held": {dt: sorted(held[dt]) for dt in held},
+            "losses": [loss_kernel] + losses,
+            "step_ms": step_ms, "step_ms_p50": _p50(step_ms),
+            "tokens_per_s": (TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1))
+            / (_p50(step_ms) / 1e3),
+            "peak_mem_bytes": peak, "launches": launches,
+            "decode_attention_launches": decode_attention.launches,
+            "checkpoint_bytes": nbytes, "save_s": save_s,
+            "restore_s": restore_s, "loss_next": loss_next.item(),
+            "loss_restored": loss_restored.item(),
+            "profile": {**prof_line,
+                        "causal_attention_device_ms": attn_us / 1e3}}
+    emit(line)
+    for dt, (lk, lp, grads) in twins.items():
+        assert abs(lk - lp) <= LOSS_RTOL[dt] * abs(lp), (dt, lk, lp)
+        bad = {n: grads[n] for n in held[dt] if grads[n][1] > GRAD_REL[dt]}
+        assert not bad, (dt, bad)
+    assert all(x == x and x > 0 for x in losses), losses
+    assert losses[-1] < loss_kernel, (loss_kernel, losses)
+    assert loss_next.item() == loss_restored.item(), \
+        (loss_next.item(), loss_restored.item())
+    want = TRAIN_STEPS * cfg.n_layers
+    assert all(n == want for n in launches.values()), launches
+    assert decode_attention.launches == 0
+    return launches
+
+
 def _client(addr, plen, max_new, seed, cancel_after, results, lock):
     import struct
     from brpc_tpu_torch.rpc import errors
@@ -371,7 +729,10 @@ def phase_serving():
     import torch
     from brpc_tpu_torch import tpu_plane
     from brpc_tpu_torch.models import decode as D
+    from brpc_tpu_torch.models import transformer as T
     from brpc_tpu_torch.models.transformer import ModelConfig
+    from brpc_tpu_torch.ops.causal_attention import (causal_attention_forward,
+                                                     causal_attention_plain)
     from brpc_tpu_torch.ops.decode_attention import (decode_attention,
                                                      decode_attention_plain)
     from brpc_tpu_torch.rpc.server import Server, ServerOptions
@@ -392,6 +753,7 @@ def phase_serving():
     _client(addr, 8, 2, 1000, 0, [], lock)
     plens = [32, 64, 96, 128, 192, 256]
     decode_attention.launches = 0      # the main path starts here
+    causal_attention_forward.launches = 0
     steps0 = engine.steps
     t0 = time.monotonic()
     threads = [threading.Thread(target=_client,
@@ -410,6 +772,7 @@ def phase_serving():
     while engine.stats()["kv_live_seqs"] > 0 and time.monotonic() < deadline:
         time.sleep(0.02)
     launches = decode_attention.launches   # the main path ends here
+    prefill_launches = causal_attention_forward.launches
     steps = engine.steps - steps0
     stats = engine.stats()
     _profile_decode(engine, addr)
@@ -451,6 +814,20 @@ def phase_serving():
         D.decode_attention = saved
     step_err = float((got - want).abs().max())
     assert step_err <= STEP_LOGITS_ATOL, step_err
+
+    # prefill logits through the causal_attention kernel against the same
+    # prefill through the plain version (outside the counted window)
+    toks = torch.randint(0, cfg.vocab, (2, PREFILL_LEN), generator=gen)
+    got_p, got_k, _ = D.prefill(engine.params, toks, cfg)
+    saved_causal = T.causal_attention
+    T.causal_attention = causal_attention_plain
+    try:
+        want_p, want_k, _ = D.prefill(engine.params, toks, cfg)
+    finally:
+        T.causal_attention = saved_causal
+    prefill_err = float((got_p - want_p).abs().max())
+    assert prefill_err <= STEP_LOGITS_ATOL, prefill_err
+    assert torch.equal(got_k[0], want_k[0]), "layer 0 K differs"
     assert torch.equal(cache["pos"], twin["pos"])
     assert torch.isfinite(got).all()
 
@@ -459,10 +836,15 @@ def phase_serving():
           "tok_per_s": n_tok / wall, "ttft_p50_ms": _p50(ttft) * 1e3,
           "inter_token_p50_ms": _p50(gaps) * 1e3, "steps": steps,
           "decode_attention_launches": launches,
+          "causal_attention_fwd_launches": prefill_launches,
+          "prefill_len": PREFILL_LEN,
+          "prefill_logits_max_abs_err": prefill_err,
           "prefills": stats["prefills"], "canceled": stats["canceled"],
           "kv_blocks_allocs": stats["kv_pool_allocs"],
           "step_logits_max_abs_err": step_err})
-    return launches
+    assert prefill_launches > 0 and prefill_launches % cfg.n_layers == 0, \
+        prefill_launches
+    return launches, prefill_launches
 
 
 def _profile_decode(engine, addr):
@@ -472,7 +854,6 @@ def _profile_decode(engine, addr):
     decode_attention's share.  Busy is the union of the device events'
     intervals over the window's host-clock length."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):   # start-up (CUPTI) outside the window
@@ -504,6 +885,26 @@ def _profile_decode(engine, addr):
         assert not t.is_alive(), "a profile client did not finish"
     assert len(results) == 4 and all(
         len(r["tokens"]) == PROFILE_NEW_TOKENS for r in results), results
+    line = {"phase": "profile", "steps": steps,
+            **device_profile(prof, window_us)}
+    if line["device_events"]:
+        by_name = line.pop("_by_name")
+        total = sum(v[1] for v in by_name.values())
+        attn = sum(v[1] for k, v in by_name.items()
+                   if "decode_attention" in k)
+        line.update({
+            "decode_attention_device_ms": attn / 1e3,
+            "decode_attention_share_of_device": attn / total,
+            "decode_attention_share_of_window": attn / window_us})
+    emit(line)
+
+
+def device_profile(prof, window_us):
+    """What a torch.profiler window shows of the device: its events, the
+    busy time (the union of the device events' intervals) and its share
+    of the window's host-clock length, the top device kernels by total
+    time; "_by_name" holds {kernel name: [count, total us]}."""
+    from torch.autograd import DeviceType
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name, spans = {}, []
     for e in dev:
@@ -517,22 +918,17 @@ def _profile_decode(engine, addr):
         if b > reach:
             busy += b - max(a, reach)
             reach = b
-    total = sum(v[1] for v in by_name.values())
-    attn = sum(v[1] for k, v in by_name.items() if "decode_attention" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    line = {"phase": "profile", "steps": steps, "window_ms": window_us / 1e3,
-            "device_events": len(dev)}
+    out = {"window_ms": window_us / 1e3, "device_events": len(dev)}
     if dev:
-        line.update({
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        out.update({
             "device_busy_ms": busy / 1e3,
             "device_busy_share": busy / window_us,
-            "decode_attention_device_ms": attn / 1e3,
-            "decode_attention_share_of_device": attn / total,
-            "decode_attention_share_of_window": attn / window_us,
             "top_device_kernels": [
                 {"name": k[:96], "count": v[0], "total_ms": v[1] / 1e3}
-                for k, v in top]})
-    emit(line)
+                for k, v in top],
+            "_by_name": by_name})
+    return out
 
 
 def main() -> int:
@@ -551,8 +947,10 @@ def main() -> int:
     phase_plane()
     phase_transport()
     k = phase_kernel()["full"]
-    launches = phase_serving()
-    emit({"kernels": [{
+    attn = phase_attention()
+    launches, prefill_launches = phase_serving()
+    train_launches = phase_train()
+    kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/decode_attention.cu",
         "replaces": "brpc_tpu/models/decode.py:178",
@@ -562,7 +960,25 @@ def main() -> int:
         "max_err": k["max_abs_err"], "kernel_ms": k["ms"],
         "cold_ms": k["cold_ms"], "library_cold_ms": k["library_cold_ms"],
         "launch_floor_ms": k["launch_floor_ms"],
-        "host_call_ms": k["host_call_ms"], "window": k["window"]}]})
+        "host_call_ms": k["host_call_ms"], "window": k["window"]}]
+    err = attn["errs"]["bf16_S1024"]
+    for name, wrapper, outs, replaces in (
+            ("fwd", "causal_attention_forward", ("o",),
+             "brpc_tpu/models/transformer.py:197"),
+            ("bwd_dq", "causal_attention_backward_dq", ("dq",),
+             "brpc_tpu/models/transformer.py:197 (its jax.grad)"),
+            ("bwd_dkdv", "causal_attention_backward_dkdv", ("dk", "dv"),
+             "brpc_tpu/models/transformer.py:197 (its jax.grad)")):
+        row = attn["rows"][name]
+        kernels.append({
+            "name": f"causal_attention_{name}", "route": "cuda",
+            "source": "brpc_tpu_torch/csrc/causal_attention.cu",
+            "replaces": replaces, "launches": train_launches[wrapper],
+            "max_abs_err": max(err[o] for o in outs), **row,
+            "launches_in": "train phase, 5 steps x 4 layers",
+            **({"serving_prefill_launches": prefill_launches}
+               if name == "fwd" else {})})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,328 @@
+"""Causal attention of the port (brpc_tpu_torch/ops/causal_attention.py,
+csrc/causal_attention.cu) against the reference's jnp fragment
+(brpc_tpu/models/transformer.py:198-203) and against its own kernels.
+
+On the CPU:
+
+* ``causal_attention_plain`` against the jnp fragment, forward and
+  ``jax.vjp`` (dq, dk, dv), in f32 (atol 1e-5: the same sums in another
+  order) and bf16: bit-equal but for rare one-step flips, where the two
+  frameworks round a product near a tie differently (``BF16_REF_TOL``
+  per element, at most ``BF16_REF_FLIPS`` of the elements differing; the
+  CPU readings: at most 0.3% differ, the largest gap 0.0039).
+* The weight-rounding trap: a plain version that keeps the softmax
+  weights in f32 leaves the bf16 tolerance (about 40% of o differs).
+  The division trap: JAX divides the bf16 scores by np.sqrt(hd) in f32;
+  rounding the quotient to bf16 (what PyTorch does for ``bf16 / float``)
+  moves the scores at hd = 32, where sqrt(hd) is no power of two.
+* ``kernel_model``, the kernels' arithmetic written in torch (two-pass
+  forward, p recomputed from lse, the softmax backward's row sums
+  D = sum_t p dW taken exactly), against autograd of the plain version:
+  within ``CARD_TOL``, the tolerance the card legs and chip_smoke.py
+  hold the kernels to.  Control: the same model with the diagonal key
+  (t = s) left out of every row leaves it.  (The rowsum(dO * o)
+  stand-in for D would stay inside it: at these shapes it moves dq and
+  dk by about one bf16 step, as the kernels' own flips do; the kernels
+  take D exactly all the same.)
+* Argument checks.
+
+The ``cuda``-marked legs run the three kernels on the card, at head dims
+16, 64 and 128, S from 1 to 200 (tile edges 63/64/65), bf16 and f32,
+with strided inputs, against the plain version on the same inputs; they
+skip without a card and run there with
+``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
+(this file imports jax only inside its CPU legs).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from brpc_tpu_torch.ops.causal_attention import (
+    KERNEL_HEAD_DIMS, CausalAttention, causal_attention,
+    causal_attention_backward_dkdv, causal_attention_backward_dq,
+    causal_attention_forward, causal_attention_plain)
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_REF_TOL = dict(atol=1e-3, rtol=2 ** -7)    # one bf16 step
+BF16_REF_FLIPS = 0.01
+# the kernels against the plain version: a flip of one bf16 rounding of a
+# score, weight, dW or dS moves an output by about one weight step times
+# |v| (largest reading at B=8, S=1024, H=8, hd=64: 0.0078); f32 the same
+# sums in another order (largest reading 1.9e-6)
+CARD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2e-2),
+            torch.float32: dict(atol=1e-5, rtol=1e-5)}
+
+
+def _draw(seed, B, S, H, hd, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(scale * rng.standard_normal((B, S, H, hd))).astype(np.float32)
+            for _ in range(4)]
+
+
+def _jnp_fragment(q, k, v):
+    """transformer.py:198-203 for one layer, as the reference writes it."""
+    import jax
+    import jax.numpy as jnp
+    S = q.shape[1]
+    scores = jnp.einsum("bshk,bthk->bhst", q, k) / np.sqrt(q.shape[-1])
+    mask = jnp.tril(jnp.ones((S, S), bool))
+    scores = jnp.where(mask[None, None], scores.astype(jnp.float32), -1e30)
+    w = jax.nn.softmax(scores, axis=-1).astype(q.dtype)
+    return jnp.einsum("bhst,bthk->bshk", w, v)
+
+
+def _jax_vjp(arrays, dtype):
+    import jax
+    import jax.numpy as jnp
+    q, k, v, do = (jnp.asarray(a, dtype) for a in arrays)
+    o, pull = jax.vjp(_jnp_fragment, q, k, v)
+    return [np.asarray(t.astype(jnp.float32)) for t in (o, *pull(do))]
+
+
+def _torch_grads(fn, arrays, dtype, device="cpu"):
+    q, k, v, do = (torch.from_numpy(a).to(device, dtype) for a in arrays)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    o = fn(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    return [t.detach().float() for t in (o, *grads)]
+
+
+def _gap_share(got, want, tol):
+    """The largest |got - want| / (atol + rtol |want|) over every output
+    (within the tolerance when at most 1)."""
+    return max(float(((g - w).abs() / (tol["atol"] + tol["rtol"]
+                                       * w.abs())).max())
+               for g, w in zip(got, _tensors(want)))
+
+
+def _tensors(arrays):
+    return [torch.as_tensor(np.array(a, np.float32)) for a in arrays]
+
+
+def _bf16_agrees(got, want) -> bool:
+    """Within one bf16 step everywhere, and equal but for rare flips."""
+    flips = max(float((g != w).float().mean())
+                for g, w in zip(got, _tensors(want)))
+    return _gap_share(got, want, BF16_REF_TOL) <= 1.0 and \
+        flips <= BF16_REF_FLIPS
+
+
+def kernel_model(q, k, v, do, drop_diagonal=False):
+    """The kernels' arithmetic (csrc/causal_attention.cu) on tensors:
+    (o, dq, dk, dv) as f32.  ``drop_diagonal``: leave key t = s out of
+    row s (a wrong kernel, for the tolerance's control; row 0 keeps its
+    only key)."""
+    dt = q.dtype
+    S, hd = q.shape[1], q.shape[-1]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+
+    def rt(x):
+        return x.to(dt).float()
+
+    s = rt(torch.einsum("bshk,bthk->bhst", qf, kf)) / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool),
+                      diagonal=-1 if drop_diagonal else 0)
+    mask[0, 0] = True
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    l = torch.exp(s - m).sum(-1, keepdim=True)
+    o = rt(torch.einsum("bhst,bthk->bshk", rt(torch.exp(s - m) / l), vf))
+    p = torch.exp(s - (m + torch.log(l)))          # from lse
+    dw = rt(torch.einsum("bshk,bthk->bhst", dof, vf))
+    delta = (p * dw).sum(-1, keepdim=True)
+    ds = rt(p * (dw - delta) / math.sqrt(hd))
+    dq = rt(torch.einsum("bhst,bthk->bshk", ds, kf))
+    dk = rt(torch.einsum("bhst,bshk->bthk", ds, qf))
+    dv = rt(torch.einsum("bhst,bshk->bthk", rt(p), dof))
+    return [o, dq, dk, dv]
+
+
+@pytest.mark.parametrize("S", [1, 13, 40])
+def test_plain_matches_the_jnp_fragment_f32(S):
+    arrays = _draw(1, 2, S, 3, 16)
+    want = _jax_vjp(arrays, np.float32)
+    got = _torch_grads(causal_attention, arrays, torch.float32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_plain_matches_the_jnp_fragment_bf16(hd):
+    import jax.numpy as jnp
+    arrays = _draw(2, 2, 48, 2, hd, scale=2.0)
+    want = _jax_vjp(arrays, jnp.bfloat16)
+    got = _torch_grads(causal_attention_plain, arrays, torch.bfloat16)
+    assert _bf16_agrees(got, want)
+
+
+def test_unrounded_weights_leave_the_bf16_tolerance():
+    """The weight-rounding trap: the reference rounds the softmax weights
+    to bf16 before the product with V."""
+    import jax.numpy as jnp
+    arrays = _draw(3, 2, 48, 2, 16, scale=2.0)
+    want = _jax_vjp(arrays, jnp.bfloat16)
+
+    def unrounded(q, k, v):
+        S = q.shape[1]
+        s = torch.einsum("bshk,bthk->bhst", q, k).float() / 4.0
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool))
+        s = torch.where(mask, s, torch.tensor(-1e30))
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhst,bthk->bshk", w, v.float()).to(q.dtype)
+
+    got = _torch_grads(unrounded, arrays, torch.bfloat16)
+    assert not _bf16_agrees(got[:1], want[:1])
+
+
+def test_scores_are_divided_in_f32_as_jax_promotes_them():
+    """JAX divides the bf16 scores by the numpy scalar np.sqrt(hd) in f32;
+    PyTorch keeps ``bf16 / float`` in bf16.  At hd = 32 the two differ,
+    and the plain version follows JAX."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(4)
+    x = (3 * rng.standard_normal(4096)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(xb / np.sqrt(32))
+    assert want.dtype == np.float32
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    np.testing.assert_array_equal((t.float() / math.sqrt(32)).numpy(), want)
+    assert not np.array_equal((t / math.sqrt(32)).float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [1, 17, 80])
+def test_kernel_model_matches_plain_autograd(S, dtype):
+    arrays = _draw(5, 2, S, 2, 16)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
+    got = kernel_model(q, k, v, do)
+    want = _torch_grads(causal_attention_plain, arrays, dtype)
+    assert _gap_share(got, want, CARD_TOL[dtype]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_card_tolerance_fails_a_dropped_diagonal(dtype):
+    arrays = _draw(6, 2, 200, 2, 16)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
+    want = _torch_grads(causal_attention_plain, arrays, dtype)
+    got = kernel_model(q, k, v, do, drop_diagonal=True)
+    for g, w in zip(got, want):
+        assert _gap_share([g], [w], CARD_TOL[dtype]) > 1.0
+
+
+def test_cpu_tensors_take_the_plain_version():
+    arrays = _draw(7, 1, 9, 2, 24)         # a head dim no kernel takes
+    q, k, v, _ = (torch.from_numpy(a) for a in arrays)
+    before = (causal_attention_forward.launches,
+              causal_attention_backward_dq.launches,
+              causal_attention_backward_dkdv.launches)
+    got = causal_attention(q, k, v)
+    assert torch.equal(got, causal_attention_plain(q, k, v))
+    assert before == (causal_attention_forward.launches,
+                      causal_attention_backward_dq.launches,
+                      causal_attention_backward_dkdv.launches)
+
+
+def test_arguments_the_kernels_do_not_take_raise():
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(TypeError):
+        causal_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        causal_attention(q, q, q.bfloat16())
+    with pytest.raises(ValueError):
+        causal_attention(q, q, torch.zeros(1, 9, 2, 16))
+    with pytest.raises(ValueError):
+        causal_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError):
+        causal_attention(*(torch.zeros(1, 0, 2, 16),) * 3)
+    meta = torch.empty(1, 8, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        causal_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="run on cuda"):
+        causal_attention_forward(q, q, q)
+
+
+def test_the_kernels_take_the_head_dims_the_port_runs():
+    from brpc_tpu_torch.models.transformer import ModelConfig
+    from brpc_tpu_torch.serving.engine import tiny_config
+    for cfg in (ModelConfig(), tiny_config()):
+        assert cfg.head_dim in KERNEL_HEAD_DIMS
+
+
+# ---------------------------------------------------------------------------
+# the card
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc for the kernels")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+def test_kernels_match_plain_on_the_card(S, hd, dtype):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _draw(8, 2, S, 3, hd)
+    before = (causal_attention_forward.launches,
+              causal_attention_backward_dq.launches,
+              causal_attention_backward_dkdv.launches)
+    got = _torch_grads(causal_attention, arrays, dtype, "cuda")
+    want = _torch_grads(causal_attention_plain, arrays, dtype, "cuda")
+    torch.cuda.synchronize()
+    assert (causal_attention_forward.launches,
+            causal_attention_backward_dq.launches,
+            causal_attention_backward_dkdv.launches) == tuple(
+                n + 1 for n in before)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_kernels_read_strided_inputs():
+    """q, k, v as views of one fused [B, S, 3, H, hd] projection, and dO
+    with a transposed layout: the kernels read the strides."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    B, S, H, hd = 2, 100, 4, 64
+    qkv = torch.randn(B, S, 3, H, hd, generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    do = torch.randn(B, H, S, hd, generator=g,
+                     device="cuda").transpose(1, 2)
+    o, lse = causal_attention_forward(q, k, v)
+    dq, delta = causal_attention_backward_dq(q, k, v, do, lse)
+    dk, dv = causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+    c = [t.contiguous() for t in (q, k, v, do)]
+    o2, lse2 = causal_attention_forward(*c[:3])
+    dq2, delta2 = causal_attention_backward_dq(*c, lse2)
+    dk2, dv2 = causal_attention_backward_dkdv(*c, lse2, delta2)
+    torch.cuda.synchronize()
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
+                 (dk, dk2), (dv, dv2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_function_is_the_kernels():
+    _card()
+    arrays = _draw(10, 1, 70, 2, 16)
+    got = _torch_grads(CausalAttention.apply, arrays, torch.float32, "cuda")
+    want = _torch_grads(causal_attention, arrays, torch.float32, "cuda")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_a_head_dim_they_do_not_take():
+    _card()
+    q = torch.zeros(1, 8, 2, 48, device="cuda")
+    with pytest.raises(ValueError, match="not 48"):
+        causal_attention(q, q, q)

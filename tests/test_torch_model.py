@@ -57,16 +57,17 @@ def test_params_keep_the_reference_tree(models):
     names = dict(model.named_parameters())
     assert names["blocks.wq"].shape == tree["blocks"]["wq"].shape
     assert names["blocks.wo"].shape == tree["blocks"]["wo"].shape
-    np.testing.assert_array_equal(names["ln_f.g"].numpy(),
+    np.testing.assert_array_equal(names["ln_f.g"].detach().numpy(),
                                   tree["ln_f"]["g"])
-    np.testing.assert_array_equal(names["embed"].numpy(), tree["embed"])
+    np.testing.assert_array_equal(names["embed"].detach().numpy(),
+                                  tree["embed"])
 
 
 def test_apply_matches_reference(models):
     ref_cfg, tree, cfg, model = models
     toks = _tokens(1, (2, 24))
     want = ref_tf.apply(tree, jnp.asarray(toks), ref_cfg)
-    got = T.apply(model, torch.from_numpy(toks), cfg)
+    got = T.apply(model, torch.from_numpy(toks), cfg).detach()
     _close(got, want, LOGITS_TOL)
 
 
@@ -202,9 +203,19 @@ def test_decode_attention_rejects_what_the_kernel_does_not_take():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        T.TransformerLM(T.ModelConfig(n_experts=2, **{
-            k: v for k, v in SHAPE.items() if k != "n_experts"}), "cpu")
+    """The decode path is dense-only, as the reference's
+    (decode.py:37-39: ValueError); the ring attention path is not ported."""
+    moe = T.ModelConfig(n_experts=2, **{
+        k: v for k, v in SHAPE.items() if k != "n_experts"})
+    model = T.init(torch.Generator().manual_seed(0), moe, "cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="dense-only"):
+        D.init_cache(moe, 1, 8, "cpu")
+    with pytest.raises(ValueError, match="dense-only"):
+        D.prefill(model, toks, moe)
+    with pytest.raises(ValueError, match="dense-only"):
+        D.decode_step(model, {}, toks[0, :1], torch.ones(1, dtype=torch.bool),
+                      moe)
     with pytest.raises(NotImplementedError):
         D.init_cache(dataclasses.replace(T.ModelConfig(**SHAPE),
                                          attn_impl="ring"), 1, 8, "cpu")

@@ -47,7 +47,8 @@ COPIED = (
 PORTED = [
     "_native/__init__.py", "tpu_plane.py", "weights.py",
     "models/__init__.py", "models/transformer.py", "models/decode.py",
-    "ops/__init__.py", "ops/decode_attention.py",
+    "models/train.py", "models/checkpoint.py",
+    "ops/__init__.py", "ops/decode_attention.py", "ops/causal_attention.py",
     "parallel/__init__.py", "parallel/quantize.py",
     "serving/__init__.py", "serving/engine.py",
 ]
