@@ -30,15 +30,20 @@
 // lse = m + log(l), so its p may differ from the forward's in the last
 // f32 bits.
 //
+// Which kernel runs: the bf16 forward and dq run on the tensor cores
+// (causal_attention_sm90.cu: wgmma, TMA); the C entries below dispatch
+// them there.  This file keeps the f32 forward and dq (TF32 tensor cores
+// keep 10 mantissa bits, too few for the f32 checks) and the dk/dv
+// kernel of both types.
+//
 // Bound on an H100: operations.  At B=8, S=1024, H=8, hd=64 in bf16 the
 // forward moves 34 MB (10 us at 3.35 TB/s) and does 8.6 GFLOP (8.7 us at
 // 989 TFLOP/s of bf16 tensor cores); the backward moves 67 MB and does
-// 21.5 GFLOP.  This is the simple first kernel: SIMT f32 FMAs, no tensor
-// cores, so it runs far from that bound (f32 outside the tensor cores
-// peaks at 67 TFLOP/s).  mma.sync or wgmma, TMA and warp specialisation
-// are later work.
+// 21.5 GFLOP.  The kernels of this file are the simple first ones: SIMT
+// f32 FMAs, no tensor cores, so they run far from that bound (f32
+// outside the tensor cores peaks at 67 TFLOP/s).
 //
-// Design:
+// Design of this file's kernels:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
 //    16 x 16 grid; thread (ty, tx) owns rows ty + 16 i (i < 4) and
 //    columns tx + 16 j of every tile product, so a row's 16 owners sit in
@@ -594,31 +599,33 @@ bool valid_shape(int B, int S, int H) {
 
 }  // namespace
 
+// The tensor-core kernels (causal_attention_sm90.cu), for bf16.
+extern "C" int trpc_causal_attention_fwd_sm90(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const long long* strides, int B, int S, int H, int hd, float sqrt_hd,
+    void* stream);
+extern "C" int trpc_causal_attention_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, void* dq, void* delta, const long long* strides, int B,
+    int S, int H, int hd, float sqrt_hd, void* stream);
+
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 16, 64 or 128.  strides:
 // (b, s, h) element strides of q, k, v (and dO for the backward), in that
 // order; the last dim of each is contiguous.  Outputs (o, dq, dk, dv) are
 // contiguous [B, S, H, hd]; lse and delta contiguous [B, H, S] f32.
 // Each returns cudaGetLastError() after its launch (0 on success); the
-// launch is asynchronous on `stream`.
+// launch is asynchronous on `stream`.  The forward and dq take bf16 to
+// the tensor-core kernels, whose q, k, v and dO views must be 16-byte
+// aligned in base and strides (TMA's rule; the wrapper copies any other);
+// where the driver refuses the tensor map of input i (0 q, 1 k, 2 v,
+// 3 dO) they return -(1000 (i + 1) + its CUresult).
 
-#define TRPC_CA_DISPATCH(FN, ...)                 \
-  {                                               \
-    if (dtype == 0) {                             \
-      using T = __nv_bfloat16;                    \
-      switch (hd) {                               \
-        case 16: return FN<T, 16>(__VA_ARGS__);   \
-        case 64: return FN<T, 64>(__VA_ARGS__);   \
-        case 128: return FN<T, 128>(__VA_ARGS__); \
-      }                                           \
-    } else if (dtype == 1) {                      \
-      using T = float;                            \
-      switch (hd) {                               \
-        case 16: return FN<T, 16>(__VA_ARGS__);   \
-        case 64: return FN<T, 64>(__VA_ARGS__);   \
-        case 128: return FN<T, 128>(__VA_ARGS__); \
-      }                                           \
-    }                                             \
-    return (int)cudaErrorInvalidValue;            \
+// return FN<T, hd>(...) for the head dims the kernels take
+#define TRPC_CA_HD(T, FN, ...)                  \
+  switch (hd) {                                 \
+    case 16: return FN<T, 16>(__VA_ARGS__);     \
+    case 64: return FN<T, 64>(__VA_ARGS__);     \
+    case 128: return FN<T, 128>(__VA_ARGS__);   \
   }
 
 extern "C" int trpc_causal_attention_fwd(const void* q, const void* k,
@@ -629,9 +636,16 @@ extern "C" int trpc_causal_attention_fwd(const void* q, const void* k,
   if (!valid_shape(B, S, H)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 0) {
+    return trpc_causal_attention_fwd_sm90(q, k, v, o, lse, strides, B, S, H,
+                                          hd, sqrt_hd, stream);
+  }
   const Layout lay = layout_of(strides, 3);
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_CA_DISPATCH(fwd, q, k, v, o, (float*)lse, lay, B, S, H, sqrt_hd, st);
+  if (dtype == 1) {
+    TRPC_CA_HD(float, fwd, q, k, v, o, (float*)lse, lay, B, S, H, sqrt_hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int trpc_causal_attention_bwd_dq(
@@ -641,10 +655,18 @@ extern "C" int trpc_causal_attention_bwd_dq(
   if (!valid_shape(B, S, H)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 0) {
+    return trpc_causal_attention_bwd_dq_sm90(q, k, v, dout, lse, dq, delta,
+                                             strides, B, S, H, hd, sqrt_hd,
+                                             stream);
+  }
   const Layout lay = layout_of(strides, 4);
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_CA_DISPATCH(bwd_dq, q, k, v, dout, (const float*)lse, dq,
-                   (float*)delta, lay, B, S, H, sqrt_hd, st);
+  if (dtype == 1) {
+    TRPC_CA_HD(float, bwd_dq, q, k, v, dout, (const float*)lse, dq,
+               (float*)delta, lay, B, S, H, sqrt_hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int trpc_causal_attention_bwd_dkdv(
@@ -657,6 +679,12 @@ extern "C" int trpc_causal_attention_bwd_dkdv(
   }
   const Layout lay = layout_of(strides, 4);
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_CA_DISPATCH(bwd_dkdv, q, k, v, dout, (const float*)lse,
-                   (const float*)delta, dk, dv, lay, B, S, H, sqrt_hd, st);
+  if (dtype == 0) {
+    TRPC_CA_HD(__nv_bfloat16, bwd_dkdv, q, k, v, dout, (const float*)lse,
+               (const float*)delta, dk, dv, lay, B, S, H, sqrt_hd, st);
+  } else if (dtype == 1) {
+    TRPC_CA_HD(float, bwd_dkdv, q, k, v, dout, (const float*)lse,
+               (const float*)delta, dk, dv, lay, B, S, H, sqrt_hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,14 @@ Three kernels, one wrapper each, and each wrapper counts its launches
   row sums D = sum_t p dW [B, H, S] (launched first);
 * :func:`causal_attention_backward_dkdv`  dk and dv, from D.
 
+In bf16 the forward and dq run on the tensor cores
+(``csrc/causal_attention_sm90.cu``: wgmma, TMA), whose tile loads need
+16-byte aligned bases and strides: the wrapper copies a view that has
+neither.  f32 and the dk/dv kernel run the SIMT kernels of
+``csrc/causal_attention.cu``; the C entries choose by dtype.
+
 Head dims ``KERNEL_HEAD_DIMS`` on the card; the plain version takes any.
-Bound and design: see the kernel source's note.
+Bound and design: see the kernel sources' notes.
 """
 
 from __future__ import annotations
@@ -102,14 +108,26 @@ def _check(*ts) -> None:
                          f"{KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
 
 
+def _tma_ready(t) -> bool:
+    """TMA's rule for the tensor-core kernels: a 16-byte aligned base, and
+    positive strides of 16-byte multiples for every dim longer than 1."""
+    if t.data_ptr() % 16:
+        return False
+    return all(st > 0 and st * t.element_size() % 16 == 0
+               for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+
+
 def _cuda(*ts):
-    """The tensors with a contiguous last dim (the kernels read the other
-    dims through their strides), after the checks."""
+    """The tensors as the kernels read them, after the checks: a
+    contiguous last dim (the other dims are read through their strides),
+    and in bf16 what TMA takes; anything else is copied."""
     _check(*ts)
     if ts[0].device.type != "cuda":
         raise ValueError(f"the causal_attention kernels run on cuda, not "
                          f"{ts[0].device}")
-    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+    return [t if t.stride(-1) == 1 and (t.dtype != torch.bfloat16
+                                        or _tma_ready(t))
+            else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 
 def _strides(ts):
@@ -123,6 +141,11 @@ def _launch(fn, name, ptrs, strides, q) -> None:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*ptrs, strides, B, S, H, hd, _DTYPES[q.dtype],
                 math.sqrt(hd), stream)
+    if rc < 0:
+        which, code = divmod(-rc, 1000)
+        raise RuntimeError(f"{name}: the driver refused the TMA map of "
+                           f"{('q', 'k', 'v', 'dO')[which - 1]} "
+                           f"(CUresult {code})")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 

@@ -58,16 +58,18 @@ def _kernels() -> ctypes.CDLL:
 
 def decode_attention_plain(q, k_new, v_new, k_cache_l, v_cache_l, p):
     """The reference's arithmetic on tensors (decode.py:178-186): scatter,
-    then scores over all S positions, -1e30 outside 0..p, f32 softmax."""
+    then scores over all S positions (the product in the working type,
+    divided in f32: JAX promotes it against the numpy scalar
+    np.sqrt(hd)), -1e30 outside 0..p, f32 softmax."""
     N, S = k_cache_l.shape[0], k_cache_l.shape[1]
     rows = torch.arange(N, device=q.device)
     pl = p.long()
     k_cache_l[rows, pl] = k_new
     v_cache_l[rows, pl] = v_new
-    scores = torch.einsum("nhk,nshk->nhs", q, k_cache_l) / math.sqrt(
-        q.shape[-1])
+    scores = (torch.einsum("nhk,nshk->nhs", q, k_cache_l).float()
+              / math.sqrt(q.shape[-1]))
     valid = torch.arange(S, device=q.device)[None, :] <= pl[:, None]
-    scores = torch.where(valid[:, None, :], scores.float(),
+    scores = torch.where(valid[:, None, :], scores,
                          torch.tensor(-1e30, device=q.device))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("nhs,nshk->nhk", w, v_cache_l)

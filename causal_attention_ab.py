@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+r"""Other trees' causal_attention beside the checkout's, on one NVIDIA
+GPU: the bf16 forward and dq kernels and their wrappers' host time.
+
+    mkdir -p scratch/base
+    git archive <commit> | tar -x -C scratch/base
+    python3 causal_attention_ab.py scratch/base [TREE ...]
+
+A TREE is a checkout of this repo; its ``brpc_tpu_torch`` builds its own
+kernels at first use (every tree's build runs at once, before any
+timing).  Each tree is measured in a process of its own that imports its
+package, in the order TREE ..., the checkout, the checkout, TREE ...
+reversed.  Each prints one JSON line:
+
+* ``device_ms``: one call of the forward and of dq on the device alone
+  (chip_smoke.py's ``device_ms``: [L2-warm ms, L2-cold ms]) at
+  chip_smoke.py's ATTN_SHAPE (``train``) and ATTN_PREFILL_SHAPE
+  (``prefill``);
+* ``prefill_host_us``: microseconds of host time per call at
+  ATTN_PREFILL_SHAPE, where the kernels take a few microseconds: the
+  median of 7 rounds of 400 calls timed before the device catches up,
+  through the wrapper (contiguous inputs, and q, k, v as views of one
+  fused projection, as the model passes them) and through the C entry
+  alone (ctypes, the arguments made once).
+
+Prints the card's nvidia-smi name and power limit first; exits non-zero
+if a tree's process failed.
+"""
+
+import importlib
+import importlib.util
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _chip_smoke():
+    """The checkout's chip_smoke.py (its timing helpers and shapes)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_us(fn, calls=400, rounds=7) -> float:
+    import torch
+    per_call = []
+    for _ in range(rounds):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        per_call.append((t1 - t0) / calls * 1e6)
+    return statistics.median(per_call)
+
+
+def measure(tree: str) -> None:
+    sys.path.insert(0, tree)
+    import torch
+    ca = importlib.import_module("brpc_tpu_torch.ops.causal_attention")
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.ones(cs.FLUSH_BYTES // 4, device="cuda").sum
+    device = {}
+    for label, shape in (("train", cs.ATTN_SHAPE),
+                         ("prefill", cs.ATTN_PREFILL_SHAPE)):
+        q, k, v, do = (torch.randn(*shape, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        _, lse = ca.causal_attention_forward(q, k, v)
+        device[label] = {
+            "fwd": cs.device_ms(lambda: ca.causal_attention_forward(q, k, v),
+                                flush),
+            "bwd_dq": cs.device_ms(
+                lambda: ca.causal_attention_backward_dq(q, k, v, do, lse),
+                flush)}
+    # the host time, at the prefill shape: q, k, v, do, lse of the last pass
+    B, S, H, hd = shape
+    fq, fk, fv = torch.randn(B, S, 3, H, hd, generator=g, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    lib = ca._kernels()
+    o, dq = torch.empty_like(q), torch.empty_like(q)
+    lse2, delta = (torch.empty(B, H, S, device="cuda") for _ in range(2))
+    tail = [B, S, H, hd, 0, math.sqrt(hd),   # 0: bf16
+            torch.cuda.current_stream().cuda_stream]
+    fwd_args = ([t.data_ptr() for t in (q, k, v, o, lse2)]
+                + [ca._strides((q, k, v))] + tail)
+    dq_args = ([t.data_ptr() for t in (q, k, v, do, lse, dq, delta)]
+               + [ca._strides((q, k, v, do))] + tail)
+    assert lib.trpc_causal_attention_fwd(*fwd_args) == 0
+    assert lib.trpc_causal_attention_bwd_dq(*dq_args) == 0
+    host = {
+        "wrapper_fwd": host_us(lambda: ca.causal_attention_forward(q, k, v)),
+        "wrapper_fwd_fused_views": host_us(
+            lambda: ca.causal_attention_forward(fq, fk, fv)),
+        "wrapper_dq": host_us(
+            lambda: ca.causal_attention_backward_dq(q, k, v, do, lse)),
+        "c_entry_fwd": host_us(lambda: lib.trpc_causal_attention_fwd(
+            *fwd_args)),
+        "c_entry_dq": host_us(lambda: lib.trpc_causal_attention_bwd_dq(
+            *dq_args))}
+    print(json.dumps({"tree": tree, "device_ms": device,
+                      "prefill_host_us": host}), flush=True)
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--measure":
+        measure(argv[2])
+        return 0
+    trees = [os.path.abspath(t) for t in argv[1:]]
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("causal_attention_ab.py needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(),
+        flush=True)
+
+    def build(tree):
+        subprocess.run([sys.executable, "-c", "from brpc_tpu_torch import "
+                        "_native; _native.build_kernels()"], cwd=tree,
+                       check=True)
+    with ThreadPoolExecutor(len(trees) + 1) as ex:
+        list(ex.map(build, trees + [HERE]))
+    rc = 0
+    for tree in trees + [HERE, HERE] + trees[::-1]:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--measure", tree]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -7,9 +7,11 @@ Builds everything from the checkout (the native core with g++, the CUDA
 kernels with nvcc, in parallel), then runs these phases in order, each
 printing one JSON line; any failure exits non-zero with no result line:
 
-  card       the card's name and power limit, the build seconds, and
+  card       the card's name and power limit, the build seconds,
              ptxas -v's lines for each kernel (registers, shared memory,
-             spills)
+             spills) and each kernel's count of HGMMA (wgmma) instructions
+             in its SASS (cuobjdump -sass on the built library): the bf16
+             forward and dq kernels of causal_attention must have some
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
@@ -32,9 +34,13 @@ printing one JSON line; any failure exits non-zero with no result line:
              under autograd against autograd of the plain version at
              B=8, S=1024, H=8, hd=64 and at S=1000, f32 and bf16: o, dq,
              dk, dv within ATTN_TOL (the attention_check line prints the
-             errors and the share of the limit used).  Each kernel timed
+             errors and the share of the limit used).  The dtype dispatch
+             read from the device's kernel names under torch.profiler:
+             bf16 forward and dq launch the tensor-core kernels and no
+             SIMT forward or dq, f32 the SIMT ones.  Each kernel timed
              in bf16 on the device alone like decode_attention, beside its
-             bound, the plain version (CUDA events) and
+             bound, the plain version (CUDA events), the wrapper's
+             host-inclusive time (host_call_ms) and
              scaled_dot_product_attention(is_causal=True) forward and
              backward (a yardstick the port never calls)
   serving    ServingEngine at the full width of ModelConfig() on a Server:
@@ -160,6 +166,46 @@ def device_ms(fn, flush):
     return _p50(warm_ms), _p50(cold_ms)
 
 
+def _cuda_tool(name: str) -> str:
+    """A tool of the CUDA toolkit, else its copy in Triton's package."""
+    import shutil
+    for cand in (shutil.which(name),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", name)):
+        if cand and os.path.exists(cand):
+            return cand
+    import triton
+    return os.path.join(os.path.dirname(triton.__file__), "backends",
+                        "nvidia", "bin", name)
+
+
+def sass_hgmma(lib_path):
+    """{kernel: count of HGMMA instructions in its SASS}, each kernel
+    named as the demangler gives it, without return type, scope and
+    parameters (as causal_fwd_sm90<64> or
+    causal_dkdv_kernel<__nv_bfloat16, 64>)."""
+    import re
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib_path],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, counts = [], []
+    for line in out.splitlines():
+        if "Function :" in line:
+            funcs.append(line.split("Function :", 1)[1].strip())
+            counts.append(0)
+        elif funcs and "HGMMA" in line:
+            counts[-1] += 1
+    filt = _cuda_tool("cu++filt")
+    if not os.path.exists(filt):
+        filt = "c++filt"
+    plain = subprocess.run([filt, "-p", *funcs], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    assert len(plain) == len(funcs), (funcs, plain)
+    names = [re.search(r"(\w+<.*>|\w+)$", d.replace("(int)", ""))
+             for d in plain]
+    return {m.group(1) if m else d: n
+            for m, d, n in zip(names, plain, counts)}
+
+
 def phase_card():
     import torch
     from brpc_tpu_torch import _native
@@ -178,13 +224,17 @@ def phase_card():
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln]
     assert ptxas, "ptxas reported no kernel"
+    hgmma = sass_hgmma(kernels.result())
     emit({"phase": "card", "nvidia_smi": smi,
           "device_name": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": dict(_native.build_seconds),
           "build_wall_s": time.monotonic() - t0,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "sass_hgmma": hgmma})
+    tensor_core = {k: n for k, n in hgmma.items()
+                   if k.startswith(("causal_fwd_sm90", "causal_dq_sm90"))}
+    assert len(tensor_core) == 6 and all(tensor_core.values()), hgmma
     return smi
 
 
@@ -357,6 +407,7 @@ ATTN_RAGGED_S = 1000
 ATTN_TOL = {"bf16": dict(atol=1e-2, rtol=2e-2),
             "f32": dict(atol=1e-5, rtol=1e-5)}
 ATTN_OUTPUTS = ("o", "dq", "dk", "dv")
+ATTN_PREFILL_SHAPE = (1, 256, 8, 64)   # one prefill of a 256-token prompt
 
 
 def attention_bounds(B, S, H, hd, elt):
@@ -421,12 +472,38 @@ def check_attention(g):
     return errs, shares
 
 
+def attention_routes(g):
+    """{dtype: the causal_attention kernels that one forward and backward
+    through CausalAttention launched}, read from the device's kernel
+    names under torch.profiler (at B=1, S=130, H=2, hd=64)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch.ops.causal_attention import CausalAttention
+    routes = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        args = [torch.randn(1, 130, 2, 64, generator=g,
+                            device="cuda").to(dtype) for _ in range(4)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attention_grads(CausalAttention.apply, *args)
+            torch.cuda.synchronize()
+        routes[name] = sorted({m.group(0) for e in prof.events()
+                               for m in [re.search(r"causal_\w+", e.name)]
+                               if m})
+    return routes
+
+
 def phase_attention():
     """causal_attention's three kernels: checked against the plain
     version, then timed in bf16 at ATTN_SHAPE on the device alone (as
     decode_attention: L2-warm ms and L2-cold cold_ms), each beside its
-    bound, the plain version's time (CUDA events around its calls) and
-    scaled_dot_product_attention(is_causal=True) on the same inputs."""
+    bound, the plain version's time (CUDA events around its calls), the
+    wrapper's host-inclusive time and scaled_dot_product_attention(
+    is_causal=True) on the same inputs; the forward and dq also at one
+    prefill's shape (ATTN_PREFILL_SHAPE: device ms and host-inclusive
+    ms); then the kernels each dtype launches (attention_routes)."""
     import torch
     import torch.nn.functional as F
     from brpc_tpu_torch.ops.causal_attention import (
@@ -468,6 +545,27 @@ def phase_attention():
          "fwd_bwd": device_ms(fwd_bwd(CausalAttention.apply, do), flush),
          "sdpa_fwd": device_ms(lambda: sdpa_bshk(q, k, v), flush),
          "sdpa_fwd_bwd": device_ms(fwd_bwd(sdpa_bshk, do), flush)}
+    host_call = {
+        "fwd": cuda_ms(lambda: causal_attention_forward(q, k, v), 200),
+        "bwd_dq": cuda_ms(
+            lambda: causal_attention_backward_dq(q, k, v, do, lse), 200),
+        "bwd_dkdv": cuda_ms(
+            lambda: causal_attention_backward_dkdv(q, k, v, do, lse, delta),
+            50)}
+    # at one prefill's shape the kernels take microseconds, so the
+    # wrapper's host work (checks, tensor maps, ctypes) shows
+    pq, pk, pv, pdo = (torch.randn(*ATTN_PREFILL_SHAPE, generator=g,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+    _, plse = causal_attention_forward(pq, pk, pv)
+    prefill = {
+        "fwd": (device_ms(lambda: causal_attention_forward(pq, pk, pv),
+                          flush)[0],
+                cuda_ms(lambda: causal_attention_forward(pq, pk, pv), 200)),
+        "bwd_dq": (device_ms(lambda: causal_attention_backward_dq(
+            pq, pk, pv, pdo, plse), flush)[0], cuda_ms(
+                lambda: causal_attention_backward_dq(pq, pk, pv, pdo, plse),
+                200))}
     plain_fwd = cuda_ms(lambda: causal_attention_plain(q, k, v), 10)
     plain_fwd_bwd = cuda_ms(fwd_bwd(causal_attention_plain, do), 5)
     bounds = attention_bounds(B, S, H, hd, 2)
@@ -486,10 +584,16 @@ def phase_attention():
         rows[name] = {"ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
                       "library_ms": library, "library_cold_ms": library_cold,
-                      "plain_ms": plain}
+                      "plain_ms": plain, "host_call_ms": host_call[name]}
+        if name in prefill:
+            rows[name]["prefill_ms"], rows[name]["prefill_host_call_ms"] = \
+                prefill[name]
+    routes = attention_routes(g)  # read after the timings: no profiler in them
     emit({"phase": "attention", "name": "causal_attention",
           "shape": dict(zip(("B", "S", "H", "hd"), ATTN_SHAPE)),
-          "dtype": "bf16", "kernels": rows,
+          "dtype": "bf16", "kernels": rows, "kernels_by_dtype": routes,
+          "prefill_shape": dict(zip(("B", "S", "H", "hd"),
+                                    ATTN_PREFILL_SHAPE)),
           "fwd_bwd_ms": t["fwd_bwd"][0], "fwd_bwd_cold_ms": t["fwd_bwd"][1],
           "fwd_bwd_bound": bounds["fwd_bwd"], "bwd_bound": bounds["bwd"],
           "sdpa_fwd_bwd_ms": t["sdpa_fwd_bwd"][0],
@@ -498,6 +602,10 @@ def phase_attention():
           "library": "torch.nn.functional.scaled_dot_product_attention("
                      "is_causal=True); its backward and the plain "
                      "version's: fwd+bwd less fwd"})
+    assert routes["bf16"] == ["causal_dkdv_kernel", "causal_dq_sm90",
+                              "causal_fwd_sm90"], routes
+    assert routes["f32"] == ["causal_dkdv_kernel", "causal_dq_kernel",
+                             "causal_fwd_kernel"], routes
     return {"errs": errs, "rows": rows}
 
 
@@ -972,7 +1080,9 @@ def main() -> int:
         row = attn["rows"][name]
         kernels.append({
             "name": f"causal_attention_{name}", "route": "cuda",
-            "source": "brpc_tpu_torch/csrc/causal_attention.cu",
+            "source": "brpc_tpu_torch/csrc/causal_attention.cu"
+            if name == "bwd_dkdv" else
+            "brpc_tpu_torch/csrc/causal_attention_sm90.cu",
             "replaces": replaces, "launches": train_launches[wrapper],
             "max_abs_err": max(err[o] for o in outs), **row,
             "launches_in": "train phase, 5 steps x 4 layers",

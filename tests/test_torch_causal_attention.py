@@ -15,21 +15,29 @@ On the CPU:
   The division trap: JAX divides the bf16 scores by np.sqrt(hd) in f32;
   rounding the quotient to bf16 (what PyTorch does for ``bf16 / float``)
   moves the scores at hd = 32, where sqrt(hd) is no power of two.
-* ``kernel_model``, the kernels' arithmetic written in torch (two-pass
-  forward, p recomputed from lse, the softmax backward's row sums
-  D = sum_t p dW taken exactly), against autograd of the plain version:
-  within ``CARD_TOL``, the tolerance the card legs and chip_smoke.py
-  hold the kernels to.  Control: the same model with the diagonal key
-  (t = s) left out of every row leaves it.  (The rowsum(dO * o)
-  stand-in for D would stay inside it: at these shapes it moves dq and
-  dk by about one bf16 step, as the kernels' own flips do; the kernels
-  take D exactly all the same.)
+* ``kernel_model``, the kernels' arithmetic written in torch in their
+  order of work over 64-key tiles (the forward's two passes: the online
+  (m, l), then the weights rounded as the registers feed them to the
+  tensor cores, times V; p recomputed from lse; D = sum_t p dW taken
+  exactly, per tile and then over the tiles; dS rounded as the
+  registers feed it), against autograd of the plain version: within ``CARD_TOL``, the
+  tolerance the card legs and chip_smoke.py hold the kernels to.
+  Controls: the same model with the diagonal key (t = s) left out of
+  every row leaves it; a one-pass online softmax, which rounds
+  exp(s - m_running), leaves the bf16 agreement of o at unit-scale
+  inputs and CARD_TOL at a wider range.  (The
+  rowsum(dO * o) stand-in for D would stay inside CARD_TOL: at these
+  shapes it moves dq and dk by about one bf16 step, as the kernels' own
+  flips do; the kernels take D exactly all the same.)
 * Argument checks.
 
-The ``cuda``-marked legs run the three kernels on the card, at head dims
-16, 64 and 128, S from 1 to 200 (tile edges 63/64/65), bf16 and f32,
-with strided inputs, against the plain version on the same inputs; they
-skip without a card and run there with
+The ``cuda``-marked legs run on the card: the
+three kernels at head dims 16, 64 and 128, S from 1 to 1024 (tile edges
+63/64/65, a ragged 1000), bf16 and f32, against the plain version on
+the same inputs; strided (fused-projection) q, k, v, a transposed dO
+and an unaligned view in bf16; and the dtype dispatch (bf16 forward and
+dq on the tensor cores, f32 on the SIMT kernels) read from the device's
+kernel names.  They skip without a card and run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
 (this file imports jax only inside its CPU legs).
 """
@@ -111,14 +119,29 @@ def _bf16_agrees(got, want) -> bool:
         flips <= BF16_REF_FLIPS
 
 
-def kernel_model(q, k, v, do, drop_diagonal=False):
-    """The kernels' arithmetic (csrc/causal_attention.cu) on tensors:
-    (o, dq, dk, dv) as f32.  ``drop_diagonal``: leave key t = s out of
-    row s (a wrong kernel, for the tolerance's control; row 0 keeps its
-    only key)."""
+TILE = 64    # query and key rows of a tile in the kernels
+
+
+def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False):
+    """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16,
+    the SIMT kernels of csrc/causal_attention.cu for f32) on tensors, in
+    their order of work over 64-key tiles: (o, dq, dk, dv) as f32.
+
+    Forward, two passes: the online row max and sum (m, l) over the key
+    tiles; then p = exp(s - m) / l, rounded to the working type as the
+    registers feed it to the tensor cores, times each V tile, summed over
+    the tiles in f32 and rounded once.  dq: D = sum_t p dW taken per tile
+    and then over the tiles, from p recomputed from lse; dS rounded as
+    the registers feed it to dS . K.  ``drop_diagonal``: leave key t = s
+    out of row s (a wrong kernel, for the tolerance's control; row 0
+    keeps its only key).  ``one_pass``: the online softmax of one pass,
+    which rounds exp(s - m_running) and rescales the sum (a different
+    rounding of the weights, for the second control).  The exponential
+    is ``expf`` in both dtypes, as in the plain version."""
     dt = q.dtype
     S, hd = q.shape[1], q.shape[-1]
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    tiles = [(t0, min(t0 + TILE, S)) for t0 in range(0, S, TILE)]
 
     def rt(x):
         return x.to(dt).float()
@@ -128,14 +151,34 @@ def kernel_model(q, k, v, do, drop_diagonal=False):
                       diagonal=-1 if drop_diagonal else 0)
     mask[0, 0] = True
     s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(-1, keepdim=True)
-    l = torch.exp(s - m).sum(-1, keepdim=True)
-    o = rt(torch.einsum("bhst,bthk->bshk", rt(torch.exp(s - m) / l), vf))
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape[0], qf.shape[2], S, hd)      # [B, H, S, hd]
+    for a, b in tiles:                       # pass 1 (with one_pass: all)
+        st = s[..., a:b]
+        mn = torch.maximum(m, st.amax(-1, keepdim=True))
+        e = torch.exp(st - mn)
+        corr = torch.exp(m - mn)
+        l = l * corr + e.sum(-1, keepdim=True)
+        if one_pass:
+            acc = acc * corr + torch.einsum("bhst,bthk->bhsk", rt(e),
+                                            vf[:, a:b])
+        m = mn
+    if one_pass:
+        o = rt((acc / l).transpose(1, 2))
+    else:
+        acc.zero_()
+        for a, b in tiles:                   # pass 2
+            w = rt(torch.exp(s[..., a:b] - m) / l)
+            acc = acc + torch.einsum("bhst,bthk->bhsk", w, vf[:, a:b])
+        o = rt(acc.transpose(1, 2))
     p = torch.exp(s - (m + torch.log(l)))          # from lse
     dw = rt(torch.einsum("bshk,bthk->bhst", dof, vf))
-    delta = (p * dw).sum(-1, keepdim=True)
+    delta = sum((p[..., a:b] * dw[..., a:b]).sum(-1, keepdim=True)
+                for a, b in tiles)
     ds = rt(p * (dw - delta) / math.sqrt(hd))
-    dq = rt(torch.einsum("bhst,bthk->bshk", ds, kf))
+    dq = rt(sum(torch.einsum("bhst,bthk->bshk", ds[..., a:b], kf[:, a:b])
+                for a, b in tiles))
     dk = rt(torch.einsum("bhst,bshk->bthk", ds, qf))
     dv = rt(torch.einsum("bhst,bshk->bthk", rt(p), dof))
     return [o, dq, dk, dv]
@@ -195,7 +238,7 @@ def test_scores_are_divided_in_f32_as_jax_promotes_them():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("S", [1, 17, 80])
+@pytest.mark.parametrize("S", [1, 17, 80, 130])
 def test_kernel_model_matches_plain_autograd(S, dtype):
     arrays = _draw(5, 2, S, 2, 16)
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
@@ -213,6 +256,28 @@ def test_card_tolerance_fails_a_dropped_diagonal(dtype):
     got = kernel_model(q, k, v, do, drop_diagonal=True)
     for g, w in zip(got, want):
         assert _gap_share([g], [w], CARD_TOL[dtype]) > 1.0
+
+
+def test_one_pass_weights_leave_the_two_pass_rounding():
+    """The second control: a one-pass online softmax rounds
+    exp(s - m_running) where the reference rounds the final weights.  At
+    the card legs' unit-scale inputs its o leaves the bf16 agreement
+    (one step, rare flips) that the two-pass model keeps, though it stays
+    inside CARD_TOL there (about a quarter of the limit); with scores and
+    values of a wider range (q, k x 2, v x 8) it leaves CARD_TOL too,
+    where the two-pass model stays inside."""
+    dtype, tol = torch.bfloat16, CARD_TOL[torch.bfloat16]
+    for scale, v_scale, within in ((1.0, 1.0, True), (2.0, 8.0, False)):
+        arrays = _draw(11, 2, 300, 2, 16, scale)
+        arrays[2] = arrays[2] * v_scale
+        q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
+        want = _torch_grads(causal_attention_plain, arrays, dtype)
+        two = kernel_model(q, k, v, do)
+        one = kernel_model(q, k, v, do, one_pass=True)
+        assert _bf16_agrees(two[:1], want[:1])
+        assert not _bf16_agrees(one[:1], want[:1])
+        assert _gap_share(two, want, tol) <= 1.0
+        assert (_gap_share(one[:1], want[:1], tol) <= 1.0) == within
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -267,7 +332,7 @@ def _card():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("S", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 1000, 1024])
 def test_kernels_match_plain_on_the_card(S, hd, dtype):
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -308,6 +373,68 @@ def test_kernels_read_strided_inputs():
     for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
                  (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [65, 1000])
+def test_tensor_core_kernels_read_strided_and_unaligned_inputs(S, hd):
+    """bf16: q, k, v as views of one fused [B, S, 3, H, hd] projection and
+    a transposed dO go to TMA as they are; a view whose base is not 16-byte
+    aligned (offset by one element) is copied by the wrapper.  Each gives
+    the same outputs, to the bit, as contiguous copies, and each within
+    CARD_TOL of the plain version."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(15)
+    B, H = 2, 3
+    qkv = torch.randn(B, S, 3, H, hd, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    do = torch.randn(B, H, S, hd, generator=g,
+                     device="cuda").to(torch.bfloat16).transpose(1, 2)
+    flat = torch.randn(B * S * H * hd + 1, generator=g,
+                       device="cuda").to(torch.bfloat16)
+    k_odd = flat[1:].view(B, S, H, hd)          # base off by 2 bytes
+    k_odd.copy_(k)
+    c = [t.contiguous() for t in (q, k, v, do)]
+    o, lse = causal_attention_forward(q, k_odd, v)
+    dq, delta = causal_attention_backward_dq(q, k_odd, v, do, lse)
+    o2, lse2 = causal_attention_forward(*c[:3])
+    dq2, delta2 = causal_attention_backward_dq(*c, lse2)
+    want = causal_attention_plain(*c[:3])
+    torch.cuda.synchronize()
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2)):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(o.float(), want.float(),
+                               **CARD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
+    """The dtype dispatch, read from the device's own kernel names under
+    torch.profiler: bf16 forward and dq launch the wgmma kernels and no
+    SIMT forward or dq; f32 launches the SIMT kernels; dk/dv is SIMT in
+    both."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    arrays = _draw(16, 1, 130, 2, 64)
+    names = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _torch_grads(causal_attention, arrays, dtype, "cuda")
+            torch.cuda.synchronize()
+        names[name] = {e.name for e in prof.events() if "causal_" in e.name}
+
+    def has(dt, kernel):
+        return any(kernel in n for n in names[dt])
+
+    assert has("bf16", "causal_fwd_sm90") and has("bf16", "causal_dq_sm90")
+    assert not has("bf16", "causal_fwd_kernel")
+    assert not has("bf16", "causal_dq_kernel")
+    assert has("f32", "causal_fwd_kernel") and has("f32", "causal_dq_kernel")
+    assert not has("f32", "_sm90")
+    assert has("bf16", "causal_dkdv_kernel") and has("f32",
+                                                     "causal_dkdv_kernel")
 
 
 @pytest.mark.cuda

@@ -223,7 +223,7 @@ def test_unported_options_raise():
 
 def test_plain_decode_attention_bf16_rounds_scores_first():
     """The score-rounding trap, in bf16: the reference rounds q.k to bf16
-    and divides in bf16 before the f32 softmax.  The port's plain version
+    and divides in f32 before the f32 softmax.  The port's plain version
     does the same (atol 1e-2, under one bf16 step at these magnitudes);
     scores kept in f32 instead would leave that tolerance."""
     rng = np.random.default_rng(10)

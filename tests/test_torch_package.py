@@ -4,8 +4,10 @@
   scan of every module) and at run time (a process that serves a request
   has no jax module and no reference core mapped).
 * The host modules carried over from the reference are copies: each
-  equals its reference once the package prefix is rewritten.  The port's
-  own modules are listed; a module in neither list fails the scan.
+  equals, byte for byte, what ``carry`` makes of its reference (the
+  package prefix rewritten, the reference's ``ISSUE n`` tags dropped, and
+  one comment's example path made generic).  The port's own modules are
+  listed; a module in neither list fails the scan.
 * Entry points run on the card unless the caller asks for the CPU: with
   no card they raise, and chip_smoke.py fails without printing a result.
 """
@@ -87,10 +89,51 @@ def test_every_module_is_a_pinned_copy_or_a_port():
     assert sorted(COPIED + PORTED) == _port_modules()
 
 
+# The copies leave out the reference's "ISSUE n" tags.  A tag that opens
+# a parenthesis: "x (ISSUE n): y" -> "x: y", "(ISSUE n) y" -> "y"; and
+# "(ISSUE n, x" or "(ISSUE n; x" keep the parenthesis, the blank after
+# the tag (a line break too) moving in front of it.
+_OPENING_TAG = re.compile(r" ?\(ISSUE \d+(?P<sep>[,;)])(?P<ws>\s*)")
+# A tag that closes one: "(x, ISSUE n): y" -> "(x): y"; a line break
+# inside the tag moves after the "):" and takes the blank's place.
+_CLOSING_TAG = re.compile(
+    r",(?P<tag>\s*(?:#\s*)?ISSUE\s+\d+)\)(?P<colon>:?)(?P<blank> ?)")
+# A tag that is a noun of its sentence becomes the header it added.
+_NOUN_TAG = re.compile(r"\bISSUE 11\b")
+# The one comment that named an absolute path of the reference's checkout
+# (portal.py's base-directory check) names it generically.
+_EXAMPLE_PATH = re.compile(r"(/\w+/\w+)-secrets beside \1\b")
+
+
+def _drop_opening_tag(m):
+    return m["ws"] + ("" if m["sep"] == ")" else "(")
+
+
+def _drop_closing_tag(m):
+    brk = re.search(r"\n[ \t]*(?:#[ \t]*)?", m["tag"])
+    return ")" + m["colon"] + (brk.group(0) if brk else m["blank"])
+
+
+def carry(text: str) -> str:
+    """What a copied host module is made of its reference's text."""
+    text = re.sub(r"\bbrpc_tpu\b", "brpc_tpu_torch", text)
+    text = _OPENING_TAG.sub(_drop_opening_tag, text)
+    text = _CLOSING_TAG.sub(_drop_closing_tag, text)
+    text = _NOUN_TAG.sub("overload.h", text)
+    return _EXAMPLE_PATH.sub("a sibling dir like <base>-secrets", text)
+
+
+def test_carry_rewrites_only_tags_and_the_example_path():
+    code = "x = f(1)  # ISSUE\n"              # no tag form: left as it is
+    assert carry(code) == code
+    assert carry("a (ISSUE 19): b (c, ISSUE 8) d") == "a: b (c) d"
+    assert carry("import brpc_tpu.rpc") == "import brpc_tpu_torch.rpc"
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_copied_host_module_equals_its_reference(rel):
     with open(os.path.join(REPO, "brpc_tpu", rel)) as f:
-        want = re.sub(r"\bbrpc_tpu\b", "brpc_tpu_torch", f.read())
+        want = carry(f.read())
     with open(os.path.join(PKG, rel)) as f:
         assert f.read() == want, f"{rel} drifted from brpc_tpu/{rel}"
 
