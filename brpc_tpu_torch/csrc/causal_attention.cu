@@ -30,11 +30,11 @@
 // lse = m + log(l), so its p may differ from the forward's in the last
 // f32 bits.
 //
-// Which kernel runs: the bf16 forward and dq run on the tensor cores
-// (causal_attention_sm90.cu: wgmma, TMA); the C entries below dispatch
-// them there.  This file keeps the f32 forward and dq (TF32 tensor cores
-// keep 10 mantissa bits, too few for the f32 checks) and the dk/dv
-// kernel of both types.
+// Which kernel runs: every bf16 kernel (forward, dq, dk/dv) runs on the
+// tensor cores (causal_attention_sm90.cu: wgmma, TMA); the C entries
+// below dispatch it there.  This file keeps the f32 kernels (TF32
+// tensor cores keep 10 mantissa bits, too few for the f32 checks), so
+// its T is f32 in every launch.
 //
 // Bound on an H100: operations.  At B=8, S=1024, H=8, hd=64 in bf16 the
 // forward moves 34 MB (10 us at 3.35 TB/s) and does 8.6 GFLOP (8.7 us at
@@ -64,7 +64,6 @@
 //  - Query tiles run longest first (the grid's x is reversed).
 //
 // ptxas -v for each instantiation is printed on chip_smoke.py's card line.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -91,20 +90,12 @@ template <>
 __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
 }
 
 // x rounded to the working type and back.
@@ -608,14 +599,19 @@ extern "C" int trpc_causal_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, void* dq, void* delta, const long long* strides, int B,
     int S, int H, int hd, float sqrt_hd, void* stream);
+extern "C" int trpc_causal_attention_bwd_dkdv_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int S, int H, int hd, float sqrt_hd,
+    void* stream);
 
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 16, 64 or 128.  strides:
 // (b, s, h) element strides of q, k, v (and dO for the backward), in that
 // order; the last dim of each is contiguous.  Outputs (o, dq, dk, dv) are
 // contiguous [B, S, H, hd]; lse and delta contiguous [B, H, S] f32.
 // Each returns cudaGetLastError() after its launch (0 on success); the
-// launch is asynchronous on `stream`.  The forward and dq take bf16 to
-// the tensor-core kernels, whose q, k, v and dO views must be 16-byte
+// launch is asynchronous on `stream`.  Each takes bf16 to the
+// tensor-core kernels, whose q, k, v and dO views must be 16-byte
 // aligned in base and strides (TMA's rule; the wrapper copies any other);
 // where the driver refuses the tensor map of input i (0 q, 1 k, 2 v,
 // 3 dO) they return -(1000 (i + 1) + its CUresult).
@@ -677,12 +673,14 @@ extern "C" int trpc_causal_attention_bwd_dkdv(
   if (!valid_shape(B, S, H)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (dtype == 0) {
+    return trpc_causal_attention_bwd_dkdv_sm90(q, k, v, dout, lse, delta, dk,
+                                               dv, strides, B, S, H, hd,
+                                               sqrt_hd, stream);
+  }
   const Layout lay = layout_of(strides, 4);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    TRPC_CA_HD(__nv_bfloat16, bwd_dkdv, q, k, v, dout, (const float*)lse,
-               (const float*)delta, dk, dv, lay, B, S, H, sqrt_hd, st);
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     TRPC_CA_HD(float, bwd_dkdv, q, k, v, dout, (const float*)lse,
                (const float*)delta, dk, dv, lay, B, S, H, sqrt_hd, st);
   }

@@ -1,47 +1,53 @@
-// causal_attention_sm90.cu — the bf16 forward and dq kernels of causal
-// attention on Hopper's tensor cores: wgmma for every product, TMA for
-// every tile.
+// causal_attention_sm90.cu — the bf16 kernels of causal attention on
+// Hopper's tensor cores (forward, dq, dk/dv): wgmma for every product,
+// TMA for every tile.
 //
 // Counterpart: the same function as csrc/causal_attention.cu (the gather
 // branch of brpc_tpu/models/transformer.py:197-203 and its jax.grad;
 // prefill, brpc_tpu/models/decode.py:126-131), which keeps the f32
-// kernels and the dk/dv kernel and dispatches bf16 forward and dq here:
+// kernels and dispatches every bf16 launch here:
 //   q, k, v, dO [B, S, H, hd] bf16, read through their (b, s, h) strides
-//   o, dq [B, S, H, hd] bf16 contiguous; lse, D [B, H, S] f32
+//   o, dq, dk, dv [B, S, H, hd] bf16 contiguous; lse, D [B, H, S] f32
 // with every rounding of the reference in the same place (the list at
 // the top of causal_attention.cu): s = f32(T(q . k)) / sqrt(hd), the
 // forward's weights T(p) = T(exp(s - m) / l) after a first pass for
 // (m, l), dW = T(dO . v), D = sum_t p dW taken exactly in a first pass
-// of dq, dS = T(p (dW - D) / sqrt(hd)).
+// of dq, dS = T(p (dW - D) / sqrt(hd)), dv = T(sum_s T(p) dO) and
+// dk = T(sum_s dS q) from p = exp(s - lse) and dq's D.
 //
 // Bound on an H100: the forward's least time is its bytes, 34 MB at
 // B=8, S=1024, H=8, hd=64 (10 us at 3.35 TB/s; its 8.6 GFLOP of the
 // causal half's products take 8.7 us at 989 TFLOP/s); dq's is its 12.9
-// GFLOP (13 us).  The kernels do three (forward) and five (dq) products
-// per causal tile pair, the two passes' recomputation included, and
-// around them, per score and pass, a rounding, a division and an
-// exponential on the CUDA cores: at hd 64 that elementwise work, not the
-// tensor cores, is what holds them back (times in PERF.md).
+// GFLOP (13 us), dk/dv's its 17.2 GFLOP (17 us).  The kernels do three
+// (forward), five (dq) and four (dk/dv) products per causal tile pair,
+// the passes' recomputation included, and around them, per score and
+// pass, a rounding, a division and an exponential on the CUDA cores: at
+// hd 64 that elementwise work, not the tensor cores, is what holds them
+// back (times in PERF.md).
 //
 // Design:
-//  - One warpgroup (128 threads) per (64-row query tile, h, b); the
-//    blocks of the longest query tiles start first, over every (h, b).
-//    Thread t of warp w holds rows r0 = 16 w + t / 4 and r0 + 8 and
-//    columns 8 j + 2 (t % 4) + {0, 1} of every 64-row product (wgmma's
-//    accumulator layout), so a row's max, sum and D reduce over the four
-//    threads of a quad with two xor-shuffles.
-//  - The query tile (and dO's, for dq) is loaded once.  K and V tiles of
-//    64 keys stream through a two-stage ring: TMA (cp.async.bulk.tensor,
-//    4-D maps over (hd, s, h, b) built on the host at each launch)
-//    completes on a stage's mbarrier while the warpgroup computes on the
-//    other stage; thread 0 issues the next load after a block barrier
-//    that retires the stage it refills.  Rows at or past S arrive as
-//    zeros (TMA's out-of-bounds fill); the transaction count is always
-//    the whole box.
+//  - One warpgroup (128 threads) per (64-row tile, h, b): a query tile
+//    for the forward and dq, whose longest tiles start first, over every
+//    (h, b); a key tile for dk/dv, whose first tiles (which see the most
+//    query tiles) start first.  Thread t of warp w holds rows
+//    r0 = 16 w + t / 4 and r0 + 8 and columns 8 j + 2 (t % 4) + {0, 1} of
+//    every 64-row product (wgmma's accumulator layout), so a row's max,
+//    sum and D reduce over the four threads of a quad with two
+//    xor-shuffles.
+//  - The block's own tiles are loaded once (Q, and dO for dq; K and V for
+//    dk/dv).  The other side's tiles of 64 rows stream through a
+//    two-stage ring (K and V; Q and dO for dk/dv): TMA
+//    (cp.async.bulk.tensor, 4-D maps over (hd, s, h, b) built on the host
+//    at each launch) completes on a stage's mbarrier while the warpgroup
+//    computes on the other stage; thread 0 issues the next load after a
+//    block barrier that retires the stage it refills.  Rows at or past S
+//    arrive as zeros (TMA's out-of-bounds fill); the transaction count is
+//    always the whole box.
 //  - Tiles stay bf16 in shared memory in the swizzle that both TMA and
 //    the wgmma descriptors name: 128-byte at hd 64, two 64-column
 //    128-byte atoms at hd 128, 32-byte at hd 16.  Q plus two stages of K
-//    and V is 40 KB at hd 64.
+//    and V is 40 KB at hd 64; dk/dv's K, V and two stages of Q and dO 48
+//    KB.
 //  - S = Q.K^T and dW = dO.V^T: wgmma m64n64k16 with both operands
 //    K-major in shared memory.  O += T(P).V and dq += dS.K: wgmma
 //    m64n{hd}k16 with A from registers (the S accumulator's fragment,
@@ -49,6 +55,17 @@
 //    groups is the A fragment of one 16-deep step) and B the V or K tile
 //    read MN-major (the transpose bit), so P and dS never touch shared
 //    memory.
+//  - dk/dv takes the same products with the operands swapped, S^T =
+//    K.Q^T and dW^T = V.dO^T, whose rows are keys and columns queries:
+//    T(P)^T and dS^T are then the A fragments of dv += T(P)^T.dO and
+//    dk += dS^T.Q, with B the dO or Q tile read MN-major, so no fragment
+//    is transposed and nothing is staged.  The row statistics become
+//    per column: each ring stage carries its query tile's 64 lse and 64
+//    D, which the warpgroup loads beside the TMA (a bulk copy would need
+//    S * 4 to be a multiple of 16); past S lse = +inf and D = 0 (p = 0).
+//    The diagonal tile keeps key row <= query column, the transpose of
+//    the forward's mask.  Four products and one elementwise pass per
+//    tile pair.
 //  - The elementwise work is kept short: bf16 rounding by one packed
 //    conversion per pair; where sqrt(hd) is a power of two (hd 16, 64)
 //    the exact division by it is folded into the max and into one FMA
@@ -315,18 +332,26 @@ __device__ __forceinline__ void issue_ss(float (&d)[32], uint32_t a,
   }
 }
 
-// acc += A . tile over the tile's 64 rows, A the packed fragments of a
-// [64][64] product; waits for the result.
+// Issue acc += A . tile over the tile's 64 rows, A the packed fragments
+// of a [64][64] product (no fence, no commit).
+template <int HD>
+__device__ __forceinline__ void issue_rs(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<HD>(acc, a[kk], mnmajor<HD>(tile, kk));
+  }
+}
+
+// acc += A . tile (issue_rs); waits for the result.
 template <int HD>
 __device__ __forceinline__ void product_rs(float (&acc)[HD / 2],
                                            const uint32_t (&a)[4][4],
                                            uint32_t tile) {
   reg_fence(acc);
   wg_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_rs<HD>(acc, a[kk], mnmajor<HD>(tile, kk));
-  }
+  issue_rs<HD>(acc, a, tile);
   wg_commit();
   wg_wait_all();
   reg_fence(acc);
@@ -387,9 +412,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // power of two (unit 1); where it is one, the division is exact and is
 // left to the consumers (unit 1 / sqrt(HD): the max, the exponentials'
 // FMA and lse scale by it exactly).  -INFINITY above the diagonal in the
-// diagonal tile.  Element e of column group j of a [64][64] accumulator
+// diagonal tile: where the key lies after the query, which is column >
+// row for S = Q.K^T and row > column for the transposed S^T = K.Q^T
+// (kTransposed).  Element e of column group j of a [64][64] accumulator
 // lies in row r0 + 8 (e / 2) and column c0 + 8 j + e % 2.
-template <int HD, bool kDiagonal>
+template <int HD, bool kTransposed, bool kDiagonal>
 __device__ __forceinline__ void scale_scores_in(float (&s)[32], int r0,
                                                 int c0, float sqrt_hd,
                                                 float inv) {
@@ -400,20 +427,22 @@ __device__ __forceinline__ void scale_scores_in(float (&s)[32], int r0,
     for (int e = 0; e < 4; ++e) {
       const float x =
           Geo<HD>::kPow2 ? s[4 * j + e] : div_rn(s[4 * j + e], sqrt_hd, inv);
-      const bool keep = !kDiagonal || c0 + 8 * j + (e & 1) <= r0 + 8 * (e >> 1);
+      const int row = r0 + 8 * (e >> 1);
+      const int col = c0 + 8 * j + (e & 1);
+      const bool keep = !kDiagonal || (kTransposed ? row <= col : col <= row);
       s[4 * j + e] = keep ? x : -INFINITY;
     }
   }
 }
 
-template <int HD>
+template <int HD, bool kTransposed = false>
 __device__ __forceinline__ void scale_scores(float (&s)[32], bool diagonal,
                                              int r0, int c0, float sqrt_hd,
                                              float inv) {
   if (diagonal) {  // the same for the whole block
-    scale_scores_in<HD, true>(s, r0, c0, sqrt_hd, inv);
+    scale_scores_in<HD, kTransposed, true>(s, r0, c0, sqrt_hd, inv);
   } else {
-    scale_scores_in<HD, false>(s, r0, c0, sqrt_hd, inv);
+    scale_scores_in<HD, kTransposed, false>(s, r0, c0, sqrt_hd, inv);
   }
 }
 
@@ -470,6 +499,13 @@ constexpr int fwd_smem() {  // Q, two stages of K and V, three mbarriers
 template <int HD>
 constexpr int dq_smem() {  // Q, dO, two stages of K and V, three mbarriers
   return 6 * Geo<HD>::kTileBytes + 3 * 8 + kAlign;
+}
+// K, V, two stages of Q and dO, three mbarriers (in 32 bytes), then two
+// stages of the query tile's 64 lse and 64 D
+constexpr int kStats = 2 * kTile;  // floats of one stage
+template <int HD>
+constexpr int dkdv_smem() {
+  return 6 * Geo<HD>::kTileBytes + 32 + 2 * kStats * 4 + kAlign;
 }
 
 // --- the kernels ------------------------------------------------------
@@ -741,6 +777,144 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dk and dv for one key tile kt, in one pass over query tiles kt.. (load
+// i of the ring fills stage i % 2 with query tile kt + i's Q and dO,
+// beside which the warpgroup stages that tile's lse and D).  The scores
+// are taken transposed, S^T = K.Q^T and dW^T = V.dO^T: rows are keys and
+// columns queries, so T(P)^T and dS^T, packed, are the A fragments of
+// dv += T(P)^T.dO and dk += dS^T.Q.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    causal_dkdv_sm90(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int H, float sqrt_hd) {
+  constexpr int T = Geo<HD>::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = align_up(raw);
+  const uint32_t sV = sK + T;
+  const uint32_t bar = sK + 6 * T;  // full[0], full[1], then K's and V's
+  // stage st: the query tile's lse (+inf past S: p = 0) and D (0 past S)
+  float* stats = reinterpret_cast<float*>(smem_raw + (bar + 32 - raw));
+  // blocks start in index order, x fastest: every (h, b) of the first key
+  // tiles, which see the most query tiles, first
+  const int kt = blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);
+  const int c0 = (tid & 3) * 2;
+  const int k0 = kt * kTile;
+  const int n = (int)gridDim.y - kt;
+  const long long bh = ((long long)b * H + h) * S;
+
+  const CUtensorMap* mq = &tq;
+  const CUtensorMap* mdo = &tdo;
+  auto issue = [&](int i) {  // thread 0: Q and dO tile kt + i into stage i % 2
+    const int st = i & 1;
+    const int q0 = (kt + i) * kTile;
+    mbar_expect_tx(bar + 8 * st, 2 * T);
+    load_tile<HD>(sK + (2 + st) * T, mq, bar + 8 * st, q0, h, b);
+    load_tile<HD>(sK + (4 + st) * T, mdo, bar + 8 * st, q0, h, b);
+  };
+  // thread t's share of query tile kt + i's statistics: lse of row t
+  // (t < 64), else D of row t - 64
+  auto stat = [&](int i) {
+    const int row = (kt + i) * kTile + (tid & (kTile - 1));
+    if (tid < kTile) {
+      return row < S ? lse[bh + row] : INFINITY;
+    }
+    return row < S ? delta[bh + row] : 0.0f;
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    mbar_init(bar + 16, 1);
+    mbar_init_fence();
+  }
+  stats[tid] = stat(0);
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar + 16, 2 * T);
+    load_tile<HD>(sK, &tk, bar + 16, k0, h, b);
+    load_tile<HD>(sV, &tv, bar + 16, k0, h, b);
+    issue(0);
+  }
+  const float inv = __frcp_rn(sqrt_hd);
+  const float unit = Geo<HD>::kPow2 ? inv : 1.0f;  // see fwd
+  float acc_k[HD / 2];
+  float acc_v[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) {
+    acc_k[x] = 0.0f;
+    acc_v[x] = 0.0f;
+  }
+  mbar_wait(bar + 16, 0);
+  for (int i = 0; i < n; ++i) {
+    // iteration i - 1 is done with stage (i + 1) % 2; tile i's statistics
+    // are in place
+    __syncthreads();
+    if (tid == 0 && i + 1 < n) {
+      issue(i + 1);
+    }
+    const float next = i + 1 < n ? stat(i + 1) : 0.0f;  // stored below
+    mbar_wait(bar + 8 * (i & 1), (i >> 1) & 1);
+    const uint32_t sQ = sK + (2 + (i & 1)) * T;
+    const uint32_t sDO = sK + (4 + (i & 1)) * T;
+    float s[32];
+    float w[32];
+    reg_fence(s);
+    reg_fence(w);
+    wg_fence();
+    issue_ss<HD>(s, sK, sQ);
+    issue_ss<HD>(w, sV, sDO);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(w);
+    scale_scores<HD, true>(s, i == 0, r0, c0, sqrt_hd, inv);
+    round_bf16(w);
+    // column c0 + 8 j + e % 2 is a query: its lse and D
+    const float* L = stats + kStats * (i & 1);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(L + c0 + 8 * j);
+      const float2 d =
+          *reinterpret_cast<const float2*>(L + kTile + c0 + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e;
+        const float p = exp_shifted(s[x], e & 1 ? l.y : l.x, unit);
+        w[x] = div_sqrt_hd<HD>(p * (w[x] - (e & 1 ? d.y : d.x)), sqrt_hd,
+                               inv);
+        s[x] = p;
+      }
+    }
+    uint32_t ap[4][4];
+    uint32_t ads[4][4];
+    pack_a(ap, s);
+    pack_a(ads, w);
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    wg_fence();
+    issue_rs<HD>(acc_v, ap, sDO);
+    issue_rs<HD>(acc_k, ads, sQ);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    if (i + 1 < n) {
+      stats[kStats * ((i + 1) & 1) + tid] = next;
+    }
+  }
+  store_rows<HD>(dk, acc_k, b, h, k0, r0, c0, S, H);
+  store_rows<HD>(dv, acc_v, b, h, k0, r0, c0, S, H);
+}
+
 // --- host -------------------------------------------------------------
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -872,6 +1046,31 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
+int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dk, void* dv,
+             const long long* st, int B, int S, int H, float sqrt_hd,
+             cudaStream_t stream) {
+  if ((long long)B * H > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap m[4];
+  const int e = tensor_maps<HD, 4>(m, {q, k, v, dout}, st, B, S, H);
+  if (e != 0) {
+    return e;
+  }
+  constexpr int bytes = dkdv_smem<HD>();
+  static const int attr = allow_smem(causal_dkdv_sm90<HD>, bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  const dim3 grid(B * H, (S + kTile - 1) / kTile);
+  causal_dkdv_sm90<HD><<<grid, kThreads, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, (bf16*)dk, (bf16*)dv, S, H,
+      sqrt_hd);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Called by the C entries of causal_attention.cu for bf16 (same
@@ -898,5 +1097,15 @@ extern "C" int trpc_causal_attention_bwd_dq_sm90(
     int S, int H, int hd, float sqrt_hd, void* stream) {
   TRPC_SM90_DISPATCH(bwd_dq, q, k, v, dout, (const float*)lse, dq,
                      (float*)delta, strides, B, S, H, sqrt_hd,
+                     (cudaStream_t)stream);
+}
+
+extern "C" int trpc_causal_attention_bwd_dkdv_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int S, int H, int hd, float sqrt_hd,
+    void* stream) {
+  TRPC_SM90_DISPATCH(bwd_dkdv, q, k, v, dout, (const float*)lse,
+                     (const float*)delta, dk, dv, strides, B, S, H, sqrt_hd,
                      (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 """Causal self-attention over a whole sequence, forward and backward: the
-hand-written CUDA kernels (``csrc/causal_attention.cu``) behind a
+hand-written CUDA kernels (``csrc/causal_attention*.cu``) behind a
 ``torch.autograd.Function``, and the plain PyTorch version beside them.
 
 Function (brpc_tpu/models/transformer.py:197-203, the gather branch that
@@ -24,11 +24,11 @@ Three kernels, one wrapper each, and each wrapper counts its launches
   row sums D = sum_t p dW [B, H, S] (launched first);
 * :func:`causal_attention_backward_dkdv`  dk and dv, from D.
 
-In bf16 the forward and dq run on the tensor cores
+In bf16 all three run on the tensor cores
 (``csrc/causal_attention_sm90.cu``: wgmma, TMA), whose tile loads need
 16-byte aligned bases and strides: the wrapper copies a view that has
-neither.  f32 and the dk/dv kernel run the SIMT kernels of
-``csrc/causal_attention.cu``; the C entries choose by dtype.
+neither.  f32 runs the SIMT kernels of ``csrc/causal_attention.cu``; the
+C entries choose by dtype.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card; the plain version takes any.
 Bound and design: see the kernel sources' notes.

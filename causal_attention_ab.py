@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 r"""Other trees' causal_attention beside the checkout's, on one NVIDIA
-GPU: the bf16 forward and dq kernels and their wrappers' host time.
+GPU: the bf16 forward, dq and dk/dv kernels and their wrappers' host
+time.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -12,7 +13,7 @@ timing).  Each tree is measured in a process of its own that imports its
 package, in the order TREE ..., the checkout, the checkout, TREE ...
 reversed.  Each prints one JSON line:
 
-* ``device_ms``: one call of the forward and of dq on the device alone
+* ``device_ms``: one call of the forward, dq and dk/dv on the device alone
   (chip_smoke.py's ``device_ms``: [L2-warm ms, L2-cold ms]) at
   chip_smoke.py's ATTN_SHAPE (``train``) and ATTN_PREFILL_SHAPE
   (``prefill``);
@@ -79,37 +80,50 @@ def measure(tree: str) -> None:
         q, k, v, do = (torch.randn(*shape, generator=g, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
         _, lse = ca.causal_attention_forward(q, k, v)
+        _, delta = ca.causal_attention_backward_dq(q, k, v, do, lse)
         device[label] = {
             "fwd": cs.device_ms(lambda: ca.causal_attention_forward(q, k, v),
                                 flush),
             "bwd_dq": cs.device_ms(
                 lambda: ca.causal_attention_backward_dq(q, k, v, do, lse),
-                flush)}
-    # the host time, at the prefill shape: q, k, v, do, lse of the last pass
+                flush),
+            "bwd_dkdv": cs.device_ms(
+                lambda: ca.causal_attention_backward_dkdv(q, k, v, do, lse,
+                                                          delta), flush)}
+    # the host time, at the prefill shape: q, k, v, do, lse, delta of the
+    # last pass
     B, S, H, hd = shape
     fq, fk, fv = torch.randn(B, S, 3, H, hd, generator=g, device="cuda").to(
         torch.bfloat16).unbind(2)
     lib = ca._kernels()
-    o, dq = torch.empty_like(q), torch.empty_like(q)
-    lse2, delta = (torch.empty(B, H, S, device="cuda") for _ in range(2))
+    o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+    lse2, delta2 = (torch.empty(B, H, S, device="cuda") for _ in range(2))
     tail = [B, S, H, hd, 0, math.sqrt(hd),   # 0: bf16
             torch.cuda.current_stream().cuda_stream]
     fwd_args = ([t.data_ptr() for t in (q, k, v, o, lse2)]
                 + [ca._strides((q, k, v))] + tail)
-    dq_args = ([t.data_ptr() for t in (q, k, v, do, lse, dq, delta)]
+    dq_args = ([t.data_ptr() for t in (q, k, v, do, lse, dq, delta2)]
                + [ca._strides((q, k, v, do))] + tail)
+    dkdv_args = ([t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)]
+                 + [ca._strides((q, k, v, do))] + tail)
     assert lib.trpc_causal_attention_fwd(*fwd_args) == 0
     assert lib.trpc_causal_attention_bwd_dq(*dq_args) == 0
+    assert lib.trpc_causal_attention_bwd_dkdv(*dkdv_args) == 0
     host = {
         "wrapper_fwd": host_us(lambda: ca.causal_attention_forward(q, k, v)),
         "wrapper_fwd_fused_views": host_us(
             lambda: ca.causal_attention_forward(fq, fk, fv)),
         "wrapper_dq": host_us(
             lambda: ca.causal_attention_backward_dq(q, k, v, do, lse)),
+        "wrapper_dkdv": host_us(
+            lambda: ca.causal_attention_backward_dkdv(q, k, v, do, lse,
+                                                      delta)),
         "c_entry_fwd": host_us(lambda: lib.trpc_causal_attention_fwd(
             *fwd_args)),
         "c_entry_dq": host_us(lambda: lib.trpc_causal_attention_bwd_dq(
-            *dq_args))}
+            *dq_args)),
+        "c_entry_dkdv": host_us(lambda: lib.trpc_causal_attention_bwd_dkdv(
+            *dkdv_args))}
     print(json.dumps({"tree": tree, "device_ms": device,
                       "prefill_host_us": host}), flush=True)
 

@@ -11,7 +11,8 @@ printing one JSON line; any failure exits non-zero with no result line:
              ptxas -v's lines for each kernel (registers, shared memory,
              spills) and each kernel's count of HGMMA (wgmma) instructions
              in its SASS (cuobjdump -sass on the built library): the bf16
-             forward and dq kernels of causal_attention must have some
+             forward, dq and dk/dv kernels of causal_attention must have
+             some
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
@@ -36,8 +37,8 @@ printing one JSON line; any failure exits non-zero with no result line:
              dk, dv within ATTN_TOL (the attention_check line prints the
              errors and the share of the limit used).  The dtype dispatch
              read from the device's kernel names under torch.profiler:
-             bf16 forward and dq launch the tensor-core kernels and no
-             SIMT forward or dq, f32 the SIMT ones.  Each kernel timed
+             bf16 forward, dq and dk/dv launch the tensor-core kernels
+             and no SIMT one, f32 the SIMT ones.  Each kernel timed
              in bf16 on the device alone like decode_attention, beside its
              bound, the plain version (CUDA events), the wrapper's
              host-inclusive time (host_call_ms) and
@@ -182,8 +183,7 @@ def _cuda_tool(name: str) -> str:
 def sass_hgmma(lib_path):
     """{kernel: count of HGMMA instructions in its SASS}, each kernel
     named as the demangler gives it, without return type, scope and
-    parameters (as causal_fwd_sm90<64> or
-    causal_dkdv_kernel<__nv_bfloat16, 64>)."""
+    parameters (as causal_dkdv_sm90<64> or causal_dkdv_kernel<float, 64>)."""
     import re
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib_path],
                          capture_output=True, text=True, check=True).stdout
@@ -233,8 +233,9 @@ def phase_card():
           "build_wall_s": time.monotonic() - t0,
           "ptxas": ptxas, "sass_hgmma": hgmma})
     tensor_core = {k: n for k, n in hgmma.items()
-                   if k.startswith(("causal_fwd_sm90", "causal_dq_sm90"))}
-    assert len(tensor_core) == 6 and all(tensor_core.values()), hgmma
+                   if k.startswith(("causal_fwd_sm90", "causal_dq_sm90",
+                                    "causal_dkdv_sm90"))}
+    assert len(tensor_core) == 9 and all(tensor_core.values()), hgmma
     return smi
 
 
@@ -551,7 +552,7 @@ def phase_attention():
             lambda: causal_attention_backward_dq(q, k, v, do, lse), 200),
         "bwd_dkdv": cuda_ms(
             lambda: causal_attention_backward_dkdv(q, k, v, do, lse, delta),
-            50)}
+            200)}
     # at one prefill's shape the kernels take microseconds, so the
     # wrapper's host work (checks, tensor maps, ctypes) shows
     pq, pk, pv, pdo = (torch.randn(*ATTN_PREFILL_SHAPE, generator=g,
@@ -602,7 +603,7 @@ def phase_attention():
           "library": "torch.nn.functional.scaled_dot_product_attention("
                      "is_causal=True); its backward and the plain "
                      "version's: fwd+bwd less fwd"})
-    assert routes["bf16"] == ["causal_dkdv_kernel", "causal_dq_sm90",
+    assert routes["bf16"] == ["causal_dkdv_sm90", "causal_dq_sm90",
                               "causal_fwd_sm90"], routes
     assert routes["f32"] == ["causal_dkdv_kernel", "causal_dq_kernel",
                              "causal_fwd_kernel"], routes
@@ -1080,9 +1081,7 @@ def main() -> int:
         row = attn["rows"][name]
         kernels.append({
             "name": f"causal_attention_{name}", "route": "cuda",
-            "source": "brpc_tpu_torch/csrc/causal_attention.cu"
-            if name == "bwd_dkdv" else
-            "brpc_tpu_torch/csrc/causal_attention_sm90.cu",
+            "source": "brpc_tpu_torch/csrc/causal_attention_sm90.cu",
             "replaces": replaces, "launches": train_launches[wrapper],
             "max_abs_err": max(err[o] for o in outs), **row,
             "launches_in": "train phase, 5 steps x 4 layers",

@@ -20,12 +20,16 @@ On the CPU:
   (m, l), then the weights rounded as the registers feed them to the
   tensor cores, times V; p recomputed from lse; D = sum_t p dW taken
   exactly, per tile and then over the tiles; dS rounded as the
-  registers feed it), against autograd of the plain version: within ``CARD_TOL``, the
-  tolerance the card legs and chip_smoke.py hold the kernels to.
+  registers feed it; dk/dv on transposed tiles, rows keys and columns
+  queries, summed over the query tiles in f32), against autograd of the
+  plain version: within ``CARD_TOL``, the tolerance the card legs and
+  chip_smoke.py hold the kernels to.
   Controls: the same model with the diagonal key (t = s) left out of
   every row leaves it; a one-pass online softmax, which rounds
   exp(s - m_running), leaves the bf16 agreement of o at unit-scale
-  inputs and CARD_TOL at a wider range.  (The
+  inputs and CARD_TOL at a wider range; the forward's mask applied to
+  dk/dv's transposed tiles (keys t >= s kept in each diagonal tile)
+  leaves it in dk and dv.  (The
   rowsum(dO * o) stand-in for D would stay inside CARD_TOL: at these
   shapes it moves dq and dk by about one bf16 step, as the kernels' own
   flips do; the kernels take D exactly all the same.)
@@ -35,9 +39,9 @@ The ``cuda``-marked legs run on the card: the
 three kernels at head dims 16, 64 and 128, S from 1 to 1024 (tile edges
 63/64/65, a ragged 1000), bf16 and f32, against the plain version on
 the same inputs; strided (fused-projection) q, k, v, a transposed dO
-and an unaligned view in bf16; and the dtype dispatch (bf16 forward and
-dq on the tensor cores, f32 on the SIMT kernels) read from the device's
-kernel names.  They skip without a card and run there with
+and an unaligned view in bf16; two dk/dv calls bit-equal; and the dtype
+dispatch (bf16 on the tensor cores, f32 on the SIMT kernels) read from
+the device's kernel names.  They skip without a card and run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
 (this file imports jax only inside its CPU legs).
 """
@@ -122,22 +126,29 @@ def _bf16_agrees(got, want) -> bool:
 TILE = 64    # query and key rows of a tile in the kernels
 
 
-def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False):
+def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False,
+                 untransposed_mask=False):
     """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16,
     the SIMT kernels of csrc/causal_attention.cu for f32) on tensors, in
-    their order of work over 64-key tiles: (o, dq, dk, dv) as f32.
+    their order of work over 64-row tiles: (o, dq, dk, dv) as f32.
 
     Forward, two passes: the online row max and sum (m, l) over the key
     tiles; then p = exp(s - m) / l, rounded to the working type as the
     registers feed it to the tensor cores, times each V tile, summed over
     the tiles in f32 and rounded once.  dq: D = sum_t p dW taken per tile
     and then over the tiles, from p recomputed from lse; dS rounded as
-    the registers feed it to dS . K.  ``drop_diagonal``: leave key t = s
-    out of row s (a wrong kernel, for the tolerance's control; row 0
-    keeps its only key).  ``one_pass``: the online softmax of one pass,
-    which rounds exp(s - m_running) and rescales the sum (a different
-    rounding of the weights, for the second control).  The exponential
-    is ``expf`` in both dtypes, as in the plain version."""
+    the registers feed it to dS . K.  dk/dv, per key tile over query tiles
+    kt..: the transposed tiles S^T = T(K.Q^T) / sqrt(hd) and dW^T, P^T and
+    dS^T from lse and D per column (query), dv += T(P^T) dO and dk += dS^T
+    q summed in f32 over the query tiles and rounded once.
+    ``drop_diagonal``: leave key t = s out of row s (a wrong kernel, for
+    the tolerance's control; row 0 keeps its only key).  ``one_pass``:
+    the online softmax of one pass, which rounds exp(s - m_running) and
+    rescales the sum (a different rounding of the weights, for the second
+    control).  ``untransposed_mask``: dk/dv's diagonal tiles masked as
+    the untransposed S = Q.K^T is (column <= row), which on S^T keeps the
+    keys t >= s (the third control).  The exponential is ``expf`` in both
+    dtypes, as in the plain version."""
     dt = q.dtype
     S, hd = q.shape[1], q.shape[-1]
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
@@ -172,15 +183,36 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False):
             w = rt(torch.exp(s[..., a:b] - m) / l)
             acc = acc + torch.einsum("bhst,bthk->bhsk", w, vf[:, a:b])
         o = rt(acc.transpose(1, 2))
-    p = torch.exp(s - (m + torch.log(l)))          # from lse
+    lse = m + torch.log(l)                          # [B, H, S, 1]
+    p = torch.exp(s - lse)
     dw = rt(torch.einsum("bshk,bthk->bhst", dof, vf))
     delta = sum((p[..., a:b] * dw[..., a:b]).sum(-1, keepdim=True)
                 for a, b in tiles)
     ds = rt(p * (dw - delta) / math.sqrt(hd))
     dq = rt(sum(torch.einsum("bhst,bthk->bshk", ds[..., a:b], kf[:, a:b])
                 for a, b in tiles))
-    dk = rt(torch.einsum("bhst,bshk->bthk", ds, qf))
-    dv = rt(torch.einsum("bhst,bshk->bthk", rt(p), dof))
+    # dk/dv on the transposed tiles: rows keys t, columns queries s
+    lse_t, delta_t = lse.transpose(-1, -2), delta.transpose(-1, -2)
+    dk, dv = torch.zeros_like(qf), torch.zeros_like(qf)
+    for ka, kb in tiles:
+        acc_k = torch.zeros(qf.shape[0], kb - ka, qf.shape[2], hd)
+        acc_v = torch.zeros_like(acc_k)
+        for qa, qb in tiles[ka // TILE:]:
+            st = rt(torch.einsum("bthk,bshk->bhts", kf[:, ka:kb],
+                                 qf[:, qa:qb])) / math.sqrt(hd)
+            keep = mask[qa:qb, ka:kb].T                  # [t, s]: t <= s
+            if untransposed_mask and qa == ka:
+                keep = mask[ka:kb, qa:qb]                # s <= t
+            st = st.masked_fill(~keep, float("-inf"))
+            pt = torch.exp(st - lse_t[..., qa:qb])
+            wt = rt(torch.einsum("bthk,bshk->bhts", vf[:, ka:kb],
+                                 dof[:, qa:qb]))
+            dst = rt(pt * (wt - delta_t[..., qa:qb]) / math.sqrt(hd))
+            acc_v = acc_v + torch.einsum("bhts,bshk->bthk", rt(pt),
+                                         dof[:, qa:qb])
+            acc_k = acc_k + torch.einsum("bhts,bshk->bthk", dst,
+                                         qf[:, qa:qb])
+        dk[:, ka:kb], dv[:, ka:kb] = rt(acc_k), rt(acc_v)
     return [o, dq, dk, dv]
 
 
@@ -256,6 +288,24 @@ def test_card_tolerance_fails_a_dropped_diagonal(dtype):
     got = kernel_model(q, k, v, do, drop_diagonal=True)
     for g, w in zip(got, want):
         assert _gap_share([g], [w], CARD_TOL[dtype]) > 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S", [65, 200])
+def test_card_tolerance_fails_an_untransposed_mask_in_dkdv(S, dtype):
+    """dk/dv masks its transposed tiles (rows keys): reusing the forward's
+    mask there keeps the keys t >= s of every diagonal tile and drops the
+    keys t < s, and dk and dv leave CARD_TOL (o and dq, from their own
+    kernels, stay inside)."""
+    arrays = _draw(12, 2, S, 2, 16)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrays)
+    want = _torch_grads(causal_attention_plain, arrays, dtype)
+    got = kernel_model(q, k, v, do, untransposed_mask=True)
+    tol = CARD_TOL[dtype]
+    assert _gap_share(got[:2], want[:2], tol) <= 1.0
+    for g, w in zip(got[2:], want[2:]):
+        assert _gap_share([g], [w], tol) > 1.0
 
 
 def test_one_pass_weights_leave_the_two_pass_rounding():
@@ -382,8 +432,8 @@ def test_tensor_core_kernels_read_strided_and_unaligned_inputs(S, hd):
     """bf16: q, k, v as views of one fused [B, S, 3, H, hd] projection and
     a transposed dO go to TMA as they are; a view whose base is not 16-byte
     aligned (offset by one element) is copied by the wrapper.  Each gives
-    the same outputs, to the bit, as contiguous copies, and each within
-    CARD_TOL of the plain version."""
+    the same outputs, to the bit, as contiguous copies (forward, dq and
+    dk/dv), and o, dk and dv are within CARD_TOL of the plain version."""
     _card()
     g = torch.Generator(device="cuda").manual_seed(15)
     B, H = 2, 3
@@ -399,22 +449,44 @@ def test_tensor_core_kernels_read_strided_and_unaligned_inputs(S, hd):
     c = [t.contiguous() for t in (q, k, v, do)]
     o, lse = causal_attention_forward(q, k_odd, v)
     dq, delta = causal_attention_backward_dq(q, k_odd, v, do, lse)
+    dk, dv = causal_attention_backward_dkdv(q, k_odd, v, do, lse, delta)
     o2, lse2 = causal_attention_forward(*c[:3])
     dq2, delta2 = causal_attention_backward_dq(*c, lse2)
-    want = causal_attention_plain(*c[:3])
+    dk2, dv2 = causal_attention_backward_dkdv(*c, lse2, delta2)
+    leaves = [t.clone().requires_grad_(True) for t in c[:3]]
+    want = causal_attention_plain(*leaves)
+    _, want_dk, want_dv = torch.autograd.grad(want, leaves, c[3])
     torch.cuda.synchronize()
-    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2)):
+    for a, b in ((o, o2), (lse, lse2), (dq, dq2), (delta, delta2),
+                 (dk, dk2), (dv, dv2)):
         assert torch.equal(a, b)
-    torch.testing.assert_close(o.float(), want.float(),
-                               **CARD_TOL[torch.bfloat16])
+    for a, b in ((o, want), (dk, want_dk), (dv, want_dv)):
+        torch.testing.assert_close(a.float(), b.detach().float(),
+                                   **CARD_TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+def test_dkdv_kernel_is_deterministic(hd):
+    """No atomics: two dk/dv calls on the same inputs are bit-equal."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = (torch.randn(2, 1000, 3, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    _, lse = causal_attention_forward(q, k, v)
+    _, delta = causal_attention_backward_dq(q, k, v, do, lse)
+    first = causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+    second = causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     """The dtype dispatch, read from the device's own kernel names under
-    torch.profiler: bf16 forward and dq launch the wgmma kernels and no
-    SIMT forward or dq; f32 launches the SIMT kernels; dk/dv is SIMT in
-    both."""
+    torch.profiler: bf16 forward, dq and dk/dv launch the wgmma kernels
+    and no SIMT kernel; f32 launches the SIMT kernels and no wgmma one."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     arrays = _draw(16, 1, 130, 2, 64)
@@ -429,12 +501,13 @@ def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
         return any(kernel in n for n in names[dt])
 
     assert has("bf16", "causal_fwd_sm90") and has("bf16", "causal_dq_sm90")
+    assert has("bf16", "causal_dkdv_sm90")
     assert not has("bf16", "causal_fwd_kernel")
     assert not has("bf16", "causal_dq_kernel")
+    assert not has("bf16", "causal_dkdv_kernel")
     assert has("f32", "causal_fwd_kernel") and has("f32", "causal_dq_kernel")
+    assert has("f32", "causal_dkdv_kernel")
     assert not has("f32", "_sm90")
-    assert has("bf16", "causal_dkdv_kernel") and has("f32",
-                                                     "causal_dkdv_kernel")
 
 
 @pytest.mark.cuda
