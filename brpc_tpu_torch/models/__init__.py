@@ -1,6 +1,7 @@
 """models/ — the transformer LM (dense and MoE), its KV-cached decode and
 its training step, on PyTorch (port of brpc_tpu/models/ on one device;
-the sequence-parallel attention paths and meshes are not ported yet)."""
+the sequence-parallel attention paths and the mesh argument are not
+ported yet)."""
 
 from brpc_tpu_torch.models.transformer import (  # noqa: F401
     ModelConfig,

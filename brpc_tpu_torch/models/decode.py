@@ -23,7 +23,7 @@ import torch
 
 from brpc_tpu_torch.models.transformer import (
     ModelConfig, TransformerLM, _causal_attention, _gelu, _layernorm,
-    check_supported, logits_of, resolve_device)
+    logits_of, resolve_device)
 from brpc_tpu_torch.ops.decode_attention import decode_attention
 
 # K/V serializes host-side as f32 (the wire the KV block plane moves);
@@ -39,7 +39,6 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    check_supported(cfg)
     if cfg.n_experts > 0:
         raise ValueError("decode path is dense-only (cfg.n_experts == 0)")
 

@@ -33,7 +33,10 @@ inference paths (``decode.prefill``, ``decode.decode_step``) run under
 memory policy that changes no number and is not ported.
 
 Not ported here: the sharding constraints (one device) and the
-ring/Ulysses attention paths — a config asking for them raises.  Every
+ring/Ulysses attention paths.  The reference takes those only on a mesh
+with an ``sp`` axis larger than 1 and runs gather attention otherwise;
+the port's functions take no mesh, so a ring or Ulysses config runs
+gather attention here, as the reference does without a mesh.  Every
 entry point takes an explicit ``device`` and runs on ``cuda`` unless the
 caller asks for ``cpu``.
 """
@@ -80,13 +83,6 @@ class ModelConfig:
             (layer % self.moe_every == self.moe_every - 1)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the gather-attention model only."""
-    if cfg.attn_impl != "gather":
-        raise NotImplementedError(f"attn_impl {cfg.attn_impl!r} is not "
-                                  f"ported yet (use 'gather')")
-
-
 def resolve_device(device) -> torch.device:
     """An explicit device; ``cuda`` without a card raises rather than
     running somewhere else."""
@@ -105,7 +101,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         L, D, H, hd, F_ = (cfg.n_layers, cfg.d_model, cfg.n_heads,
                            cfg.head_dim, cfg.d_ff)
@@ -236,7 +231,6 @@ def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None):
     """tokens [B, S] int -> logits [B, S, vocab] f32; differentiable
     with respect to the parameters."""
     cfg = cfg or model.cfg
-    check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=model.embed.device).long()
     S = tokens.shape[1]
     x = model.embed[tokens] + model.pos[:S][None]

@@ -10,3 +10,7 @@ from brpc_tpu_torch.ops.decode_attention import (  # noqa: F401
     decode_attention,
     decode_attention_plain,
 )
+from brpc_tpu_torch.ops.quant_codec import (  # noqa: F401
+    fake_quant_int8,
+    fake_quant_int8_plain,
+)

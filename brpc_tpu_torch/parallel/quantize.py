@@ -21,42 +21,21 @@ dtype.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-BLOCK = 256  # floats per int8 scale block (== codec.h kInt8BlockFloats)
-
-
-def _blocks(x: torch.Tensor, block: int) -> torch.Tensor:
-    n = x.shape[-1]
-    pad = (-n) % block
-    if pad:
-        x = F.pad(x, (0, pad))
-    return x.reshape(*x.shape[:-1], (n + pad) // block, block)
-
-
-def _flush(x: torch.Tensor) -> torch.Tensor:
-    """Denormals to zero, as the reference's flush-to-zero does."""
-    tiny = torch.finfo(x.dtype).tiny
-    return torch.where(x.abs() < tiny, torch.zeros_like(x), x)
+from brpc_tpu_torch.ops import quant_codec
+from brpc_tpu_torch.ops.quant_codec import BLOCK, blocks, flush
 
 
 def fake_quant_int8(x, block: int = BLOCK) -> torch.Tensor:
     """dequantize(quantize(x)) along the LAST axis in `block`-float groups
     — the tensor a peer reconstructs after an int8 wire hop.  Shape and
-    dtype preserved."""
+    dtype preserved.  A CUDA tensor goes through the kernel of
+    ops/quant_codec.py; a CPU tensor or numpy array through its plain
+    version."""
     x = torch.as_tensor(x)
-    n = x.shape[-1]
-    blocks = _blocks(_flush(x), block)
-    scale = _flush(blocks.abs().amax(dim=-1, keepdim=True) / 127.0)
-    live = scale > 0.0
-    q = torch.where(
-        live,
-        torch.clamp(torch.round(blocks / torch.where(live, scale,
-                                                     torch.ones_like(scale))),
-                    -127, 127),
-        torch.zeros_like(blocks))
-    out = (q * scale).reshape(*x.shape[:-1], -1)[..., :n]
-    return out.to(x.dtype)
+    if x.device.type == "cuda":
+        return quant_codec.fake_quant_int8(x, block)
+    return quant_codec.fake_quant_int8_plain(x, block)
 
 
 def fake_quant_bf16(x) -> torch.Tensor:
@@ -81,5 +60,5 @@ def int8_error_bound(x, block: int = BLOCK) -> float:
     """Max per-element error of ONE int8 pass over x (max over blocks of
     max|block|/127), as a python float.  For an n-way dequantize-then-
     reduce SUM, per-worker bounds add."""
-    blocks = _blocks(_flush(torch.as_tensor(x)), block)
-    return float(blocks.abs().amax() / 127.0) + 1e-30
+    b = blocks(flush(torch.as_tensor(x)), block)
+    return float(b.abs().amax() / 127.0) + 1e-30

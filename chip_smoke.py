@@ -68,6 +68,23 @@ printing one JSON line; any failure exits non-zero with no result line:
              fresh state and one more step on each: the same loss, step
              7; step ms, tokens/s and peak device memory; a
              torch.profiler window over one more step
+  parallel   an NCCL process group of one rank on the card and a mesh
+             {"dp": 1}: every collective (all_reduce add/max/min,
+             all_gather tiled and stacked, reduce_scatter, ring_permute,
+             all_to_all) once, MeshParallelChannel (add, concat, add with
+             the int8 codec) and MeshPartitionChannel's three calls, each
+             equal to its closed form over one member; the parameter-
+             server merge of a PS_PARAMS-value f32 gradient through
+             MeshParallelChannel(codec="int8") (the main path: the codec
+             kernel's launches are read over it), its error within
+             int8_error_bound; the codec kernel bit-equal to its plain
+             version in f32 and bf16 on that gradient and on the CPU
+             tests' ragged, short, denormal and ties cases; the kernel
+             timed at that size like decode_attention (no single PyTorch
+             call computes it: library none), beside its memory bound,
+             the plain version and host_call_ms; a 64 MB bf16 NCCL
+             all_reduce timed (a time: bus bandwidth is 0 over one
+             member)
 
 Before the last line it prints the kernels' JSON line and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -790,6 +807,178 @@ def phase_train():
     return launches
 
 
+# The parameter-server gradient: sum of resnet50_param_shapes()
+# (examples/param_server_allreduce.py:49), ResNet-50's parameter count.
+PS_PARAMS = 25_557_032
+ALLREDUCE_MBYTES = 64         # bf16 all_reduce timed at world size 1
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _codec_cases(g):
+    """{name: f32 tensor on the card}: the parameter-server gradient and
+    the ragged, short, denormal and ties cases of the CPU tests."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(0)
+    special = np.zeros((5, 256), np.float32)
+    special[1] = 1e-40
+    special[2] = 1e-37
+    special[2, 3] = 2e-37
+    special[3] = rng.standard_normal(256)
+    special[3, :40] = 3e-41
+    ties = np.zeros((1, 256), np.float32)
+    ties[0, 0] = 127.0
+    ties[0, 1:9] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5]
+    cases = {"ragged": rng.standard_normal((3, 700)),
+             "short": rng.standard_normal((2, 17)),
+             "zero_and_denormal": special, "ties": ties}
+    cases = {k: torch.from_numpy(np.asarray(v, np.float32)).cuda()
+             for k, v in cases.items()}
+    cases["param_server"] = torch.randn(PS_PARAMS, generator=g,
+                                        device="cuda")
+    return cases
+
+
+def _bit_equal(a, b) -> bool:
+    """The same shape, dtype and bits (-0.0 is not 0.0 here)."""
+    import torch
+    view = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(view), b.view(view)))
+
+
+def phase_parallel(smi):
+    """The mesh, the collectives and the combo channels on NCCL at world
+    size 1, and the int8 codec kernel against its plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.ops.quant_codec import (fake_quant_int8,
+                                                fake_quant_int8_plain)
+    from brpc_tpu_torch.parallel import (MeshParallelChannel,
+                                         MeshPartitionChannel, collectives,
+                                         make_mesh, quantize)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        backend = dist.get_backend()
+        assert backend == "nccl", backend
+        mesh = make_mesh({"dp": 1}, device_type="cuda")
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(8, 64, generator=g, device="cuda")
+        c = collectives
+        # every verb once: over one member each result is known
+        got = {
+            "all_reduce_add": (c.all_reduce(mesh, "dp", x), x),
+            "all_reduce_max": (c.all_reduce(mesh, "dp", x, op="max"), x),
+            "all_reduce_min": (c.all_reduce(mesh, "dp", x, op="min"), x),
+            "all_gather_tiled": (c.all_gather(mesh, "dp", x), x),
+            "all_gather_stacked": (c.all_gather(mesh, "dp", x,
+                                                tiled=False), x[None]),
+            "reduce_scatter": (c.reduce_scatter(mesh, "dp", x), x),
+            "ring_permute": (c.ring_permute(mesh, "dp", x, shift=1), x),
+            "all_to_all": (c.all_to_all(mesh, "dp", x), x),
+        }
+        add = MeshParallelChannel(mesh, "dp", merger="add")
+        cat = MeshParallelChannel(mesh, "dp", merger="concat")
+        part = MeshPartitionChannel(mesh, "dp")
+        assert add.channel_count() == part.partition_count() == 1
+        got.update({
+            "channel_add": (add.call_tensor(x), x),
+            "channel_concat": (cat.call_tensor(x), x),
+            "channel_add_int8": (
+                MeshParallelChannel(mesh, "dp", merger="add",
+                                    codec="int8").call_tensor(x),
+                fake_quant_int8_plain(x)),
+            "partition_gather": (part.call_gather(x), x),
+            "partition_reduce_scatter": (part.call_reduce_scatter(x), x),
+            "partition_all_to_all": (part.call_all_to_all(x), x)})
+        torch.cuda.synchronize()
+        verbs = {k: _bit_equal(a, b) for k, (a, b) in got.items()}
+        assert all(verbs.values()), verbs
+
+        # the main path: the parameter-server merge through the int8 codec
+        cases = _codec_cases(g)
+        grad = cases["param_server"]
+        ps = MeshParallelChannel(mesh, "dp", merger="add", codec="int8")
+        fake_quant_int8.launches = 0
+        merged = ps.call_tensor(grad)
+        torch.cuda.synchronize()
+        launches = fake_quant_int8.launches
+        assert launches >= 1, launches
+        ps_err = float((merged - grad).abs().max())
+        ps_bound = quantize.int8_error_bound(grad)
+        assert 0.0 < ps_err <= ps_bound, (ps_err, ps_bound)
+
+        # the kernel against its plain version, bit for bit
+        checks = {}
+        for name, t in cases.items():
+            for dt, dtype in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+                xt = t.to(dtype)
+                out, want = fake_quant_int8(xt), fake_quant_int8_plain(xt)
+                err = float((out.float() - xt.float()).abs().max())
+                checks[f"{name}/{dt}"] = {
+                    "bit_equal": _bit_equal(out, want), "int8_err": err,
+                    "int8_bound": quantize.int8_error_bound(xt.float())}
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in checks.items()
+               if not v["bit_equal"]
+               or not v["int8_err"] <= v["int8_bound"]}
+        assert not bad, bad
+
+        # times at the parameter-server size, f32 and bf16
+        flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+        timing = {}
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            xt = grad.to(dtype)
+            ms, cold_ms = device_ms(lambda: fake_quant_int8(xt),
+                                    flush_buf.sum)
+            nbytes = 2 * xt.numel() * xt.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            timing[dt] = {
+                "ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "bound_share": bound_ms / cold_ms,
+                "plain_ms": cuda_ms(lambda: fake_quant_int8_plain(xt), 10),
+                "host_call_ms": cuda_ms(lambda: fake_quant_int8(xt), 50)}
+        del flush_buf
+
+        # NCCL all_reduce of 64 MB bf16 at world size 1: a time, not a
+        # bandwidth (bus_bandwidth_gbps is 0 over one member by its formula)
+        y = torch.ones(ALLREDUCE_MBYTES * 10**6 // 2, dtype=torch.bfloat16,
+                       device="cuda")
+        grp = mesh.group("dp")
+        allreduce_ms = cuda_ms(lambda: dist.all_reduce(y, group=grp), 10)
+        busbw = collectives.bus_bandwidth_gbps(mesh, "dp",
+                                               ALLREDUCE_MBYTES, iters=10)
+        assert busbw == 0.0, busbw
+        emit({"phase": "parallel_collectives", "backend": backend,
+              "mesh": mesh.shape, "world_size": dist.get_world_size(),
+              "checks": verbs,
+              "all_reduce_bf16_mbytes": ALLREDUCE_MBYTES,
+              "all_reduce_ms": allreduce_ms, "bus_bandwidth_gbps": busbw,
+              "nvidia_smi": smi})
+        line = {"phase": "parallel", "name": "fake_quant_int8",
+                "device_name": torch.cuda.get_device_name(0),
+                "nvidia_smi": smi, "values": PS_PARAMS,
+                "launches": launches, "param_server_int8_err": ps_err,
+                "param_server_int8_bound": ps_bound,
+                "checks": checks, "library": "none", "library_ms": None,
+                **timing["f32"], "bf16": timing["bf16"]}
+        emit(line)
+        return line
+    finally:
+        dist.destroy_process_group()
+
 def _client(addr, plen, max_new, seed, cancel_after, results, lock):
     import struct
     from brpc_tpu_torch.rpc import errors
@@ -1059,6 +1248,7 @@ def main() -> int:
     attn = phase_attention()
     launches, prefill_launches = phase_serving()
     train_launches = phase_train()
+    par = phase_parallel(smi)
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/decode_attention.cu",
@@ -1087,6 +1277,17 @@ def main() -> int:
             "launches_in": "train phase, 5 steps x 4 layers",
             **({"serving_prefill_launches": prefill_launches}
                if name == "fwd" else {})})
+    kernels.append({
+        "name": "fake_quant_int8", "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/quant_codec.cu",
+        "replaces": "brpc_tpu/parallel/quantize.py:25",
+        "launches": par["launches"], "max_abs_err": 0.0,   # bit-equal
+        **{k: par[k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                               "bound_by", "bound_share", "library_ms",
+                               "host_call_ms")},
+        "values": PS_PARAMS, "dtype": "f32",
+        "launches_in": "parallel phase, one int8 merge of the "
+                       "parameter-server gradient"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

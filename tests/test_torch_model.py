@@ -204,7 +204,7 @@ def test_decode_attention_rejects_what_the_kernel_does_not_take():
 
 def test_unported_options_raise():
     """The decode path is dense-only, as the reference's
-    (decode.py:37-39: ValueError); the ring attention path is not ported."""
+    (decode.py:37-39: ValueError)."""
     moe = T.ModelConfig(n_experts=2, **{
         k: v for k, v in SHAPE.items() if k != "n_experts"})
     model = T.init(torch.Generator().manual_seed(0), moe, "cpu")
@@ -216,9 +216,45 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="dense-only"):
         D.decode_step(model, {}, toks[0, :1], torch.ones(1, dtype=torch.bool),
                       moe)
-    with pytest.raises(NotImplementedError):
-        D.init_cache(dataclasses.replace(T.ModelConfig(**SHAPE),
-                                         attn_impl="ring"), 1, 8, "cpu")
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_sequence_parallel_config_without_a_mesh_matches_reference(models,
+                                                                   impl):
+    """The reference takes the ring/Ulysses route only on a mesh with an
+    sp axis larger than 1 (transformer.py:_attention) and its decode
+    ignores attn_impl, so with no mesh such a config gives the gather
+    model's logits, prefill and decode steps; so does the port."""
+    ref_cfg, tree, cfg, _ = models
+    ref_cfg = dataclasses.replace(ref_cfg, attn_impl=impl)
+    cfg = dataclasses.replace(cfg, attn_impl=impl)
+    model = params_from_jax(tree, cfg, device="cpu")
+    toks = _tokens(11, (2, 20))
+    _close(T.apply(model, torch.from_numpy(toks), cfg).detach(),
+           ref_tf.apply(tree, jnp.asarray(toks), ref_cfg), LOGITS_TOL)
+    slots, S = 2, 32
+    rc = ref_decode.init_cache(ref_cfg, slots, S)
+    pc = D.init_cache(cfg, slots, S, device="cpu")
+    for slot in range(slots):
+        wl, k, v = ref_decode.prefill(tree, jnp.asarray(toks[slot:slot + 1]),
+                                      ref_cfg)
+        gl, _, _ = D.prefill(model, torch.from_numpy(toks[slot:slot + 1]),
+                             cfg)
+        _close(gl, wl, LOGITS_TOL)
+        k, v = np.asarray(k[:, 0]), np.asarray(v[:, 0])
+        rc = ref_decode.install(rc, slot, k, v, toks.shape[1])
+        D.install(pc, slot, k, v, toks.shape[1])
+    active = np.array([True, True])
+    tokens = _tokens(12, (slots,))
+    for _ in range(3):
+        wl, rc = ref_decode.decode_step(tree, rc, jnp.asarray(tokens),
+                                        jnp.asarray(active), ref_cfg)
+        gl, pc = D.decode_step(model, pc, torch.from_numpy(tokens),
+                               torch.from_numpy(active), cfg)
+        _close(gl, wl, LOGITS_TOL)
+        _close(pc["k"], rc["k"], KV_TOL)
+        _close(pc["v"], rc["v"], KV_TOL)
+        tokens = np.asarray(jnp.argmax(wl, axis=-1)).astype(np.int32)
 
 
 def test_plain_decode_attention_bf16_rounds_scores_first():

@@ -34,7 +34,9 @@ COPIED = (
      "metrics/__init__.py", "metrics/bvar.py", "metrics/collector.py",
      "metrics/default_vars.py", "metrics/dumper.py", "metrics/native.py",
      "builtin/__init__.py", "builtin/flame.py", "builtin/portal.py",
-     "serving/kv_cache.py", "serving/scheduler.py"]
+     "utils/checksum.py", "utils/timeutil.py",
+     "serving/kv_cache.py", "serving/scheduler.py",
+     "parallel/channels.py"]
     + [f"cluster/{m}.py" for m in (
         "__init__", "circuit_breaker", "cluster_channel", "health_check",
         "limiter", "load_balancer", "membership", "naming")]
@@ -42,7 +44,11 @@ COPIED = (
         "__init__", "errors", "controller", "channel", "server", "stream",
         "codec", "compress", "dump", "span", "http", "http_client", "auth",
         "_sockutil", "grpc_service", "pb_service", "redis_service",
-        "thrift")])
+        "thrift", "altpack", "h2_client", "memcache", "mongo",
+        "wire_tags")]
+    + [f"tools/{m}.py" for m in (
+        "__init__", "parallel_http", "rpc_press", "rpc_replay",
+        "rpc_view")])
 
 # the port's own modules: rewritten counterparts of reference modules
 # (_native, tpu_plane, models, parallel, serving/engine) and new ones
@@ -51,7 +57,9 @@ PORTED = [
     "models/__init__.py", "models/transformer.py", "models/decode.py",
     "models/train.py", "models/checkpoint.py",
     "ops/__init__.py", "ops/decode_attention.py", "ops/causal_attention.py",
-    "parallel/__init__.py", "parallel/quantize.py",
+    "ops/quant_codec.py",
+    "parallel/__init__.py", "parallel/quantize.py", "parallel/mesh.py",
+    "parallel/collectives.py",
     "serving/__init__.py", "serving/engine.py",
 ]
 
@@ -184,7 +192,8 @@ def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the cuda default is valid")
     from brpc_tpu_torch.models import decode, transformer
-    from brpc_tpu_torch.ops import decode_attention
+    from brpc_tpu_torch.ops import decode_attention, fake_quant_int8
+    from brpc_tpu_torch.parallel import auto_mesh, make_mesh
     from brpc_tpu_torch.serving.engine import ServingEngine, tiny_config
     from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
 
@@ -198,6 +207,13 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(cfg, kv=KvBlockPlane(block_bytes=4096, n_blocks=4,
                                            decode_device=0))
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        make_mesh({"dp": 1})
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        auto_mesh(1)
+    assert make_mesh({"dp": 1}, device_type="cpu").shape == {"dp": 1}
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fake_quant_int8(torch.empty(4, device="meta"))
     meta = torch.empty(1, 4, 16, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         decode_attention(meta, meta, meta,
