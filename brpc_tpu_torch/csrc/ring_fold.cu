@@ -1,0 +1,708 @@
+// ring_fold.cu — the ring-attention fold: one held K/V block folded into
+// the online-softmax state of the local queries, and its backward.
+//
+// Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71
+// (`_ring_body`, run once per ring step; its backward is jax.grad of
+// the same lines) and Ulysses' local attention `_dense_local` (:125-133),
+// which the port runs as one fold at offsets 0/0.  The JAX package wrote
+// them in jnp and left them to XLA; there is no Pallas kernel.  Layout:
+//   q, dO [B, Cq, H, hd] and k, v [B, Ck, H, hd] in the working type T
+//   (bf16 or f32), read through their (b, s, h) strides, the last dim
+//   contiguous
+//   m, l, lse, D [B, H, Cq] f32; o, dq [B, H, Cq, hd] f32; dk, dv
+//   [B, H, Ck, hd] f32 (contiguous accumulators, updated in place)
+//   q_off, k_off: the global positions of the first query and key
+//
+// Numerics kept from the reference (each op rounded as the jnp op is):
+//   s  = f32(T(q . k)) * scale        the product in T (JAX's einsum
+//                                      returns the working type), scaled
+//                                      in f32; -1e30 where q_off + i <
+//                                      k_off + j (causal)
+//   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
+//   l' = l a + sum_j p      o' = o a + p . f32(v)   (an f32 product)
+//   backward, per block, from lse = m + log l and D = sum dO . o/l:
+//   P  = exp(s - lse)       dP = f32(dO) . f32(v)
+//   dS = T(P (dP - D) scale)          the cotangent of the T product is T
+//   dq += dS . k    dk += dS^T . q    dv += P^T . f32(dO)   (f32 sums)
+// The __f*_rn intrinsics keep each of those ops its own rounding (no
+// FMA contraction across them), as the plain PyTorch version rounds.
+//
+// Bound on an H100 (B=8, C=1024, H=8, hd=64, causal diagonal block, one
+// fold): operations.  q.k over the causal half is 4.3 GFLOP (bf16 on the
+// tensor cores: 4.3 us at 989 TFLOP/s), p . v 4.3 GFLOP that must stay
+// f32 to keep the reference's numbers (64 us at the CUDA cores' 67
+// TFLOP/s): about 68 us, against 22 MB of traffic (7 us at 3.35 TB/s).
+// The kernels of this file are the simple first ones: SIMT f32 FMAs for
+// every product, scores computed twice in the forward, so they run far
+// from that bound.
+//
+// Design:
+//  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
+//    16 x 16 grid; thread (ty, tx) owns rows ty + 16 i (i < 4) and columns
+//    tx + 16 j of every tile product; a row's 16 owners are one half-warp
+//    and reduce with four xor-shuffles.  Tiles are staged in shared
+//    memory as f32 rows of max(hd, 16) + 1 floats (hd 8 is padded with
+//    zeros), rows past the block as zeros.
+//  - fwd, one block per (query tile, h, b): pass 1 the block's row max,
+//    pass 2 p, its row sum and p . V; then the (m, l, o) update, once
+//    per block as the reference's fold.
+//    dq, per query tile: dP, dS and dq += dS . K over the key tiles.
+//    dkdv, per key tile: over the query tiles, dk += dS^T Q and
+//    dv += P^T dO.  No atomics: every output element has one owner, so
+//    two runs give the same bits.
+//  - Causality: a tile pair with every query before every key is all
+//    -1e30, whose p = exp(-1e30 - m') is 0 for every row that saw a key
+//    before; such pairs are skipped unless some row of the block has
+//    not (then its p is 1, as in the reference, and nothing is skipped).
+//    The wrapper skips a wholly future block without a launch.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;
+constexpr int kThreads = 256;
+constexpr int kLdP = kTile + 1;
+constexpr float kNeg = -1e30f;
+
+struct Strides {
+  long long b, s, h;
+};
+// q, k, v, dO
+struct Layout {
+  Strides t[4];
+};
+// where the held block sits
+struct Pos {
+  int q_off, k_off, causal;
+  float scale;
+};
+
+template <int HD>
+struct Dims {
+  static constexpr int kW = HD < 16 ? 16 : HD;  // staged row width
+  static constexpr int kLd = kW + 1;
+  static constexpr int kNJ = kW / 16;
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// x rounded to the working type and back.
+template <typename T>
+__device__ __forceinline__ float round_t(float x);
+template <>
+__device__ __forceinline__ float round_t<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_t<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// Rows [row0, row0 + 64) of head (b, h) into an f32 tile [64][kLd]; rows
+// at or past `rows` and columns at or past HD are zeros.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          const Strides& st, int b, int h,
+                                          int row0, int rows) {
+  constexpr int kW = Dims<HD>::kW;
+  constexpr int kLd = Dims<HD>::kLd;
+  const T* base = src + b * st.b + h * st.h;
+  for (int e = threadIdx.x; e < kTile * kW; e += kThreads) {
+    const int r = e / kW;
+    const int c = e % kW;
+    const int row = row0 + r;
+    dst[r * kLd + c] = row < rows && c < HD
+                           ? to_f<T>(base[(long long)row * st.s + c])
+                           : 0.0f;
+  }
+}
+
+// acc[i][j] += sum_{x < K} A(ty + 16 i, x) * B(x, tx + 16 j), with
+// A(r, x) = a[r * AR + x * AX] and B(x, c) = b[x * BX + c * BC] in shared
+// memory; the sum runs over x in order, in f32.
+template <int NJ, int K, int AR, int AX, int BX, int BC>
+__device__ __forceinline__ void tile_mma(float (&acc)[4][NJ], const float* a,
+                                         const float* b, int tx, int ty) {
+#pragma unroll 8
+  for (int x = 0; x < K; ++x) {
+    float av[4];
+    float bv[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(ty + 16 * i) * AR + x * AX];
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      bv[j] = b[x * BX + (tx + 16 * j) * BC];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// Row-by-column products over hd of two staged tiles: out[i][j] =
+// sum_x A[ty + 16 i][x] B[tx + 16 j][x].
+template <int HD>
+__device__ __forceinline__ void dots(float (&out)[4][4], const float* sA,
+                                     const float* sB, int tx, int ty) {
+  constexpr int kLd = Dims<HD>::kLd;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[i][j] = 0.0f;
+    }
+  }
+  tile_mma<4, HD, kLd, 1, 1, kLd>(out, sA, sB, tx, ty);
+}
+
+// The reference's scores of local query rows q0 + ty + 16 i against local
+// keys k0 + tx + 16 j: -1e30 where masked, -INFINITY past the block's
+// keys (no key at all: out of every max and sum).
+template <typename T, int HD>
+__device__ __forceinline__ void scores(float (&s)[4][4], const float* sQ,
+                                       const float* sK, int q0, int k0,
+                                       int Ck, const Pos& pos, int tx,
+                                       int ty) {
+  dots<HD>(s, sQ, sK, tx, ty);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = k0 + tx + 16 * j;
+      const int row = q0 + ty + 16 * i;
+      if (key >= Ck) {
+        s[i][j] = -INFINITY;
+      } else if (pos.causal && pos.q_off + row < pos.k_off + key) {
+        s[i][j] = kNeg;
+      } else {
+        s[i][j] = __fmul_rn(round_t<T>(s[i][j]), pos.scale);
+      }
+    }
+  }
+}
+
+// Every query of the tile pair before every key (all -1e30).
+__device__ __forceinline__ bool all_masked(const Pos& pos, int q0, int Cq,
+                                           int k0) {
+  const int q_last = pos.q_off + min(q0 + kTile - 1, Cq - 1);
+  return pos.causal && q_last < pos.k_off + k0;
+}
+
+// exp(-1e30 - x) is not 0: a row that has seen no key (x = m' or lse at
+// about -1e30), whose masked scores the reference weighs by 1.
+__device__ __forceinline__ bool degenerate(float x) {
+  return expf(__fsub_rn(kNeg, x)) != 0.0f;
+}
+
+template <int HD>
+constexpr int fwd_smem() {
+  return (3 * kTile * Dims<HD>::kLd + kTile * kLdP) * (int)sizeof(float);
+}
+template <int HD>
+constexpr int dq_smem() {
+  return (4 * kTile * Dims<HD>::kLd + kTile * kLdP) * (int)sizeof(float);
+}
+template <int HD>
+constexpr int dkdv_smem() {
+  return (4 * kTile * Dims<HD>::kLd + 2 * kTile * kLdP + 2 * kTile) *
+         (int)sizeof(float);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, float* __restrict__ m,
+                         float* __restrict__ l, float* __restrict__ o,
+                         Layout lay, int Cq, int Ck, int H, Pos pos) {
+  constexpr int kLd = Dims<HD>::kLd;
+  constexpr int NJ = Dims<HD>::kNJ;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + kTile * kLd;
+  float* sV = sK + kTile * kLd;
+  float* sP = sV + kTile * kLd;
+  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;  // longest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int q0 = qt * kTile;
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+  float m_old[4];
+  float m_new[4];
+  bool valid[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    valid[i] = row < Cq;
+    m_old[i] = valid[i] ? m[bh + row] : kNeg;
+    m_new[i] = -INFINITY;
+  }
+  // pass 1: the block's row max
+  for (int kt = 0; kt < n_kt && !all_masked(pos, q0, Cq, kt * kTile);
+       ++kt) {
+    __syncthreads();
+    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
+    __syncthreads();
+    float s[4][4];
+    scores<T, HD>(s, sQ, sK, q0, kt * kTile, Ck, pos, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float mx =
+          fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+      m_new[i] = fmaxf(m_new[i], half_warp_max(mx));
+    }
+  }
+  int degen = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_new[i] = fmaxf(m_old[i], m_new[i]);
+    degen |= valid[i] && degenerate(m_new[i]);
+  }
+  degen = __syncthreads_or(degen);
+  // pass 2: p, its row sum and p . V
+  float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc[i][j] = 0.0f;
+    }
+  }
+  for (int kt = 0;
+       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile)); ++kt) {
+    __syncthreads();
+    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
+    load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, Ck);
+    __syncthreads();
+    float s[4][4];
+    scores<T, HD>(s, sQ, sK, q0, kt * kTile, Ck, pos, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(__fsub_rn(s[i][j], m_new[i]));
+        sum[i] += p;
+        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p;
+      }
+    }
+    __syncthreads();
+    tile_mma<NJ, kTile, kLdP, 1, kLd, 1>(acc, sP, sV, tx, ty);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float total = half_warp_sum(sum[i]);
+    if (!valid[i]) {
+      continue;
+    }
+    const int row = q0 + ty + 16 * i;
+    const float alpha = expf(__fsub_rn(m_old[i], m_new[i]));
+    if (tx == 0) {
+      m[bh + row] = m_new[i];
+      l[bh + row] = __fadd_rn(__fmul_rn(l[bh + row], alpha), total);
+    }
+    float* orow = o + (bh + row) * HD;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = tx + 16 * j;
+      if (c < HD) {
+        orow[c] = __fadd_rn(__fmul_rn(orow[c], alpha), acc[i][j]);
+      }
+    }
+  }
+}
+
+// P and dS of a tile pair (rows: queries, columns: keys); L and D per row.
+template <typename T, int HD>
+__device__ __forceinline__ void p_and_ds(float (&p)[4][4], float (&ds)[4][4],
+                                         const float* sQ, const float* sK,
+                                         const float* sDO, const float* sV,
+                                         int q0, int k0, int Ck,
+                                         const Pos& pos, const float* L,
+                                         const float* D, int tx, int ty) {
+  float s[4][4];
+  float w[4][4];
+  scores<T, HD>(s, sQ, sK, q0, k0, Ck, pos, tx, ty);
+  dots<HD>(w, sDO, sV, tx, ty);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      p[i][j] = expf(__fsub_rn(s[i][j], L[i]));
+      ds[i][j] = round_t<T>(__fmul_rn(
+          __fmul_rn(p[i][j], __fsub_rn(w[i][j], D[i])), pos.scale));
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, Layout lay, int Cq, int Ck,
+                        int H, Pos pos) {
+  constexpr int kLd = Dims<HD>::kLd;
+  constexpr int NJ = Dims<HD>::kNJ;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sDO = sQ + kTile * kLd;
+  float* sK = sDO + kTile * kLd;
+  float* sV = sK + kTile * kLd;
+  float* sDS = sV + kTile * kLd;
+  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int q0 = qt * kTile;
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+  load_tile<T, HD>(sDO, dout, lay.t[3], b, h, q0, Cq);
+  float L[4];  // +inf past the block: p = 0 there
+  float D[4];
+  int degen = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    L[i] = row < Cq ? lse[bh + row] : INFINITY;
+    D[i] = row < Cq ? delta[bh + row] : 0.0f;
+    degen |= row < Cq && degenerate(L[i]);
+  }
+  degen = __syncthreads_or(degen);
+  float acc[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc[i][j] = 0.0f;
+    }
+  }
+  for (int kt = 0;
+       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile)); ++kt) {
+    __syncthreads();
+    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
+    load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, Ck);
+    __syncthreads();
+    float p[4][4];
+    float ds[4][4];
+    p_and_ds<T, HD>(p, ds, sQ, sK, sDO, sV, q0, kt * kTile, Ck, pos, L, D,
+                    tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sDS[(ty + 16 * i) * kLdP + tx + 16 * j] = ds[i][j];
+      }
+    }
+    __syncthreads();
+    tile_mma<NJ, kTile, kLdP, 1, kLd, 1>(acc, sDS, sK, tx, ty);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < Cq) {
+      float* dst = dq + (bh + row) * HD;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        if (c < HD) {
+          dst[c] = __fadd_rn(dst[c], acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          Layout lay, int Cq, int Ck, int H, Pos pos) {
+  constexpr int kLd = Dims<HD>::kLd;
+  constexpr int NJ = Dims<HD>::kNJ;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kTile * kLd;
+  float* sQ = sV + kTile * kLd;
+  float* sDO = sQ + kTile * kLd;
+  float* sP = sDO + kTile * kLd;
+  float* sDS = sP + kTile * kLdP;
+  float* sL = sDS + kTile * kLdP;
+  float* sD = sL + kTile;
+  const int kt = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int k0 = kt * kTile;
+  const int n_qt = (Cq + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+  const long long bhk = ((long long)b * H + h) * Ck;
+
+  int degen = 0;
+  for (int r = threadIdx.x; r < Cq; r += kThreads) {
+    degen |= degenerate(lse[bh + r]);
+  }
+  degen = __syncthreads_or(degen);
+  load_tile<T, HD>(sK, k, lay.t[1], b, h, k0, Ck);
+  load_tile<T, HD>(sV, v, lay.t[2], b, h, k0, Ck);
+  float acc_k[4][NJ];
+  float acc_v[4][NJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      acc_k[i][j] = 0.0f;
+      acc_v[i][j] = 0.0f;
+    }
+  }
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    if (!degen && all_masked(pos, q0, Cq, k0)) {
+      continue;
+    }
+    __syncthreads();
+    load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+    load_tile<T, HD>(sDO, dout, lay.t[3], b, h, q0, Cq);
+    if (threadIdx.x < kTile) {
+      const int row = q0 + threadIdx.x;
+      sL[threadIdx.x] = row < Cq ? lse[bh + row] : INFINITY;  // p = 0
+      sD[threadIdx.x] = row < Cq ? delta[bh + row] : 0.0f;
+    }
+    __syncthreads();
+    float L[4];
+    float D[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      L[i] = sL[ty + 16 * i];
+      D[i] = sD[ty + 16 * i];
+    }
+    // rows: queries ty + 16 i; columns: keys tx + 16 j
+    float p[4][4];
+    float ds[4][4];
+    p_and_ds<T, HD>(p, ds, sQ, sK, sDO, sV, q0, k0, Ck, pos, L, D, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p[i][j];
+        sDS[(ty + 16 * i) * kLdP + tx + 16 * j] = ds[i][j];
+      }
+    }
+    __syncthreads();
+    // rows: keys ty + 16 i; dv[t] += sum_s P[s][t] dO[s], dk likewise
+    tile_mma<NJ, kTile, 1, kLdP, kLd, 1>(acc_v, sP, sDO, tx, ty);
+    tile_mma<NJ, kTile, 1, kLdP, kLd, 1>(acc_k, sDS, sQ, tx, ty);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key < Ck) {
+      float* dkr = dk + (bhk + key) * HD;
+      float* dvr = dv + (bhk + key) * HD;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = tx + 16 * j;
+        if (c < HD) {
+          dkr[c] = __fadd_rn(dkr[c], acc_k[i][j]);
+          dvr[c] = __fadd_rn(dvr[c], acc_v[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// Dynamic shared memory above 48 KB needs the opt-in once per kernel.
+template <typename K>
+int allow_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+Layout layout_of(const long long* strides, int n) {
+  Layout lay{};
+  for (int i = 0; i < n; ++i) {
+    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  return lay;
+}
+
+template <typename T, int HD>
+int fwd(const void* q, const void* k, const void* v, float* m, float* l,
+        float* o, const Layout& lay, int B, int Cq, int Ck, int H,
+        const Pos& pos, cudaStream_t st) {
+  static const int attr =
+      allow_smem(ring_fold_fwd_kernel<T, HD>, fwd_smem<HD>());
+  if (attr != 0) {
+    return attr;
+  }
+  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+  ring_fold_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, m, l, o, lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, float* dq,
+           const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
+           cudaStream_t st) {
+  static const int attr =
+      allow_smem(ring_fold_dq_kernel<T, HD>, dq_smem<HD>());
+  if (attr != 0) {
+    return attr;
+  }
+  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+  ring_fold_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dq,
+      lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, float* dk, float* dv,
+             const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
+             cudaStream_t st) {
+  static const int attr =
+      allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
+  if (attr != 0) {
+    return attr;
+  }
+  const dim3 grid((Ck + kTile - 1) / kTile, H, B);
+  ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
+      dv, lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
+bool valid_shape(int B, int Cq, int Ck, int H) {
+  return B > 0 && Cq > 0 && Ck > 0 && H > 0 && H <= 65535 && B <= 65535;
+}
+
+}  // namespace
+
+// The C entries.  dtype: 0 = bf16, 1 = f32; hd: 8, 16, 64 or 128.
+// strides: (b, s, h) element strides of q, k, v (and dO for the
+// backward), in that order; the last dim of each is contiguous.  m, l,
+// lse, delta are contiguous [B, H, Cq] f32; o and dq contiguous
+// [B, H, Cq, hd] f32, dk and dv [B, H, Ck, hd] f32, all updated in place.
+// Each returns cudaGetLastError() after its launch (0 on success); the
+// launch is asynchronous on `stream`.
+
+// return FN<T, hd>(...) for the head dims the kernels take
+#define TRPC_RF_HD(T, FN, ...)                 \
+  switch (hd) {                                \
+    case 8: return FN<T, 8>(__VA_ARGS__);      \
+    case 16: return FN<T, 16>(__VA_ARGS__);    \
+    case 64: return FN<T, 64>(__VA_ARGS__);    \
+    case 128: return FN<T, 128>(__VA_ARGS__);  \
+  }
+
+// FN over the dtype and head dim
+#define TRPC_RF(FN, ...)                                  \
+  if (dtype == 0) {                                       \
+    TRPC_RF_HD(__nv_bfloat16, FN, __VA_ARGS__);           \
+  } else if (dtype == 1) {                                \
+    TRPC_RF_HD(float, FN, __VA_ARGS__);                   \
+  }                                                       \
+  return (int)cudaErrorInvalidValue;
+
+extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
+                                  const void* v, void* m, void* l, void* o,
+                                  const long long* strides, int B, int Cq,
+                                  int Ck, int H, int hd, int dtype,
+                                  int q_off, int k_off, int causal,
+                                  float scale, void* stream) {
+  if (!valid_shape(B, Cq, Ck, H)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout lay = layout_of(strides, 3);
+  const Pos pos{q_off, k_off, causal, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  TRPC_RF(fwd, q, k, v, (float*)m, (float*)l, (float*)o, lay, B, Cq, Ck, H,
+          pos, st);
+}
+
+extern "C" int trpc_ring_fold_bwd_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, const long long* strides,
+                                     int B, int Cq, int Ck, int H, int hd,
+                                     int dtype, int q_off, int k_off,
+                                     int causal, float scale, void* stream) {
+  if (!valid_shape(B, Cq, Ck, H)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout lay = layout_of(strides, 4);
+  const Pos pos{q_off, k_off, causal, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  TRPC_RF(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta,
+          (float*)dq, lay, B, Cq, Ck, H, pos, st);
+}
+
+extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv,
+                                       const long long* strides, int B,
+                                       int Cq, int Ck, int H, int hd,
+                                       int dtype, int q_off, int k_off,
+                                       int causal, float scale,
+                                       void* stream) {
+  if (!valid_shape(B, Cq, Ck, H)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout lay = layout_of(strides, 4);
+  const Pos pos{q_off, k_off, causal, scale};
+  cudaStream_t st = (cudaStream_t)stream;
+  TRPC_RF(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta,
+          (float*)dk, (float*)dv, lay, B, Cq, Ck, H, pos, st);
+}

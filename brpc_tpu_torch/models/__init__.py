@@ -1,13 +1,14 @@
-"""models/ — the transformer LM (dense and MoE), its KV-cached decode and
-its training step, on PyTorch (port of brpc_tpu/models/ on one device;
-the sequence-parallel attention paths and the mesh argument are not
-ported yet)."""
+"""models/ — the transformer LM (dense and MoE), its KV-cached decode,
+its training step and its checkpoints, on PyTorch (port of
+brpc_tpu/models/): on one device, or over a mesh with this rank's shards
+(``mesh=``; serving over a mesh is not ported yet)."""
 
 from brpc_tpu_torch.models.transformer import (  # noqa: F401
     ModelConfig,
     TransformerLM,
     apply,
     init,
+    param_specs,
 )
 from brpc_tpu_torch.models.decode import (  # noqa: F401
     decode_step,

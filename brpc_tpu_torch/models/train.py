@@ -1,5 +1,4 @@
-"""Training step for the LM on PyTorch — port of brpc_tpu/models/train.py
-on one device.
+"""Training step for the LM on PyTorch — port of brpc_tpu/models/train.py.
 
 The step is forward (``transformer.apply``, bf16 products, f32 logits) ->
 next-token cross-entropy -> autograd -> AdamW.  ``torch.optim.AdamW``
@@ -12,7 +11,18 @@ torch autograd.
 
 Unlike the reference's pure step, the port's step updates the state IN
 PLACE (parameters, optimizer slots, step count) and returns the same
-object beside the loss.  Meshes and sharding are not ported.
+object beside the loss.
+
+Over a mesh (train.py:46-103) every rank runs the step on its shards:
+tokens arrive as its dp shard [B/dp, S+1] (train.py:70-73); its loss is
+its share of the reference's global mean (its NLL sum over the global
+B * S), and the returned loss is the sum of the shares over (dp, sp).
+After the backward every gradient is all-reduced over dp and sp; a
+gradient replicated over tp or ep is equal across those ranks already
+(the model's ``copy_to`` ops sum its partials).  AdamW then runs on the
+local shards, so its ``exp_avg``/``exp_avg_sq`` are sharded like their
+parameters, as the reference's tree-position matching (:76-95) makes
+them.
 """
 
 from __future__ import annotations
@@ -22,9 +32,13 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from brpc_tpu_torch.models.transformer import (ModelConfig, TransformerLM,
                                                apply, resolve_device)
+from brpc_tpu_torch.parallel import sharding
+
+BATCH_AXES = ("dp", "sp")   # the axes the loss and the gradients sum over
 
 
 @dataclass
@@ -34,14 +48,38 @@ class TrainState:
     step: torch.Tensor      # int32 scalar on the CPU
 
 
-def loss_fn(params: TransformerLM, tokens,
-            cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+def loss_fn(params: TransformerLM, tokens, cfg: Optional[ModelConfig] = None,
+            mesh=None) -> torch.Tensor:
     """Next-token CE; targets are tokens shifted left; mean over B * S of
-    f32 logits (train.py:33-39)."""
+    f32 logits (train.py:33-39).  On a mesh (default: the model's): this
+    rank's share of that mean, from its dp shard of tokens [B/dp, S+1]
+    and its sp chunk of the positions."""
+    mesh = params.mesh if mesh is None else mesh
     tokens = torch.as_tensor(tokens, device=params.embed.device).long()
-    logits = apply(params, tokens[:, :-1], cfg)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tokens[:, 1:].reshape(-1))
+    logits = apply(params, tokens[:, :-1], cfg, mesh)
+    targets = tokens[:, 1:]
+    if mesh is not None:
+        C = logits.shape[1]
+        at = sharding.axis_index(mesh, "sp") * C
+        targets = targets[:, at:at + C]
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+    if mesh is None:
+        return loss
+    return loss * (1.0 / sharding.axis_size(mesh, BATCH_AXES))
+
+
+def sum_gradients(model: TransformerLM, mesh) -> None:
+    """Every gradient summed over dp and sp, in place (one all-reduce of
+    the flattened gradients per axis)."""
+    grads = []
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    flat = sharding.summed(mesh, BATCH_AXES, _flatten_dense_tensors(grads))
+    for g, s in zip(grads, _unflatten_dense_tensors(flat, grads)):
+        g.copy_(s)
 
 
 def make_optimizer(lr: float = 1e-3
@@ -56,11 +94,14 @@ def make_optimizer(lr: float = 1e-3
     return build
 
 
-def make_train_step(cfg: ModelConfig, lr: float = 1e-3, device="cuda"):
+def make_train_step(cfg: ModelConfig, mesh=None, lr: float = 1e-3,
+                    device="cuda"):
     """Returns (optimizer factory, step): build a state with
     ``TrainState(model, tx(model), torch.zeros((), dtype=torch.int32))``;
     ``step(state, tokens [B, S+1]) -> (state, loss)`` takes one AdamW step
-    in place on `device` (``cuda`` unless the caller asks for ``cpu``)."""
+    in place on `device` (``cuda`` unless the caller asks for ``cpu``).
+    With a mesh the model is this rank's shards (``init(..., mesh=)``),
+    tokens its dp shard, and the loss the global one on every rank."""
     dev = resolve_device(device)
     tx = make_optimizer(lr)
 
@@ -69,11 +110,19 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-3, device="cuda"):
         if model.embed.device.type != dev.type:
             raise ValueError(f"the state lies on {model.embed.device}, the "
                              f"step runs on {dev}")
+        if getattr(model.mesh, "shape", None) != getattr(mesh, "shape", None):
+            raise ValueError("the state's mesh is not the step's")
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, cfg)
+        loss = loss_fn(model, tokens, cfg, mesh)
         loss.backward()
+        if mesh is not None:
+            sum_gradients(model, mesh)
         opt.step()
         state.step += 1
-        return state, loss.detach()
+        loss = loss.detach()
+        if mesh is not None:
+            loss = sharding.summed(mesh, BATCH_AXES,
+                                   loss.reshape(1)).reshape(())
+        return state, loss
 
     return tx, step

@@ -32,26 +32,36 @@ inference paths (``decode.prefill``, ``decode.decode_step``) run under
 ``torch.no_grad()``.  The reference's per-block ``jax.checkpoint`` is a
 memory policy that changes no number and is not ported.
 
-Not ported here: the sharding constraints (one device) and the
-ring/Ulysses attention paths.  The reference takes those only on a mesh
-with an ``sp`` axis larger than 1 and runs gather attention otherwise;
-the port's functions take no mesh, so a ring or Ulysses config runs
-gather attention here, as the reference does without a mesh.  Every
-entry point takes an explicit ``device`` and runs on ``cuda`` unless the
-caller asks for ``cpu``.
+Over a mesh (``mesh=``, parallel/mesh.py) the model holds this rank's
+shards under the same names and shapes cut by :func:`param_specs` (the
+reference's Megatron layout), so checkpoint keys do not change; one seed
+gives one global model under every layout.  What XLA inserts for the
+reference's sharding constraints is explicit here (parallel/sharding.py):
+the replicated activations enter the tp-sharded products through
+``copy_to`` and their partial sums leave through ``reduce_from``; gather
+attention at sp > 1 all-gathers q, k and v over sp, runs the causal
+kernels on the whole sequence and keeps this rank's rows (each row sees
+the reference's arithmetic; the reduce-scatter is the backward); a ring
+or Ulysses config at sp > 1 runs parallel/ring_attention.py where the
+reference does.  Without a mesh a ring or Ulysses config runs gather
+attention, as the reference does.  Every entry point takes an explicit
+``device`` and runs on ``cuda`` unless the caller asks for ``cpu``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from brpc_tpu_torch.ops.causal_attention import causal_attention
+from brpc_tpu_torch.parallel import sharding
+from brpc_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                    ulysses_attention)
 
 
 @dataclass(frozen=True)
@@ -94,71 +104,135 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The spec tree matching the parameters (transformer.py:121-149),
+    specs as tuples: q/k/v column-parallel on heads (tp), ``wo``
+    row-parallel; ``w1`` column- and ``w2`` row-parallel; experts over
+    ep with ``we1``/``we2`` over tp inside; the rest replicated."""
+    specs: Dict[str, Any] = {
+        "embed": (None, None),
+        "pos": (None, None),
+        "ln_f": {"g": (None,), "b": (None,)},
+        "blocks": {
+            "ln1_g": (None, None), "ln1_b": (None, None),
+            "ln2_g": (None, None), "ln2_b": (None, None),
+            "wq": (None, None, "tp", None),
+            "wk": (None, None, "tp", None),
+            "wv": (None, None, "tp", None),
+            "wo": (None, "tp", None, None),
+            "w1": (None, None, "tp"),
+            "w2": (None, "tp", None),
+        },
+    }
+    if moe_slot(cfg, cfg.n_layers):
+        specs["moe"] = {
+            "router": (None, None, None),
+            "we1": (None, "ep", None, "tp"),
+            "we2": (None, "ep", "tp", None),
+        }
+    return specs
+
+
+def flat_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """{parameter name ("blocks.wq"): spec}."""
+    out = {}
+    for top, sub in param_specs(cfg).items():
+        if isinstance(sub, dict):
+            out.update({f"{top}.{k}": v for k, v in sub.items()})
+        else:
+            out[top] = sub
+    return out
+
+
+def _global_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """{parameter name: the reference's global shape}."""
+    L, D, H, hd, F_ = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                       cfg.head_dim, cfg.d_ff)
+    shapes = {"embed": (cfg.vocab, D), "pos": (cfg.max_seq, D),
+              "ln_f.g": (D,), "ln_f.b": (D,)}
+    for n in ("ln1_g", "ln1_b", "ln2_g", "ln2_b"):
+        shapes[f"blocks.{n}"] = (L, D)
+    for n in ("wq", "wk", "wv"):
+        shapes[f"blocks.{n}"] = (L, D, H, hd)
+    shapes.update({"blocks.wo": (L, H, hd, D), "blocks.w1": (L, D, F_),
+                   "blocks.w2": (L, F_, D)})
+    E, n_moe = cfg.n_experts, moe_slot(cfg, L)
+    if n_moe:
+        shapes.update({"moe.router": (n_moe, D, E),
+                       "moe.we1": (n_moe, E, D, F_),
+                       "moe.we2": (n_moe, E, F_, D)})
+    return shapes
+
+
 class TransformerLM(nn.Module):
     """The parameter tree as a module (no forward: :func:`apply`,
     ``decode.prefill`` and ``decode.decode_step`` are functions over it,
-    as in the reference)."""
+    as in the reference).  With a mesh, each parameter is this rank's
+    shard (:func:`param_specs`) of the global tensor of that name."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
         super().__init__()
         dev = resolve_device(device)
-        L, D, H, hd, F_ = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                           cfg.head_dim, cfg.d_ff)
+        specs = flat_specs(cfg)
+        shapes = _global_shapes(cfg)
 
-        def p(*shape):
+        def p(name):
+            shape = shapes[name]
+            if mesh is not None:
+                shape = sharding.local_shape(shape, specs[name], mesh)
             return nn.Parameter(torch.zeros(shape, device=dev))
 
+        def group(prefix, names):
+            return nn.ParameterDict({n: p(f"{prefix}.{n}") for n in names})
+
         self.cfg = cfg
-        self.embed = p(cfg.vocab, D)
-        self.pos = p(cfg.max_seq, D)
-        self.ln_f = nn.ParameterDict({"g": p(D), "b": p(D)})
-        self.blocks = nn.ParameterDict({
-            "ln1_g": p(L, D), "ln1_b": p(L, D),
-            "ln2_g": p(L, D), "ln2_b": p(L, D),
-            "wq": p(L, D, H, hd), "wk": p(L, D, H, hd), "wv": p(L, D, H, hd),
-            "wo": p(L, H, hd, D),
-            "w1": p(L, D, F_), "w2": p(L, F_, D),
-        })
-        E, n_moe = cfg.n_experts, moe_slot(cfg, L)
-        if n_moe:
-            self.moe = nn.ParameterDict({
-                "router": p(n_moe, D, E),
-                "we1": p(n_moe, E, D, F_), "we2": p(n_moe, E, F_, D),
-            })
+        self.mesh = mesh
+        self.embed = p("embed")
+        self.pos = p("pos")
+        self.ln_f = group("ln_f", ("g", "b"))
+        self.blocks = group("blocks", ("ln1_g", "ln1_b", "ln2_g", "ln2_b",
+                                       "wq", "wk", "wv", "wo", "w1", "w2"))
+        if moe_slot(cfg, cfg.n_layers):
+            self.moe = group("moe", ("router", "we1", "we2"))
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
-         device="cuda") -> TransformerLM:
+         device="cuda", mesh=None) -> TransformerLM:
     """Random parameters with the reference's distribution
     (transformer.init: normal / sqrt(fan_in) for every product weight,
     ones/zeros for the norms).  Drawn on the generator's device (the CPU
-    for ``torch.Generator()``) and then moved, so one seed gives one
-    model on every device.  ``jax.random`` bits cannot be reproduced: to
-    compare with the reference, carry its parameters over with
-    ``weights.params_from_jax``."""
-    model = TransformerLM(cfg, device)
+    for ``torch.Generator()``) at their global shapes and then moved (on
+    a mesh: this rank's shard kept), so one seed gives one global model
+    on every device and layout.  ``jax.random`` bits cannot be
+    reproduced: to compare with the reference, carry its parameters over
+    with ``weights.params_from_jax``."""
+    model = TransformerLM(cfg, device, mesh)
     gdev = generator.device
+    shapes, specs = _global_shapes(cfg), flat_specs(cfg)
+    params = dict(model.named_parameters())
 
-    def dense(t: torch.Tensor, fan_in: int) -> None:
-        draw = torch.randn(t.shape, generator=generator, device=gdev,
-                           dtype=torch.float32)
-        t.copy_(draw / math.sqrt(fan_in))
+    def dense(name: str, fan_in: int) -> None:
+        draw = torch.randn(shapes[name], generator=generator, device=gdev,
+                           dtype=torch.float32) / math.sqrt(fan_in)
+        if mesh is not None:
+            draw = sharding.local_slice(draw, specs[name], mesh)
+        params[name].copy_(draw)
 
     D, F_ = cfg.d_model, cfg.d_ff
     with torch.no_grad():
-        dense(model.embed, D)
-        dense(model.pos, D)
+        dense("embed", D)
+        dense("pos", D)
         model.ln_f["g"].fill_(1.0)
         bl = model.blocks
         bl["ln1_g"].fill_(1.0)
         bl["ln2_g"].fill_(1.0)
         for name in ("wq", "wk", "wv", "wo", "w1"):
-            dense(bl[name], D)
-        dense(bl["w2"], F_)
+            dense(f"blocks.{name}", D)
+        dense("blocks.w2", F_)
         if moe_slot(cfg, cfg.n_layers):
-            dense(model.moe["router"], D)
-            dense(model.moe["we1"], D)
-            dense(model.moe["we2"], F_)
+            dense("moe.router", D)
+            dense("moe.we1", D)
+            dense("moe.we2", F_)
     return model
 
 
@@ -189,25 +263,58 @@ def _causal_attention(q, k, v):
     return causal_attention(q, k, v)
 
 
-def _attention(x, lp, i, cfg: ModelConfig):
-    xc = x.to(cfg.dtype)
+def _copy(x, mesh, axes):
+    """A replicated activation entering products sharded over `axes`."""
+    return x if mesh is None else sharding.copy_to(x, mesh, axes)
+
+
+def _reduce(x, mesh, axes):
+    """A partial sum over `axes` leaving them."""
+    return x if mesh is None else sharding.reduce_from(x, mesh, axes)
+
+
+def _sp(mesh) -> int:
+    return 1 if mesh is None else sharding.axis_size(mesh, "sp")
+
+
+def _attention(x, lp, i, cfg: ModelConfig, mesh=None):
+    xc = _copy(x.to(cfg.dtype), mesh, "tp")
     q = torch.einsum("bsd,dhk->bshk", xc, lp["wq"][i].to(cfg.dtype))
     kk = torch.einsum("bsd,dhk->bshk", xc, lp["wk"][i].to(cfg.dtype))
     v = torch.einsum("bsd,dhk->bshk", xc, lp["wv"][i].to(cfg.dtype))
-    o = _causal_attention(q, kk, v)
-    return torch.einsum("bshk,hkd->bsd", o.to(cfg.dtype),
-                        lp["wo"][i].to(cfg.dtype))
+    if _sp(mesh) == 1:
+        o = _causal_attention(q, kk, v)
+    elif cfg.attn_impl != "gather":
+        fn = (ring_attention if cfg.attn_impl == "ring"
+              else ulysses_attention)
+        o = fn(q, kk, v, mesh, axis="sp", causal=True)
+    else:
+        # all-gather context parallelism: the whole sequence's attention
+        # on every sp rank, this rank's rows kept
+        C = q.shape[1]
+        at = sharding.axis_index(mesh, "sp") * C
+        full = [sharding.gather_seq(t, mesh, "sp") for t in (q, kk, v)]
+        o = _causal_attention(*full)[:, at:at + C]
+    out = torch.einsum("bshk,hkd->bsd", o.to(cfg.dtype),
+                       lp["wo"][i].to(cfg.dtype))
+    return _reduce(out, mesh, "tp")
 
 
-def _ffn(x, lp, i, cfg: ModelConfig):
-    xc = x.to(cfg.dtype)
+def _ffn(x, lp, i, cfg: ModelConfig, mesh=None):
+    xc = _copy(x.to(cfg.dtype), mesh, "tp")
     h = _gelu(torch.einsum("bsd,df->bsf", xc, lp["w1"][i].to(cfg.dtype)))
-    return torch.einsum("bsf,fd->bsd", h, lp["w2"][i].to(cfg.dtype))
+    out = torch.einsum("bsf,fd->bsd", h, lp["w2"][i].to(cfg.dtype))
+    return _reduce(out, mesh, "tp")
 
 
-def _moe_ffn(x, mp, i, cfg: ModelConfig):
+def _moe_ffn(x, mp, i, cfg: ModelConfig, mesh=None):
     """Dense top-k switch layer (transformer.py:218-236): every expert
-    runs on every token, weighted by the renormalised top-k gate."""
+    runs on every token, weighted by the renormalised top-k gate.  On a
+    mesh this rank's experts (ep) and ffn columns (tp) run on every local
+    token; the gates enter through ``copy_to`` over (ep, tp), since the
+    expert outputs they weigh are partial over tp.  The router and the
+    experts share one cast of x, so that on a mesh of ones the gradient
+    sums are the one-device step's."""
     xc = x.to(cfg.dtype)
     logits = torch.einsum("bsd,de->bse", xc, mp["router"][i].to(cfg.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
@@ -215,9 +322,15 @@ def _moe_ffn(x, mp, i, cfg: ModelConfig):
     oh = F.one_hot(topi, cfg.n_experts).to(probs.dtype)
     gates = (oh * topv[..., None]).sum(-2)          # [B, S, E]
     gates = (gates / (gates.sum(-1, keepdim=True) + 1e-9)).to(cfg.dtype)
+    if mesh is not None:
+        n_local = mp["we1"].shape[1]
+        e0 = sharding.axis_index(mesh, "ep") * n_local
+        gates = _copy(gates, mesh, ("ep", "tp"))[..., e0:e0 + n_local]
+        xc = _copy(xc, mesh, ("ep", "tp"))
     h = _gelu(torch.einsum("bsd,edf->besf", xc, mp["we1"][i].to(cfg.dtype)))
     y = torch.einsum("besf,efd->besd", h, mp["we2"][i].to(cfg.dtype))
-    return torch.einsum("besd,bse->bsd", y, gates)
+    return _reduce(torch.einsum("besd,bse->bsd", y, gates), mesh,
+                   ("ep", "tp"))
 
 
 def logits_of(model: TransformerLM, x, cfg: ModelConfig):
@@ -227,21 +340,32 @@ def logits_of(model: TransformerLM, x, cfg: ModelConfig):
                         model.embed.to(cfg.dtype)).float()
 
 
-def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None):
+def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None,
+          mesh=None):
     """tokens [B, S] int -> logits [B, S, vocab] f32; differentiable
-    with respect to the parameters."""
+    with respect to the parameters.  On a mesh (default: the model's),
+    tokens are this rank's dp shard [B/dp, S] and the logits this rank's
+    [B/dp, S/sp, vocab]: the sequence chunk at its sp index."""
     cfg = cfg or model.cfg
+    mesh = model.mesh if mesh is None else mesh
     tokens = torch.as_tensor(tokens, device=model.embed.device).long()
     S = tokens.shape[1]
-    x = model.embed[tokens] + model.pos[:S][None]
+    at = 0
+    if mesh is not None:
+        sp = _sp(mesh)
+        if S % sp:
+            raise ValueError(f"sequence of {S} does not split {sp} ways")
+        S //= sp
+        at = sharding.axis_index(mesh, "sp") * S
+        tokens = tokens[:, at:at + S]
+    x = model.embed[tokens] + model.pos[at:at + S][None]
     lp = model.blocks
     for i in range(cfg.n_layers):
         x = x + _attention(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]),
-                           lp, i, cfg)
+                           lp, i, cfg, mesh)
         h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
         if cfg.is_moe(i):
-            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg)
+            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg, mesh)
         else:
-            x = x + _ffn(h, lp, i, cfg)
+            x = x + _ffn(h, lp, i, cfg, mesh)
     return logits_of(model, x, cfg)
-

@@ -14,3 +14,9 @@ from brpc_tpu_torch.ops.quant_codec import (  # noqa: F401
     fake_quant_int8,
     fake_quant_int8_plain,
 )
+from brpc_tpu_torch.ops.ring_fold import (  # noqa: F401
+    ring_fold_backward_dkdv,
+    ring_fold_backward_dq,
+    ring_fold_forward,
+    ring_fold_plain,
+)

@@ -14,8 +14,11 @@ the transport underneath:
       its Mesh* channels ride the collectives above.
   quantize.py — the codec passes of the quantized merge; an int8 pass
       on a CUDA tensor is the kernel of ops/quant_codec.py.
-
-Ring and Ulysses attention are not ported yet.
+  sharding.py — one rank's shards of a global array and back, and the
+      conjugate autograd ops (copy_to / reduce_from / gather_seq / a2a)
+      that the sharded model is built from.
+  ring_attention.py — ring and Ulysses sequence parallelism; the fold is
+      the kernels of ops/ring_fold.py.
 """
 
 from brpc_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -16,6 +16,12 @@ keys joined by "/" from the reference's ``TrainState`` tree::
 other links hold no arrays): ``mu``/``nu`` are AdamW's ``exp_avg`` /
 ``exp_avg_sq`` and ``count`` its ``step``.  This module only reads and
 writes arrays; it never imports jax.
+
+Over a mesh the arrays stay global: reading slices each leaf (the
+parameter and its two AdamW slots alike) to this rank's shard by
+``transformer.param_specs``, and writing gathers every leaf from the
+ranks (``sharding.gather_global``, a collective every rank reaches) to
+rank 0.
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from brpc_tpu_torch.models.transformer import ModelConfig, TransformerLM
+from brpc_tpu_torch.models.transformer import (ModelConfig, TransformerLM,
+                                               flat_specs)
+from brpc_tpu_torch.parallel import sharding
 
 ADAM = "opt_state/0"
 
@@ -77,8 +86,33 @@ def _params_flat(tree: Mapping[str, Any]) -> Dict[str, Any]:
     return {_param_name(k): v for k, v in _flat(tree).items()}
 
 
+def _local(model: TransformerLM, name: str, arr) -> np.ndarray:
+    """A writable f32 copy of the global array `arr` of parameter `name`,
+    cut to this rank's shard on a mesh."""
+    arr = np.asarray(arr, np.float32)
+    if model.mesh is not None:
+        arr = sharding.local_slice(arr, flat_specs(model.cfg)[name],
+                                   model.mesh)
+    return np.array(arr, np.float32)
+
+
+def _global(model: TransformerLM, name: str, t: torch.Tensor,
+            keep: bool = True) -> Optional[np.ndarray]:
+    """The global array of parameter `name` (or of its AdamW slot) from
+    this rank's shard `t`: gathered on a mesh (a collective).  A rank
+    that does not `keep` it drops the gathered copy at once (None)."""
+    t = t.detach()
+    if model.mesh is not None:
+        t = sharding.gather_global(t, flat_specs(model.cfg)[name],
+                                   model.mesh)
+    if not keep:
+        return None
+    return t.to("cpu", torch.float32, copy=True).numpy()   # no alias
+
+
 def _load(model: TransformerLM, flat: Mapping[str, Any]) -> None:
-    """Copy {param name: array} into the model, names and shapes checked."""
+    """Copy {param name: global array} into the model (this rank's shard
+    of each on a mesh), names and shapes checked."""
     want = dict(model.named_parameters())
     missing = set(want) - set(flat)
     extra = set(flat) - set(want)
@@ -87,7 +121,7 @@ def _load(model: TransformerLM, flat: Mapping[str, Any]) -> None:
                        f"unexpected {sorted(extra)}")
     with torch.no_grad():
         for name, p in want.items():
-            arr = np.array(flat[name], np.float32)  # a writable copy
+            arr = _local(model, name, flat[name])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(p.shape)} of {model.cfg}")
@@ -96,13 +130,13 @@ def _load(model: TransformerLM, flat: Mapping[str, Any]) -> None:
 
 def params_from_jax(tree: Mapping[str, Any],
                     cfg: Optional[ModelConfig] = None,
-                    device="cuda") -> TransformerLM:
+                    device="cuda", mesh=None) -> TransformerLM:
     """The reference's parameter tree (nested mapping of arrays with its
     names and layouts, the MoE subtree included) as a TransformerLM on
-    `device`.  With no `cfg`, the dimensions come from the shapes and the
-    rest from the defaults."""
+    `device` (on a mesh: this rank's shards).  With no `cfg`, the
+    dimensions come from the shapes and the rest from the defaults."""
     cfg = cfg or config_from_tree(tree)
-    model = TransformerLM(cfg, device)
+    model = TransformerLM(cfg, device, mesh)
     _load(model, _params_flat(tree))
     return model
 
@@ -118,21 +152,28 @@ def state_keys(model: TransformerLM) -> list:
 def train_state_to_flat(state) -> Dict[str, np.ndarray]:
     """A TrainState as the reference's checkpoint arrays (the inverse of
     :func:`train_state_from_jax`).  AdamW slots not created yet (before the
-    first step) are zeros, as optax's ``adamw.init`` gives them."""
+    first step) are zeros, as optax's ``adamw.init`` gives them.  On a
+    mesh every leaf is gathered to its global shape, one at a time: a
+    collective that every rank reaches.  Rank 0 gets the whole state;
+    every other rank gets {} and holds no leaf past its gather."""
     model, opt = state.params, state.opt_state
+    holds = (model.mesh is None or not dist.is_initialized()
+             or dist.get_rank() == 0)
     out: Dict[str, np.ndarray] = {}
     count = 0
     for name, p in model.named_parameters():
         key = name.replace(".", "/")
-        out[f"params/{key}"] = p.detach().to("cpu", torch.float32).numpy()
+        out[f"params/{key}"] = _global(model, name, p, holds)
         slot = opt.state.get(p, {})
         for m, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
             val = slot.get(field)
-            out[f"{ADAM}/{m}/{key}"] = (
-                np.zeros(tuple(p.shape), np.float32) if val is None
-                else val.detach().to("cpu", torch.float32).numpy())
+            out[f"{ADAM}/{m}/{key}"] = _global(
+                model, name, torch.zeros_like(p) if val is None else val,
+                holds)
         if "step" in slot:
             count = int(slot["step"])
+    if not holds:
+        return {}
     out[f"{ADAM}/count"] = np.asarray(count, np.int32)
     out["step"] = np.asarray(int(state.step), np.int32)
     return out
@@ -149,11 +190,12 @@ def _flat_state(src) -> Dict[str, Any]:
 
 
 def train_state_from_jax(src, cfg: Optional[ModelConfig] = None,
-                         lr: float = 1e-3, device="cuda"):
+                         lr: float = 1e-3, device="cuda", mesh=None):
     """A TrainState of the port from a training state in the reference's
     form: the path of a checkpoint ``.npz``, its flat {key: array} mapping,
     or the reference's ``TrainState`` tree itself with numpy leaves
-    (``jax.tree.map(np.asarray, state)``).  The model lands on `device`;
+    (``jax.tree.map(np.asarray, state)``).  The model lands on `device`
+    (on a mesh: this rank's shard of every leaf);
     AdamW (``train.make_optimizer(lr)``) gets mu -> ``exp_avg``,
     nu -> ``exp_avg_sq`` and count -> ``step``.  A missing leaf raises
     ``KeyError``."""
@@ -168,7 +210,7 @@ def train_state_from_jax(src, cfg: Optional[ModelConfig] = None,
         for part in outer:
             node = node.setdefault(part, {})
         node[leaf] = val
-    model = TransformerLM(cfg or config_from_tree(nested), device)
+    model = TransformerLM(cfg or config_from_tree(nested), device, mesh)
     missing = [k for k in state_keys(model) if k not in flat]
     if missing:
         raise KeyError(f"checkpoint missing leaf {missing[0]!r}")
@@ -188,7 +230,7 @@ def _load_adam(opt: torch.optim.Optimizer, model: TransformerLM,
         key = name.replace(".", "/")
 
         def slot(m):
-            arr = np.array(flat[f"{ADAM}/{m}/{key}"], np.float32)
+            arr = _local(model, name, flat[f"{ADAM}/{m}/{key}"])
             if tuple(arr.shape) != tuple(p.shape):
                 raise ValueError(f"{ADAM}/{m}/{key}: shape {arr.shape} != "
                                  f"{tuple(p.shape)}")

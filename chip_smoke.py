@@ -43,7 +43,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              bound, the plain version (CUDA events), the wrapper's
              host-inclusive time (host_call_ms) and
              scaled_dot_product_attention(is_causal=True) forward and
-             backward (a yardstick the port never calls)
+             backward (a yardstick the port never calls); the f32 route
+             (the SIMT kernels) timed the same way at the same shape,
+             its bound at the f32 CUDA-core rate, SDPA in f32 beside it
   serving    ServingEngine at the full width of ModelConfig() on a Server:
              6 streaming LLM.Generate clients (prompts 32..256, 16 new
              tokens) and one that cancels mid-stream; every full client
@@ -85,6 +87,27 @@ printing one JSON line; any failure exits non-zero with no result line:
              the plain version and host_call_ms; a 64 MB bf16 NCCL
              all_reduce timed (a time: bus bandwidth is 0 over one
              member)
+  ring       on an NCCL world of one rank and a mesh {"dp": 1, "sp": 1}:
+             ring_attention and ulysses_attention at B=8, S=1024, H=8,
+             hd=64 in bf16, forward and backward, against autograd of
+             the plain `_dense_local` (the main path of the fold: its
+             launches are read over it); the three ring-fold kernels
+             against their plain versions in f32 and bf16, one full-width
+             block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
+             (1, 3), causal and not, the wholly future (1, 3) block
+             skipped with no launch (RING_TOL, with the bf16 flip rule);
+             each kernel timed in bf16 at the full-width block like the
+             others, beside its bound (q.k and dS products at the bf16
+             rate, the f32 products at the CUDA-core rate), the plain
+             version, SDPA on the block and host_call_ms; the kernel
+             names under torch.profiler
+  mesh_train make_train_step(cfg, mesh) at the train phase's width on
+             the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
+             5 steps from the train phase's seeded state, each loss
+             equal bit for bit to the one-device step's, a profiled step
+             of each; a checkpoint saved and restored through the mesh
+             path and one more step on each, equal; then
+             entry.dryrun_multichip(1) (one NCCL process)
 
 Before the last line it prints the kernels' JSON line and the card's
 ``nvidia-smi`` name and power limit; the last line is
@@ -104,6 +127,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor rate
+F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
 # o against the plain version: bf16 carries one rounding of o and of the
 # plain version's softmax weights (largest error read on the card 0.0039);
 # f32 the same sums in another order (read: 1.5e-7)
@@ -428,11 +452,12 @@ ATTN_OUTPUTS = ("o", "dq", "dk", "dv")
 ATTN_PREFILL_SHAPE = (1, 256, 8, 64)   # one prefill of a 256-token prompt
 
 
-def attention_bounds(B, S, H, hd, elt):
+def attention_bounds(B, S, H, hd, elt, flops=BF16_FLOPS):
     """{kernel: (least ms, what bounds it)}: each input read once and
     each output written once (n: one [B, S, H, hd] tensor, rows: one
     [B, H, S] f32 row statistic), the products of the causal half (pairs
-    t <= s) at the bf16 rate.  fwd: q, k, v -> o, lse with q.k and w.v;
+    t <= s) at the rate `flops` (bf16 on the tensor cores; f32 on the
+    CUDA cores, since TF32 keeps too few bits for the f32 checks).  fwd: q, k, v -> o, lse with q.k and w.v;
     bwd_dq: q, k, v, dO, lse -> dq, D with q.k, dO.v and dS.k; bwd_dkdv:
     q, k, v, dO, lse, D -> dk, dv with q.k, dO.v, p.dO and dS.q; bwd (the
     backward as one function): q, k, v, o, dO -> dq, dk, dv with five
@@ -440,8 +465,8 @@ def attention_bounds(B, S, H, hd, elt):
     n, rows = B * S * H * hd * elt, B * H * S * 4
     mac = 2 * hd * B * H * S * (S + 1) // 2     # flops of one product
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
     return {"fwd": bound(4 * n + rows, 2 * mac),
@@ -606,10 +631,12 @@ def phase_attention():
         if name in prefill:
             rows[name]["prefill_ms"], rows[name]["prefill_host_call_ms"] = \
                 prefill[name]
+    rows_f32 = f32_attention_rows(q, k, v, do, flush, sdpa_bshk)
     routes = attention_routes(g)  # read after the timings: no profiler in them
     emit({"phase": "attention", "name": "causal_attention",
           "shape": dict(zip(("B", "S", "H", "hd"), ATTN_SHAPE)),
-          "dtype": "bf16", "kernels": rows, "kernels_by_dtype": routes,
+          "dtype": "bf16", "kernels": rows, "kernels_f32": rows_f32,
+          "kernels_by_dtype": routes,
           "prefill_shape": dict(zip(("B", "S", "H", "hd"),
                                     ATTN_PREFILL_SHAPE)),
           "fwd_bwd_ms": t["fwd_bwd"][0], "fwd_bwd_cold_ms": t["fwd_bwd"][1],
@@ -624,7 +651,50 @@ def phase_attention():
                               "causal_fwd_sm90"], routes
     assert routes["f32"] == ["causal_dkdv_kernel", "causal_dq_kernel",
                              "causal_fwd_kernel"], routes
-    return {"errs": errs, "rows": rows}
+    return {"errs": errs, "rows": rows, "rows_f32": rows_f32}
+
+
+def f32_attention_rows(q, k, v, do, flush, sdpa_bshk):
+    """The f32 route (csrc/causal_attention.cu, SIMT) timed at the same
+    shape like the bf16 one: {kernel: row} with its bound at the f32
+    CUDA-core rate, the plain version, SDPA in f32 (the backward: fwd+bwd
+    less fwd) and the wrapper's host-inclusive time."""
+    import torch
+    from brpc_tpu_torch.ops.causal_attention import (
+        causal_attention_backward_dkdv, causal_attention_backward_dq,
+        causal_attention_forward, causal_attention_plain)
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    _, lse = causal_attention_forward(q, k, v)
+    _, delta = causal_attention_backward_dq(q, k, v, do, lse)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, do)
+
+    calls = {"fwd": lambda: causal_attention_forward(q, k, v),
+             "bwd_dq": lambda: causal_attention_backward_dq(q, k, v, do,
+                                                            lse),
+             "bwd_dkdv": lambda: causal_attention_backward_dkdv(
+                 q, k, v, do, lse, delta)}
+    t = {name: device_ms(fn, flush) for name, fn in calls.items()}
+    sdpa_fwd = device_ms(lambda: sdpa_bshk(q, k, v), flush)
+    sdpa_fwd_bwd = device_ms(fwd_bwd(sdpa_bshk), flush)
+    plain_fwd = cuda_ms(lambda: causal_attention_plain(q, k, v), 5)
+    plain_bwd = cuda_ms(fwd_bwd(causal_attention_plain), 3) - plain_fwd
+    bounds = attention_bounds(*q.shape, 4, flops=F32_FLOPS)
+    rows = {}
+    for name, library, plain in (
+            ("fwd", sdpa_fwd[0], plain_fwd),
+            ("bwd_dq", sdpa_fwd_bwd[0] - sdpa_fwd[0], plain_bwd),
+            ("bwd_dkdv", sdpa_fwd_bwd[0] - sdpa_fwd[0], plain_bwd)):
+        ms, cold_ms = t[name]
+        bound_ms, bound_by = bounds[name]
+        rows[name] = {"ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by,
+                      "bound_share": bound_ms / cold_ms,
+                      "library_ms": library, "plain_ms": plain,
+                      "host_call_ms": cuda_ms(calls[name], 20)}
+    return rows
 
 
 TRAIN_MOE = dict(n_experts=4, moe_every=2, moe_topk=1)
@@ -720,9 +790,14 @@ def phase_train():
     #    same state: in f32 (then dropped), and in bf16, whose kernel-
     #    stepped state goes on
     torch.backends.cuda.matmul.allow_tf32 = False
+    counters = (causal_attention_forward, causal_attention_backward_dq,
+                causal_attention_backward_dkdv)
     twins = {}
+    for c in counters:
+        c.launches = 0
     _, *twins["f32"] = _twin_steps(
         dataclasses.replace(cfg, dtype=torch.float32), tokens)
+    f32_launches = {c.__name__: c.launches for c in counters}
     state, *twins["bf16"] = _twin_steps(cfg, tokens)
     loss_kernel = twins["bf16"][0]
     held = {}
@@ -731,8 +806,6 @@ def phase_train():
         held[dt] = [n for n, g in grads.items() if g[2] >= floor]
     torch.cuda.empty_cache()
     # 2. the main path: TRAIN_STEPS kernel steps, counted and timed
-    counters = (causal_attention_forward, causal_attention_backward_dq,
-                causal_attention_backward_dkdv)
     for c in counters:
         c.launches = 0
     decode_attention.launches = 0
@@ -786,6 +859,7 @@ def phase_train():
             "tokens_per_s": (TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1))
             / (_p50(step_ms) / 1e3),
             "peak_mem_bytes": peak, "launches": launches,
+            "f32_twin_launches": f32_launches,
             "decode_attention_launches": decode_attention.launches,
             "checkpoint_bytes": nbytes, "save_s": save_s,
             "restore_s": restore_s, "loss_next": loss_next.item(),
@@ -978,6 +1052,427 @@ def phase_parallel(smi):
         return line
     finally:
         dist.destroy_process_group()
+
+
+# The ring fold (csrc/ring_fold.cu).  One block at the full width of the
+# train phase's attention (B=8, C=1024, H=8, hd=64: the ring's only block
+# on one card), and blocks of C=256 at (idx, src) = (2, 2) diagonal, (3, 1)
+# past and (1, 3) wholly future, which a causal fold skips with no launch.
+RING_SHAPE = (8, 1024, 8, 64)
+RING_SMALL = (2, 256, 8, 64)
+RING_BLOCKS = ((2, 2), (3, 1), (1, 3))
+# kernels against the plain version: f32 the same sums in another order;
+# bf16 the same roundings, but a sum in another order can flip one of
+# them, and a flipped dS moves a row of dq (or a column of dk) by one
+# bf16 step of dS times |k|: at most RING_FLIP_SHARE of the elements may
+# leave RING_TOL, and none RING_FLIP_TOL (tests/test_torch_ring_fold.py)
+RING_TOL = {"bf16": dict(atol=1e-2, rtol=2e-2),
+            "f32": dict(atol=1e-5, rtol=1e-5)}
+RING_FLIP_SHARE = 1e-4
+RING_FLIP_TOL = dict(atol=4e-2, rtol=8e-2)
+MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
+
+
+def fold_bounds(B, C, H, hd, elt):
+    """{kernel: (least ms, what bounds it)} of one causal diagonal block:
+    each input read once, each output written once (the f32 state and
+    accumulators are both: n one [B, C, H, hd] tensor, acc one f32 [B, H,
+    C, hd], rows one f32 [B, H, C]); the products over the causal half,
+    q.k and dS.k / dS^T.q at the working type's rate (bf16 on the tensor
+    cores), p.v, dO.v and P^T.dO at the f32 CUDA-core rate, as the
+    reference keeps them f32."""
+    n, acc, rows = B * C * H * hd * elt, B * H * C * hd * 4, B * H * C * 4
+    prod = 2 * hd * B * H * C * (C + 1) // 2
+    typed = BF16_FLOPS if elt == 2 else F32_FLOPS
+
+    def bound(nbytes, t_ops):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                           else "operations")
+    return {"fwd": bound(3 * n + 4 * rows + 2 * acc,
+                         prod / typed + prod / F32_FLOPS),
+            "bwd_dq": bound(4 * n + 2 * rows + 2 * acc,
+                            2 * prod / typed + prod / F32_FLOPS),
+            "bwd_dkdv": bound(4 * n + 2 * rows + 4 * acc,
+                              2 * prod / typed + 2 * prod / F32_FLOPS)}
+
+
+def _fold_inputs(g, shape, dtype, fresh):
+    """q, k, v, dO and a state (m, l, o): fresh (-1e30, 0, 0) or one an
+    earlier fold could leave."""
+    import torch
+    B, C, H, hd = shape
+    qkvd = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for _ in range(4)]
+    if fresh:
+        state = [torch.full((B, H, C), -1e30, device="cuda"),
+                 torch.zeros(B, H, C, device="cuda"),
+                 torch.zeros(B, H, C, hd, device="cuda")]
+    else:
+        state = [torch.rand(B, H, C, generator=g, device="cuda") * 3 - 1,
+                 torch.rand(B, H, C, generator=g, device="cuda") * 3 + 1,
+                 torch.randn(B, H, C, hd, generator=g, device="cuda")]
+    return qkvd, state
+
+
+def _lse_delta(m, l, o, do):
+    o = o / l.clamp(min=1e-30)[..., None]
+    return (m + l.log()).contiguous(), \
+        (do.float().transpose(1, 2) * o).sum(-1).contiguous()
+
+
+def _fold_block(fns, qkvd, state, q_off, k_off, causal, scale):
+    """[m, l, o, dq, dk, dv] of one block through `fns` (fold, dq, dkdv:
+    the wrappers or the plain versions), the backward from the plain
+    fold's lse and D; and whether the fold ran."""
+    import torch
+    from brpc_tpu_torch.ops import ring_fold as rf
+    q, k, v, do = qkvd
+    plain = [t.clone() for t in state]
+    rf.ring_fold_plain(q, k, v, *plain, q_off, k_off, causal, scale)
+    lse, delta = _lse_delta(*plain, do)
+    out = [t.clone() for t in state]
+    ran = fns[0](q, k, v, *out, q_off, k_off, causal, scale)
+    grads = [torch.zeros_like(state[2]) for _ in range(3)]
+    fns[1](q, k, v, do, lse, delta, grads[0], q_off, k_off, causal, scale)
+    fns[2](q, k, v, do, lse, delta, *grads[1:], q_off, k_off, causal, scale)
+    return out + grads, ran
+
+
+def _held(got, want, dt):
+    """(max abs error, share of the tolerance used) of one output under
+    the RING_TOL / flip rule (held when the share is at most 1)."""
+    tol = RING_TOL[dt]
+    diff = (got.float() - want.float()).abs()
+    share = float((diff / (tol["atol"] + tol["rtol"] * want.abs())).max())
+    if dt == "bf16":
+        out = diff > tol["atol"] + tol["rtol"] * want.abs()
+        flip = float((diff / (RING_FLIP_TOL["atol"] + RING_FLIP_TOL["rtol"]
+                              * want.abs())).max())
+        share = max(flip, float(out.float().mean()) / RING_FLIP_SHARE)
+    return float(diff.max()), share
+
+
+def check_ring_fold(g):
+    """The three fold kernels against their plain versions, f32 and bf16:
+    the full-width block and the RING_BLOCKS at C=256, causal and not.
+    Returns {case: {kernel: [max abs err, share of the tolerance]}} (the
+    forward's error on the normalised output o / l, its share over the
+    state m, l, o) and the skip checks."""
+    import torch
+    from brpc_tpu_torch.ops import ring_fold as rf
+    kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
+               rf.ring_fold_backward_dkdv)
+    plains = (rf.ring_fold_plain, rf.ring_fold_bwd_dq_plain,
+              rf.ring_fold_bwd_dkdv_plain)
+    names = ("fwd", "bwd_dq", "bwd_dkdv")
+    cases = [("full_0_0_causal", RING_SHAPE, 0, 0, True, True)]
+    for idx, src in RING_BLOCKS:
+        for causal in (True, False):
+            cases.append((f"c256_{idx}_{src}_{'causal' if causal else 'full'}",
+                          RING_SMALL, idx, src, causal, False))
+    results, skipped = {}, {}
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for name, shape, idx, src, causal, fresh in cases:
+            C, hd = shape[1], shape[3]
+            qkvd, state = _fold_inputs(g, shape, dtype, fresh)
+            before = [(w.launches, w.skips) for w in kernels]
+            got, ran = _fold_block(kernels, qkvd, state, idx * C, src * C,
+                                   causal, hd ** -0.5)
+            want, _ = _fold_block(plains, qkvd, state, idx * C, src * C,
+                                  causal, hd ** -0.5)
+            torch.cuda.synchronize()
+            after = [(w.launches, w.skips) for w in kernels]
+            if not rf.visible(idx * C, C, src * C, causal):
+                assert ran is False and after == [(n, s + 1)
+                                                  for n, s in before], \
+                    (name, before, after)
+                assert all(torch.equal(a, b) for a, b in
+                           zip(got[:3], state)), name
+                skipped[f"{dt}/{name}"] = {"launched": False,
+                                           "state_unchanged": True}
+            else:
+                assert ran and after == [(n + 1, s) for n, s in before], \
+                    (name, before, after)
+            res = {}
+            for kname, outs in zip(names, ((0, 1, 2), (3,), (4, 5))):
+                held = [_held(got[i], want[i], dt) for i in outs]
+                res[kname] = [max(h[0] for h in held),
+                              max(h[1] for h in held)]
+            # the forward's error as attention reads it: o / l
+            res["fwd"][0] = float((got[2] / got[1].clamp(min=1e-30)[..., None]
+                                   - want[2] / want[1].clamp(
+                                       min=1e-30)[..., None]).abs().max())
+            results[f"{dt}/{name}"] = res
+            del qkvd, state, got, want
+    return results, skipped
+
+
+def _dense_plain(q, k, v, scale):
+    """`_dense_local` (ring_attention.py:125-133) in plain torch."""
+    import torch
+    from brpc_tpu_torch.ops.ring_fold import scores_plain
+    w = torch.softmax(scores_plain(q, k, 0, 0, True, scale), dim=-1)
+    return torch.einsum("bhcd,bdhk->bchk", w, v.float()).to(q.dtype)
+
+
+def phase_ring(smi):
+    """ring_attention and ulysses_attention on the NCCL world of one (the
+    main path of the fold: the launches are read over it), the fold
+    kernels against their plain versions, and their times on the device
+    at the full-width block in bf16."""
+    import re
+
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch.ops import ring_fold as rf
+    from brpc_tpu_torch.parallel import make_mesh
+    from brpc_tpu_torch.parallel.ring_attention import (RingAttention,
+                                                        ring_attention,
+                                                        ulysses_attention)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
+               rf.ring_fold_backward_dkdv)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    B, C, H, hd = RING_SHAPE
+    scale = hd ** -0.5
+
+    # 1. the main path: ring and Ulysses attention, forward and backward,
+    #    over the mesh of the NCCL world of one, against plain autograd
+    mesh = make_mesh({"dp": 1, "sp": 1}, device_type="cuda")
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    want = attention_grads(lambda *a: _dense_plain(*a, scale), q, k, v, do)
+    for w in kernels:
+        w.launches = w.skips = 0
+    torch.cuda.synchronize()
+    got = {name: attention_grads(
+        lambda *a, fn=fn: fn(*a, mesh, axis="sp", causal=True), q, k, v, do)
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention))}
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kernels}
+    skips = {w.__name__: w.skips for w in kernels}
+    paths = {name: {out: _held(a, b, "bf16") for out, a, b in
+                    zip(ATTN_OUTPUTS, outs, want)}
+             for name, outs in got.items()}
+    del got, want
+
+    # 2. each kernel against its plain version
+    checks, skipped = check_ring_fold(g)
+
+    # 3. times of the full-width diagonal block in bf16
+    (q, k, v, do), state = _fold_inputs(g, RING_SHAPE, torch.bfloat16, True)
+    rf.ring_fold_forward(q, k, v, *state, 0, 0, True, scale)
+    lse, delta = _lse_delta(*state, do)
+    acc = [torch.zeros_like(state[2]) for _ in range(3)]
+    flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    calls = {
+        "fwd": (lambda: rf.ring_fold_forward(q, k, v, *state, 0, 0, True,
+                                             scale),
+                lambda: rf.ring_fold_plain(q, k, v, *state, 0, 0, True,
+                                           scale)),
+        "bwd_dq": (lambda: rf.ring_fold_backward_dq(
+            q, k, v, do, lse, delta, acc[0], 0, 0, True, scale),
+            lambda: rf.ring_fold_bwd_dq_plain(
+                q, k, v, do, lse, delta, acc[0], 0, 0, True, scale)),
+        "bwd_dkdv": (lambda: rf.ring_fold_backward_dkdv(
+            q, k, v, do, lse, delta, acc[1], acc[2], 0, 0, True, scale),
+            lambda: rf.ring_fold_bwd_dkdv_plain(
+                q, k, v, do, lse, delta, acc[1], acc[2], 0, 0, True,
+                scale))}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa(*a):
+        return F.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in a), is_causal=True).transpose(1, 2)
+
+    sdpa_fwd = device_ms(lambda: sdpa(q, k, v), flush_buf.sum)
+    sdpa_fwd_bwd = device_ms(
+        lambda: torch.autograd.grad(sdpa(*leaves), leaves, do),
+        flush_buf.sum)
+    bounds = fold_bounds(B, C, H, hd, 2)
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        ms, cold_ms = device_ms(kernel, flush_buf.sum)
+        bound_ms, bound_by = bounds[name]
+        library = sdpa_fwd if name == "fwd" else [
+            a - b for a, b in zip(sdpa_fwd_bwd, sdpa_fwd)]
+        rows[name] = {"ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
+                      "plain_ms": cuda_ms(plain, 3),
+                      "library_ms": library[0],
+                      "library_cold_ms": library[1],
+                      "host_call_ms": cuda_ms(kernel, 20)}
+    del flush_buf, state, acc
+
+    # 4. the kernels one RingAttention forward and backward launched
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_grads(lambda *a: RingAttention.apply(
+            *a, None, "sp", True, scale), q, k, v, do)
+        torch.cuda.synchronize()
+    names = sorted({m.group(0) for e in prof.events()
+                    for m in [re.search(r"ring_fold_\w+_kernel", e.name)]
+                    if m})
+    errs = {kname: max(c[kname][0] for key, c in checks.items()
+                       if key.startswith("bf16/full"))
+            for kname in ("fwd", "bwd_dq", "bwd_dkdv")}
+    line = {"phase": "ring", "device_name": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "shape": dict(zip(("B", "C", "H", "hd"),
+                                                 RING_SHAPE)),
+            "dtype": "bf16", "mesh": mesh.shape,
+            "launches": launches, "skips": skips,
+            "paths_vs_plain_autograd": paths, "checks": checks,
+            "skipped_blocks": skipped, "tolerance": RING_TOL,
+            "flip_share": RING_FLIP_SHARE, "flip_tolerance": RING_FLIP_TOL,
+            "kernels": rows, "max_abs_err": errs, "kernel_names": names,
+            "library": "torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True) on the block; it rounds its "
+                       "weights as it likes, not the fold's f32: a "
+                       "yardstick of time, not of the arithmetic"}
+    emit(line)
+    bad = {c: v for c, res in checks.items() for v in res.values()
+           if v[1] > 1}
+    assert not bad, f"the fold kernels differ from the plain version: {bad}"
+    bad = {p: o for p, res in paths.items() for o, v in res.items()
+           if v[1] > 1}
+    assert not bad, f"ring/ulysses differ from plain autograd: {bad}"
+    assert all(n == 2 for n in launches.values()), launches
+    assert names == ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+                     "ring_fold_fwd_kernel"], names
+    assert len(skipped) == 2, skipped
+    return line
+
+
+def phase_mesh_train(smi):
+    """make_train_step(cfg, mesh) at the train phase's width over the
+    mesh MESH_AXES of the NCCL world of one: TRAIN_STEPS steps from the
+    train phase's seeded state, each loss equal to the one-device step's
+    bit for bit (the main path: the causal kernels' launches are read
+    over it); a checkpoint saved and restored through the mesh path and
+    one more step on each, equal; then entry.dryrun_multichip(1)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch import entry
+    from brpc_tpu_torch.models import checkpoint, train
+    from brpc_tpu_torch.models import transformer as T
+    from brpc_tpu_torch.ops.causal_attention import (
+        causal_attention_backward_dkdv, causal_attention_backward_dq,
+        causal_attention_forward)
+    from brpc_tpu_torch.parallel import make_mesh
+
+    cfg = T.ModelConfig(**TRAIN_MOE)
+    tokens = torch.randint(0, cfg.vocab, TRAIN_TOKENS,
+                           generator=torch.Generator().manual_seed(2))
+    tokens = tokens.to("cuda")
+    mesh = make_mesh(MESH_AXES, device_type="cuda")
+
+    def fresh(seed, mesh):
+        tx, step = train.make_train_step(cfg, mesh, lr=TRAIN_LR,
+                                         device="cuda")
+        model = T.init(torch.Generator().manual_seed(seed), cfg, "cuda",
+                       mesh)
+        return step, train.TrainState(model, tx(model),
+                                      torch.zeros((), dtype=torch.int32))
+
+    def steps(step, state, n):
+        losses, ms = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, loss = step(state, tokens)
+            losses.append(loss.item())          # synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, ms
+
+    def profiled(step, state):
+        """One more step under torch.profiler: its device profile and
+        the count of NCCL kernels in it."""
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, tokens)
+            torch.cuda.synchronize()
+            window_us = (time.perf_counter() - t0) * 1e6
+        out = device_profile(prof, window_us)
+        by_name = out.pop("_by_name", {})
+        out["nccl_kernels"] = sum(v[0] for k, v in by_name.items()
+                                  if "nccl" in k.lower())
+        return out
+
+    step1, state1 = fresh(0, None)
+    state1, one_device, one_ms = steps(step1, state1, TRAIN_STEPS)
+    prof_one = profiled(step1, state1)
+    del state1
+    torch.cuda.empty_cache()
+    counters = (causal_attention_forward, causal_attention_backward_dq,
+                causal_attention_backward_dkdv)
+    step, state = fresh(0, mesh)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    state, meshed, mesh_ms = steps(step, state, TRAIN_STEPS)
+    launches = {c.__name__: c.launches for c in counters}
+    prof_mesh = profiled(step, state)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        nbytes = checkpoint.save(path, state)
+        restored = checkpoint.restore(path, fresh(1, mesh)[1])
+    assert restored.params.mesh is mesh
+    state, loss_next = step(state, tokens)
+    restored, loss_restored = step(restored, tokens)
+    assert int(restored.step) == int(state.step) == TRAIN_STEPS + 2
+    del state, restored
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dryrun = entry.dryrun_multichip(1)
+    dryrun_s = time.perf_counter() - t0
+    line = {"phase": "mesh_train", "device_name": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "mesh": mesh.shape,
+            "backend": torch.distributed.get_backend(),
+            "losses_one_device": one_device, "losses_mesh": meshed,
+            "losses_bit_equal": meshed == one_device,
+            "step_ms_one_device": one_ms, "step_ms_mesh": mesh_ms,
+            "profile_one_device": prof_one, "profile_mesh": prof_mesh,
+            "launches": launches, "checkpoint_bytes": nbytes,
+            "loss_next": loss_next.item(),
+            "loss_restored": loss_restored.item(),
+            "dryrun_multichip_1": dryrun, "dryrun_s": dryrun_s}
+    emit(line)
+    assert meshed == one_device, (meshed, one_device)
+    assert loss_next.item() == loss_restored.item()
+    want = TRAIN_STEPS * cfg.n_layers
+    assert all(n == want for n in launches.values()), launches
+    assert len(dryrun) == 1 and dryrun[0].startswith(
+        "nccl: dryrun_multichip(1):") and dryrun[0].endswith(" ok"), dryrun
+    return line
+
+
+def phase_mesh(smi):
+    """The ring and mesh_train phases inside one NCCL process group of
+    one rank on the card (built as phase_parallel builds its own)."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        assert dist.get_backend() == "nccl"
+        t0 = time.monotonic()
+        ring = phase_ring(smi)
+        t1 = time.monotonic()
+        mesh = phase_mesh_train(smi)
+        emit({"phase": "mesh_phases_s", "ring": t1 - t0,
+              "mesh_train": time.monotonic() - t1})
+        return ring, mesh
+    finally:
+        dist.destroy_process_group()
+
 
 def _client(addr, plen, max_new, seed, cancel_after, results, lock):
     import struct
@@ -1249,6 +1744,7 @@ def main() -> int:
     launches, prefill_launches = phase_serving()
     train_launches = phase_train()
     par = phase_parallel(smi)
+    ring, _ = phase_mesh(smi)
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/decode_attention.cu",
@@ -1288,6 +1784,22 @@ def main() -> int:
         "values": PS_PARAMS, "dtype": "f32",
         "launches_in": "parallel phase, one int8 merge of the "
                        "parameter-server gradient"})
+    for name, wrapper, replaces in (
+            ("fwd", "ring_fold_forward",
+             "brpc_tpu/parallel/ring_attention.py:56"),
+            ("bwd_dq", "ring_fold_backward_dq",
+             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)"),
+            ("bwd_dkdv", "ring_fold_backward_dkdv",
+             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)")):
+        kernels.append({
+            "name": f"ring_fold_{name}", "route": "cuda",
+            "source": "brpc_tpu_torch/csrc/ring_fold.cu",
+            "replaces": replaces, "launches": ring["launches"][wrapper],
+            "max_abs_err": ring["max_abs_err"][name],
+            **ring["kernels"][name],
+            "launches_in": "ring phase: ring_attention and "
+                           "ulysses_attention, forward and backward, on "
+                           "the NCCL world of one"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

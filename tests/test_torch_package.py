@@ -53,13 +53,14 @@ COPIED = (
 # the port's own modules: rewritten counterparts of reference modules
 # (_native, tpu_plane, models, parallel, serving/engine) and new ones
 PORTED = [
-    "_native/__init__.py", "tpu_plane.py", "weights.py",
+    "_native/__init__.py", "tpu_plane.py", "weights.py", "entry.py",
     "models/__init__.py", "models/transformer.py", "models/decode.py",
     "models/train.py", "models/checkpoint.py",
     "ops/__init__.py", "ops/decode_attention.py", "ops/causal_attention.py",
-    "ops/quant_codec.py",
+    "ops/quant_codec.py", "ops/ring_fold.py",
     "parallel/__init__.py", "parallel/quantize.py", "parallel/mesh.py",
-    "parallel/collectives.py",
+    "parallel/collectives.py", "parallel/sharding.py",
+    "parallel/ring_attention.py",
     "serving/__init__.py", "serving/engine.py",
 ]
 
@@ -188,6 +189,27 @@ def test_a_serving_process_loads_neither_jax_nor_the_reference_core():
         r.stdout + r.stderr
 
 
+MESH_MODULES = ("brpc_tpu_torch.entry", "brpc_tpu_torch.parallel.sharding",
+                "brpc_tpu_torch.parallel.ring_attention",
+                "brpc_tpu_torch.ops.ring_fold", "brpc_tpu_torch.models.train",
+                "brpc_tpu_torch.models.checkpoint", "brpc_tpu_torch.weights")
+
+
+def test_the_mesh_modules_load_neither_jax_nor_the_reference():
+    code = ("import importlib, sys\n"
+            f"for m in {MESH_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'brpc_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('MESH-OK')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and "MESH-OK" in r.stdout, r.stdout + r.stderr
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the cuda default is valid")
@@ -211,6 +233,9 @@ def test_entry_points_raise_without_a_card():
         make_mesh({"dp": 1})
     with pytest.raises(RuntimeError, match="device_type='cpu'"):
         auto_mesh(1)
+    from brpc_tpu_torch import entry
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        entry.dryrun_multichip(1)
     assert make_mesh({"dp": 1}, device_type="cpu").shape == {"dp": 1}
     with pytest.raises(ValueError, match="cuda or cpu"):
         fake_quant_int8(torch.empty(4, device="meta"))

@@ -1,0 +1,558 @@
+"""The ring-attention fold of the port (brpc_tpu_torch/ops/ring_fold.py,
+csrc/ring_fold.cu) against the reference's jnp fold
+(brpc_tpu/parallel/ring_attention.py:56-71, `_dense_local` :125-133) and
+against its own kernels.
+
+On the CPU:
+
+* ``ring_fold_plain`` against the reference's fold written in jnp, one
+  block at an offset (a state from an earlier fold, off-diagonal and
+  diagonal blocks, causal and not), within ``CARD_TOL``: f32 the same
+  sums in another order; bf16 the same roundings, but XLA's CPU
+  contraction sums in its own (thread-dependent) order, so a product's
+  rounding to bf16 may flip, which the flip rule below admits.
+* :class:`RingAttention` on one block (Ulysses' local attention) under
+  autograd against ``jax.vjp`` of ``_dense_local``: f32 within 1e-5
+  forward and backward; bf16 bit-equal but for rare one-step flips.
+* ``fold_model``, the kernels' arithmetic written in torch in their order
+  of work (64-row query tiles, 64-key tiles; the forward's two passes,
+  the block's row max then p, its sum and p . V; a tile pair with every
+  query before every key skipped unless a row of the tile has seen no
+  key; dq per query tile, dk/dv per key tile over query tiles), against
+  the plain version within ``CARD_TOL`` (in bf16 all but a few flipped
+  elements, within ``FLIP_TOL``), the tolerance the card legs and
+  chip_smoke.py hold the kernels to.  Control: the same model skipping
+  masked tile pairs unconditionally leaves it on a block whose first
+  rows have seen no key (the reference weighs their masked scores by 1).
+* The wrappers: a wholly future block skipped with no launch, argument
+  checks.
+
+The ``cuda``-marked legs run on the card: the three kernels against the
+plain version at head dims 8, 16, 64 and 128, bf16 and f32, ragged
+blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
+to contiguous ones; two runs bit-equal; the wholly future block with no
+launch; and no fallback (a head dim the kernels lack raises).  They skip
+without a card and run there with ``python -m pytest --noconftest -m cuda
+tests/test_torch_ring_fold.py`` (this file imports jax only inside its
+CPU legs).
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from brpc_tpu_torch.ops.ring_fold import (
+    KERNEL_HEAD_DIMS, NEG, ring_fold_backward_dkdv, ring_fold_backward_dq,
+    ring_fold_bwd_dkdv_plain, ring_fold_bwd_dq_plain, ring_fold_forward,
+    ring_fold_plain, scores_plain, visible)
+from brpc_tpu_torch.parallel.ring_attention import RingAttention
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_REF_TOL = dict(atol=1e-3, rtol=2 ** -7)    # one bf16 step
+BF16_REF_FLIPS = 0.01
+# the kernels against the plain version: f32 the same sums in another
+# order; bf16 rounds the same products and dS, but a sum taken in
+# another order can land a rounding on the other side of a tie.  Such a
+# flip of one score's rounding moves its p and dS; a flip of one dS
+# moves a whole row of dq (or column of dk) by one bf16 step of that dS
+# times |k|: with unit-normal inputs at hd 128, dS reaches O(1), a step
+# of 2^-7, times |k| up to 4, about 0.03 (read on an H100: 2 elements
+# of 768,000 at 0.022).  So in bf16 at most FLIP_SHARE of the elements
+# may leave CARD_TOL, and none FLIP_TOL.
+CARD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2e-2),
+            torch.float32: dict(atol=1e-5, rtol=1e-5)}
+FLIP_SHARE = 1e-4
+FLIP_TOL = dict(atol=4e-2, rtol=8e-2)
+TILE = 64
+
+
+def _draw(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(scale * rng.standard_normal(s)).astype(np.float32)
+            for s in shapes]
+
+
+def _block(seed, B, Cq, Ck, H, hd, dtype, device="cpu"):
+    """q, k, v, dO in `dtype` and a state (m, l, o) from an earlier fold."""
+    q, k, v, do, o = _draw(seed, (B, Cq, H, hd), (B, Ck, H, hd),
+                           (B, Ck, H, hd), (B, Cq, H, hd), (B, H, Cq, hd))
+    rng = np.random.default_rng(seed + 1)
+    m = rng.uniform(-1, 2, (B, H, Cq)).astype(np.float32)
+    l = rng.uniform(1, 4, (B, H, Cq)).astype(np.float32)
+    t = [torch.from_numpy(a).to(device) for a in (q, k, v, do, m, l, o)]
+    return [x.to(dtype) for x in t[:4]] + t[4:]
+
+
+# (Cq, Ck, q_off, k_off, causal): diagonal, off-diagonal past, partly
+# masked, ragged tiles, and a block whose first rows see no key
+BLOCKS = [(130, 130, 130, 130, True), (130, 130, 260, 0, True),
+          (70, 130, 100, 64, True), (65, 63, 0, 0, False),
+          (130, 130, 130, 130, False), (128, 128, 0, 64, True)]
+
+
+# ---------------------------------------------------------------------------
+# the reference's fold in jnp
+
+
+def _jnp_fold(q, k, v, m, l, o, q_off, k_off, causal, scale):
+    """ring_attention.py:57-69 (`fold`), one held block."""
+    import jax
+    import jax.numpy as jnp
+    s = jnp.einsum("bchk,bdhk->bhcd", q, k).astype(jnp.float32) * scale
+    if causal:
+        qpos = q_off + jnp.arange(q.shape[1])
+        kpos = k_off + jnp.arange(k.shape[1])
+        mask = qpos[:, None] >= kpos[None, :]
+        s = jnp.where(mask[None, None], s, np.float32(NEG))
+    m_new = jnp.maximum(m, s.max(-1))
+    p = jnp.exp(s - m_new[..., None])
+    alpha = jnp.exp(m - m_new)
+    l_new = l * alpha + p.sum(-1)
+    o_new = o * alpha[..., None] + jnp.einsum(
+        "bhcd,bdhk->bhck", p, v.astype(jnp.float32))
+    del jax
+    return m_new, l_new, o_new
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", BLOCKS[:5])
+def test_plain_fold_matches_the_jnp_fold(Cq, Ck, q_off, k_off, causal,
+                                         dtype):
+    import jax.numpy as jnp
+    q, k, v, _, m, l, o = _block(3, 2, Cq, Ck, 2, 8, dtype)
+    scale = 1.0 / math.sqrt(8)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    # copies: jax may alias a numpy buffer, and the port updates in place
+    want = _jnp_fold(*(jnp.asarray(t.float().numpy(), jdt)
+                       for t in (q, k, v)),
+                     *(jnp.array(t.numpy()) for t in (m, l, o)),
+                     q_off, k_off, causal, scale)
+    want = [torch.from_numpy(np.array(w)) for w in want]
+    ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
+    _close((m, l, o), want, dtype)
+
+
+def _jnp_dense_local(q, k, v, causal, scale):
+    """ring_attention.py:125-133."""
+    import jax
+    import jax.numpy as jnp
+    s = jnp.einsum("bchk,bdhk->bhcd", q, k).astype(jnp.float32) * scale
+    if causal:
+        Sq = q.shape[1]
+        mask = jnp.tril(jnp.ones((Sq, Sq), bool))
+        s = jnp.where(mask[None, None], s, np.float32(NEG))
+    w = jax.nn.softmax(s, axis=-1)
+    return jnp.einsum("bhcd,bdhk->bchk", w,
+                      v.astype(jnp.float32)).astype(q.dtype)
+
+
+def _local_grads(fn, arrays, dtype, device="cpu"):
+    q, k, v, do = (torch.from_numpy(a).to(device, dtype) for a in arrays)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    o = fn(q, k, v)
+    return [t.detach().float() for t in
+            (o, *torch.autograd.grad(o, (q, k, v), do))]
+
+
+def _fold_attention(causal):
+    def fn(q, k, v):
+        return RingAttention.apply(q, k, v, None, "sp", causal,
+                                   1.0 / math.sqrt(q.shape[-1]))
+    return fn
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_one_fold_matches_dense_local_and_its_vjp(dtype, causal):
+    import jax
+    import jax.numpy as jnp
+    arrays = _draw(5, *[(2, 70, 3, 16)] * 4)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in arrays)
+    out, pull = jax.vjp(
+        lambda q, k, v: _jnp_dense_local(q, k, v, causal, 0.25), jq, jk, jv)
+    want = [np.asarray(t.astype(jnp.float32)) for t in (out, *pull(jdo))]
+    got = _local_grads(_fold_attention(causal), arrays, dtype)
+    for g, w in zip(got, want):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g.numpy(), w, **F32_TOL)
+        else:
+            w = torch.from_numpy(np.array(w))
+            gap = ((g - w).abs() / (BF16_REF_TOL["atol"] + BF16_REF_TOL[
+                "rtol"] * w.abs())).max()
+            assert float(gap) <= 1.0
+            assert float((g != w).float().mean()) <= BF16_REF_FLIPS
+
+
+# ---------------------------------------------------------------------------
+# the kernels' order of work, on the CPU
+
+
+def _tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off, causal, scale,
+                 dtype):
+    """The kernels' `scores` for a tile pair (rows q0.., keys k0..)."""
+    s = torch.einsum("bchk,bdhk->bhcd", qf[:, q0:q0 + nq],
+                     kf[:, k0:k0 + nk]).to(dtype).float() * scale
+    if causal:
+        qpos = q_off + torch.arange(q0, q0 + nq)
+        kpos = k_off + torch.arange(k0, k0 + nk)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG)
+    return s
+
+
+def _all_masked(q_off, q0, Cq, k_off, k0, causal):
+    return causal and q_off + min(q0 + TILE - 1, Cq - 1) < k_off + k0
+
+
+def _degenerate(x):
+    return bool((torch.exp(NEG - x) != 0).any())
+
+
+def fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale,
+               skip_always=False):
+    """csrc/ring_fold.cu's forward: per 64-row query tile, pass 1 the
+    block's row max over the unmasked key tiles, pass 2 p, its sum and
+    p . V over the same tiles (every tile if a row has seen no key), then
+    the update once.  Returns new (m, l, o)."""
+    dtype, (Cq, Ck) = q.dtype, (q.shape[1], k.shape[1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m, l, o = m.clone(), l.clone(), o.clone()
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        tiles = [k0 for k0 in range(0, Ck, TILE)
+                 if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
+        m_old = m[:, :, q0:q0 + nq].clone()
+        m_new = torch.full_like(m_old, -math.inf)
+        for k0 in tiles:
+            s = _tile_scores(qf, kf, q0, k0, nq, min(TILE, Ck - k0), q_off,
+                             k_off, causal, scale, dtype)
+            m_new = torch.maximum(m_new, s.amax(-1))
+        m_new = torch.maximum(m_old, m_new)
+        if _degenerate(m_new) and not skip_always:
+            tiles = list(range(0, Ck, TILE))
+        total = torch.zeros_like(m_old)
+        acc = torch.zeros_like(o[:, :, q0:q0 + nq])
+        for k0 in tiles:
+            nk = min(TILE, Ck - k0)
+            s = _tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off, causal,
+                             scale, dtype)
+            p = torch.exp(s - m_new[..., None])
+            total = total + p.sum(-1)
+            acc = acc + torch.einsum("bhcd,bdhk->bhck", p,
+                                     vf[:, k0:k0 + nk])
+        alpha = torch.exp(m_old - m_new)
+        l[:, :, q0:q0 + nq] = l[:, :, q0:q0 + nq] * alpha + total
+        o[:, :, q0:q0 + nq] = o[:, :, q0:q0 + nq] * alpha[..., None] + acc
+        m[:, :, q0:q0 + nq] = m_new
+    return m, l, o
+
+
+def _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk, q_off, k_off,
+               causal, scale, dtype):
+    s = _tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off, causal, scale,
+                     dtype)
+    p = torch.exp(s - lse[:, :, q0:q0 + nq, None])
+    dp = torch.einsum("bchk,bdhk->bhcd", dof[:, q0:q0 + nq],
+                      vf[:, k0:k0 + nk])
+    ds = ((p * (dp - delta[:, :, q0:q0 + nq, None])) * scale).to(dtype)
+    return p, ds.float()
+
+
+def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
+    """The dq kernel (per query tile over key tiles) and the dk/dv kernel
+    (per key tile over query tiles): the block's (dq, dk, dv)."""
+    dtype, (B, Cq, H, hd), Ck = q.dtype, q.shape, k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros(B, H, Cq, hd)
+    dk = torch.zeros(B, H, Ck, hd)
+    dv = torch.zeros(B, H, Ck, hd)
+    degen = _degenerate(lse)
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        tile_degen = _degenerate(lse[:, :, q0:q0 + nq])
+        for k0 in range(0, Ck, TILE):
+            if _all_masked(q_off, q0, Cq, k_off, k0, causal) and \
+                    not tile_degen:
+                break
+            nk = min(TILE, Ck - k0)
+            _, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
+                               q_off, k_off, causal, scale, dtype)
+            dq[:, :, q0:q0 + nq] += torch.einsum("bhcd,bdhk->bhck", ds,
+                                                 kf[:, k0:k0 + nk])
+    for k0 in range(0, Ck, TILE):
+        nk = min(TILE, Ck - k0)
+        for q0 in range(0, Cq, TILE):
+            if _all_masked(q_off, q0, Cq, k_off, k0, causal) and not degen:
+                continue
+            nq = min(TILE, Cq - q0)
+            p, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
+                               q_off, k_off, causal, scale, dtype)
+            dk[:, :, k0:k0 + nk] += torch.einsum("bhcd,bchk->bhdk", ds,
+                                                 qf[:, q0:q0 + nq])
+            dv[:, :, k0:k0 + nk] += torch.einsum("bhcd,bchk->bhdk", p,
+                                                 dof[:, q0:q0 + nq])
+    return dq, dk, dv
+
+
+def _rows(B, H, C, hd, device="cpu"):
+    return torch.zeros(B, H, C, hd, device=device)
+
+
+def _plain_block(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
+    """The plain fold and backward of one block from the state (m, l, o):
+    [m, l, o, dq, dk, dv] with lse and D of the folded state."""
+    m, l, o = m.clone(), l.clone(), o.clone()
+    ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
+    lse, delta = _lse_delta(m, l, o, do)
+    B, Cq, H, hd = q.shape
+    dq, dk, dv = (_rows(B, H, c, hd, q.device)
+                  for c in (Cq, k.shape[1], k.shape[1]))
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, dq, q_off, k_off,
+                           causal, scale)
+    ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, dk, dv, q_off, k_off,
+                             causal, scale)
+    return [m, l, o, dq, dk, dv], (lse, delta)
+
+
+def _lse_delta(m, l, o, do):
+    on = o / torch.clamp(l, min=1e-30)[..., None]
+    return (m + torch.log(l),
+            (do.float().transpose(1, 2) * on).sum(-1).contiguous())
+
+
+def _close(got, want, dtype):
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, **CARD_TOL[dtype])
+            continue
+        tol = CARD_TOL[dtype]
+        out = (g - w).abs() > tol["atol"] + tol["rtol"] * w.abs()
+        assert float(out.float().mean()) <= FLIP_SHARE, int(out.sum())
+        torch.testing.assert_close(g, w, **FLIP_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", BLOCKS)
+def test_fold_model_matches_plain(Cq, Ck, q_off, k_off, causal, dtype):
+    q, k, v, do, m, l, o = _block(7, 1, Cq, Ck, 2, 16, dtype)
+    scale = 0.25
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    got = list(fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale))
+    got += bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale)
+    _close(got, want, dtype)
+
+
+def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
+    """Rows 0..63 at q_off 0 see no key at k_off 64: from m = -1e30 the
+    reference weighs their masked scores by exp(0) = 1, so the masked
+    tile pairs cannot be skipped there."""
+    q, k, v, _, m, l, o = _block(9, 1, 128, 128, 2, 16, torch.float32)
+    m.fill_(NEG)
+    l.zero_()
+    o.zero_()
+    want = [t.clone() for t in (m, l, o)]
+    ring_fold_plain(q, k, v, *want, 0, 64, True, 0.25)
+    assert float(want[1][:, :, :64].min()) == 128.0    # p = 1 on every key
+    _close(fold_model(q, k, v, m, l, o, 0, 64, True, 0.25), want,
+           torch.float32)
+    bad = fold_model(q, k, v, m, l, o, 0, 64, True, 0.25, skip_always=True)
+    with pytest.raises(AssertionError):
+        _close(bad, want, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+
+
+def test_a_wholly_future_block_is_skipped_without_a_launch():
+    q, k, v, do, m, l, o = _block(11, 1, 16, 16, 2, 8, torch.float32)
+    assert visible(32, 16, 32, True) and visible(48, 16, 16, True)
+    assert not visible(16, 16, 48, True) and visible(16, 16, 48, False)
+    before = [(w.launches, w.skips) for w in (
+        ring_fold_forward, ring_fold_backward_dq, ring_fold_backward_dkdv)]
+    state = [t.clone() for t in (m, l, o)]
+    assert ring_fold_forward(q, k, v, *state, 16, 48, True, 0.5) is False
+    assert all(torch.equal(a, b) for a, b in zip(state, (m, l, o)))
+    acc = [torch.zeros(1, 2, 16, 8) for _ in range(3)]
+    assert not ring_fold_backward_dq(q, k, v, do, m, l, acc[0], 16, 48,
+                                     True, 0.5)
+    assert not ring_fold_backward_dkdv(q, k, v, do, m, l, acc[1], acc[2],
+                                       16, 48, True, 0.5)
+    assert all(float(a.abs().max()) == 0.0 for a in acc)
+    after = [(w.launches, w.skips) for w in (
+        ring_fold_forward, ring_fold_backward_dq, ring_fold_backward_dkdv)]
+    assert after == [(n, s + 1) for n, s in before]   # skipped, no launch
+    assert ring_fold_forward(q, k, v, *state, 48, 16, True, 0.5) is True
+    assert ring_fold_forward.launches == before[0][0]   # the CPU: plain
+
+
+def test_arguments_the_fold_does_not_take_raise():
+    q, k, v, do, m, l, o = _block(13, 1, 8, 8, 2, 8, torch.float32)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        ring_fold_forward(q.half(), k.half(), v.half(), m, l, o, 0, 0, True,
+                          1.0)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        ring_fold_forward(q, k, v, m.repeat(1, 1, 2)[..., ::2], l, o, 0, 0,
+                          True, 1.0)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        ring_fold_forward(q, k, v, m, l, o.double(), 0, 0, True, 1.0)
+    with pytest.raises(ValueError, match="do not match"):
+        ring_fold_forward(q, k[..., :4], v[..., :4], m, l, o, 0, 0, True,
+                          1.0)
+    meta = [t.to("meta") for t in (q, k, v, m, l, o)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ring_fold_forward(*meta, 0, 0, True, 1.0)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, k, v, do, m, l, o = _block(15, 2, 40, 24, 2, 8, torch.float32)
+    want = [t.clone() for t in (m, l, o)]
+    ring_fold_plain(q, k, v, *want, 40, 16, True, 0.3)
+    launches = ring_fold_forward.launches
+    assert ring_fold_forward(q, k, v, m, l, o, 40, 16, True, 0.3)
+    assert ring_fold_forward.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip((m, l, o), want))
+    s = scores_plain(q, k, 0, 16, True, 0.3)    # query 0 before key 16
+    assert s[0, 0, 0, 0] == np.float32(NEG) and s[0, 0, 16, 0] > NEG
+
+
+# ---------------------------------------------------------------------------
+# the card
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc for the kernels")
+
+
+CARD_BLOCKS = BLOCKS + [(1, 1, 0, 0, True), (1000, 1000, 1000, 0, True),
+                        (256, 256, 512, 512, True), (256, 256, 768, 256,
+                                                     False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", CARD_BLOCKS)
+def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
+                                         dtype):
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _block(17, 2, Cq, Ck, 3, hd, dtype, "cuda")
+    scale = 1.0 / math.sqrt(hd)
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    before = [w.launches for w in (ring_fold_forward, ring_fold_backward_dq,
+                                   ring_fold_backward_dkdv)]
+    got = [t.clone() for t in (m, l, o)]
+    ring_fold_forward(q, k, v, *got, q_off, k_off, causal, scale)
+    B, _, H, _ = q.shape   # the backward from the plain fold's lse and D
+    dq = torch.zeros(B, H, Cq, hd, device="cuda")
+    dk = torch.zeros(B, H, Ck, hd, device="cuda")
+    dv = torch.zeros_like(dk)
+    ring_fold_backward_dq(q, k, v, do, lse, delta, dq, q_off, k_off, causal,
+                          scale)
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off, k_off,
+                            causal, scale)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (ring_fold_forward, ring_fold_backward_dq,
+                                 ring_fold_backward_dkdv)] == \
+        [n + 1 for n in before]
+    _close(got + [dq, dk, dv], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_kernels_read_strided_inputs_and_repeat_their_bits(dtype):
+    """q, k, v as views of one fused [B, C, 3, H, hd] projection and a
+    transposed dO give the bits of contiguous copies, twice."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(19)
+    B, C, H, hd = 2, 200, 4, 64
+    qkv = torch.randn(B, C, 3, H, hd, generator=g, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    do = torch.randn(B, H, C, hd, generator=g,
+                     device="cuda").to(dtype).transpose(1, 2)
+
+    def run(q, k, v, do):
+        m = torch.full((B, H, C), NEG, device="cuda")
+        l = torch.zeros(B, H, C, device="cuda")
+        o = torch.zeros(B, H, C, hd, device="cuda")
+        ring_fold_forward(q, k, v, m, l, o, 200, 200, True, 0.125)
+        lse, delta = _lse_delta(m, l, o, do)
+        dq = torch.zeros_like(o)
+        dk, dv = torch.zeros_like(o), torch.zeros_like(o)
+        ring_fold_backward_dq(q, k, v, do, lse, delta, dq, 200, 200, True,
+                              0.125)
+        ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, 200, 200,
+                                True, 0.125)
+        return [m, l, o, dq, dk, dv]
+
+    strided = run(q, k, v, do)
+    contiguous = run(*(t.contiguous() for t in (q, k, v, do)))
+    again = run(q, k, v, do)
+    torch.cuda.synchronize()
+    for a, b, c in zip(strided, contiguous, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_a_wholly_future_block_launches_nothing_on_the_card():
+    _card()
+    q, k, v, do, m, l, o = _block(21, 2, 256, 256, 2, 64, torch.bfloat16,
+                                  "cuda")
+    launches = ring_fold_forward.launches
+    state = [t.clone() for t in (m, l, o)]
+    assert not ring_fold_forward(q, k, v, *state, 256, 768, True, 0.125)
+    torch.cuda.synchronize()
+    assert ring_fold_forward.launches == launches
+    assert all(torch.equal(a, b) for a, b in zip(state, (m, l, o)))
+
+
+@pytest.mark.cuda
+def test_no_fallback_a_head_dim_the_kernels_lack_raises():
+    _card()
+    q, k, v, do, m, l, o = _block(23, 1, 64, 64, 2, 32, torch.float32,
+                                  "cuda")
+    launches = ring_fold_forward.launches
+    with pytest.raises(ValueError, match="head_dim"):
+        ring_fold_forward(q, k, v, m, l, o, 0, 0, True, 0.2)
+    with pytest.raises(ValueError, match="head_dim"):
+        ring_fold_backward_dq(q, k, v, do, m, l, o, 0, 0, True, 0.2)
+    assert ring_fold_forward.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_one_fold_attention_on_the_card_matches_plain_autograd(dtype,
+                                                               causal):
+    """RingAttention on one block (Ulysses' local attention) through the
+    kernels against autograd of the plain `_dense_local` on the card."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _draw(25, *[(2, 300, 4, 64)] * 4)
+
+    def dense_plain(q, k, v):
+        s = scores_plain(q, k, 0, 0, causal, 0.125)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bhcd,bdhk->bchk", w, v.float()).to(q.dtype)
+
+    def fold(q, k, v):
+        return RingAttention.apply(q, k, v, None, "sp", causal, 0.125)
+
+    got = _local_grads(fold, arrays, dtype, "cuda")
+    want = _local_grads(dense_plain, arrays, dtype, "cuda")
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
