@@ -172,9 +172,11 @@ def _nvcc() -> str:
 
 def build_kernels() -> str:
     """Build (if stale) and return the path of the kernel library, one
-    nvcc for each .cu source, all started together.  What ptxas -v
-    reported for each kernel is kept beside it, in PTXAS_REPORT."""
+    nvcc for each .cu source, all started together (the .cuh headers
+    they include join the stamp).  What ptxas -v reported for each kernel
+    is kept beside it, in PTXAS_REPORT."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     cflags = [f for f in NVCCFLAGS if f != "-shared"] + ["-Xptxas=-v"]
 
     def make(out: str) -> None:
@@ -193,7 +195,7 @@ def build_kernels() -> str:
         finally:
             shutil.rmtree(objdir, ignore_errors=True)
 
-    return _build(KERNELS_NAME, sources, cflags, make)
+    return _build(KERNELS_NAME, sources + headers, cflags, make)
 
 
 def lib() -> ctypes.CDLL:

@@ -28,13 +28,20 @@
 // FMA contraction across them), as the plain PyTorch version rounds.
 //
 // Bound on an H100 (B=8, C=1024, H=8, hd=64, causal diagonal block, one
-// fold): operations.  q.k over the causal half is 4.3 GFLOP (bf16 on the
-// tensor cores: 4.3 us at 989 TFLOP/s), p . v 4.3 GFLOP that must stay
-// f32 to keep the reference's numbers (64 us at the CUDA cores' 67
-// TFLOP/s): about 68 us, against 22 MB of traffic (7 us at 3.35 TB/s).
+// fold; chip_smoke.py's fold_bounds).  A product over the causal half is
+// 4.3 GFLOP: q.k, dO.v and the dS products, products of bf16 values,
+// take 4.35 us each on the tensor cores (989 TFLOP/s); p.v and P^T.dO,
+// f32 products in the reference, 64.2 us each at the CUDA cores' 67
+// TFLOP/s.  Each input is read once, the f32 state and accumulators read
+// and written: 59.8 MB for the forward, 67.6 MB for dq, 101.2 MB for
+// dk/dv (17.8, 20.2, 30.2 us at 3.35 TB/s).  So the forward's least time
+// is 68.5 us, dq's 20.2 us, dk/dv's 77.2 us.  In f32 every product runs
+// at the CUDA cores' rate.
 // The kernels of this file are the simple first ones: SIMT f32 FMAs for
 // every product, scores computed twice in the forward, so they run far
-// from that bound.
+// from that bound.  Every bf16 forward and dk/dv launch at hd 16, 64 and
+// 128 goes to the tensor-core kernels of ring_fold_sm90.cu instead; this
+// file keeps f32, hd 8 (the reference tests' own) and dq.
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -61,12 +68,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "ring_fold.cuh"
+
 namespace {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 constexpr int kLdP = kTile + 1;
-constexpr float kNeg = -1e30f;
 
 struct Strides {
   long long b, s, h;
@@ -74,11 +84,6 @@ struct Strides {
 // q, k, v, dO
 struct Layout {
   Strides t[4];
-};
-// where the held block sits
-struct Pos {
-  int q_off, k_off, causal;
-  float scale;
 };
 
 template <int HD>
@@ -216,19 +221,6 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const float* sQ,
   }
 }
 
-// Every query of the tile pair before every key (all -1e30).
-__device__ __forceinline__ bool all_masked(const Pos& pos, int q0, int Cq,
-                                           int k0) {
-  const int q_last = pos.q_off + min(q0 + kTile - 1, Cq - 1);
-  return pos.causal && q_last < pos.k_off + k0;
-}
-
-// exp(-1e30 - x) is not 0: a row that has seen no key (x = m' or lse at
-// about -1e30), whose masked scores the reference weighs by 1.
-__device__ __forceinline__ bool degenerate(float x) {
-  return expf(__fsub_rn(kNeg, x)) != 0.0f;
-}
-
 template <int HD>
 constexpr int fwd_smem() {
   return (3 * kTile * Dims<HD>::kLd + kTile * kLdP) * (int)sizeof(float);
@@ -277,8 +269,8 @@ __global__ void __launch_bounds__(kThreads)
     m_new[i] = -INFINITY;
   }
   // pass 1: the block's row max
-  for (int kt = 0; kt < n_kt && !all_masked(pos, q0, Cq, kt * kTile);
-       ++kt) {
+  for (int kt = 0;
+       kt < n_kt && !all_masked(pos, q0, Cq, kt * kTile, kTile); ++kt) {
     __syncthreads();
     load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
     __syncthreads();
@@ -309,7 +301,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   for (int kt = 0;
-       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile)); ++kt) {
+       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile, kTile));
+       ++kt) {
     __syncthreads();
     load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
     load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, Ck);
@@ -421,7 +414,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   for (int kt = 0;
-       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile)); ++kt) {
+       kt < n_kt && (degen || !all_masked(pos, q0, Cq, kt * kTile, kTile));
+       ++kt) {
     __syncthreads();
     load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, Ck);
     load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, Ck);
@@ -505,7 +499,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
-    if (!degen && all_masked(pos, q0, Cq, k0)) {
+    if (!degen && all_masked(pos, q0, Cq, k0, kTile)) {
       continue;
     }
     __syncthreads();
@@ -574,19 +568,28 @@ Layout layout_of(const long long* strides, int n) {
   return lay;
 }
 
+// The forward and dk/dv in bf16 at hd 16, 64 and 128 run on the tensor
+// cores (ring_fold_sm90.cu): no SIMT kernel of theirs is built.
+template <typename T, int HD>
+constexpr bool kSimt = std::is_same<T, float>::value || HD == 8;
+
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, float* m, float* l,
         float* o, const Layout& lay, int B, int Cq, int Ck, int H,
         const Pos& pos, cudaStream_t st) {
-  static const int attr =
-      allow_smem(ring_fold_fwd_kernel<T, HD>, fwd_smem<HD>());
-  if (attr != 0) {
-    return attr;
+  if constexpr (!kSimt<T, HD>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static const int attr =
+        allow_smem(ring_fold_fwd_kernel<T, HD>, fwd_smem<HD>());
+    if (attr != 0) {
+      return attr;
+    }
+    const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+    ring_fold_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
+        (const T*)q, (const T*)k, (const T*)v, m, l, o, lay, Cq, Ck, H, pos);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
-  ring_fold_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, m, l, o, lay, Cq, Ck, H, pos);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -611,16 +614,20 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, float* dk, float* dv,
              const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
              cudaStream_t st) {
-  static const int attr =
-      allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
-  if (attr != 0) {
-    return attr;
+  if constexpr (!kSimt<T, HD>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static const int attr =
+        allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
+    if (attr != 0) {
+      return attr;
+    }
+    const dim3 grid((Ck + kTile - 1) / kTile, H, B);
+    ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        dk, dv, lay, Cq, Ck, H, pos);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((Ck + kTile - 1) / kTile, H, B);
-  ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
-      dv, lay, Cq, Ck, H, pos);
-  return (int)cudaGetLastError();
 }
 
 bool valid_shape(int B, int Cq, int Ck, int H) {
@@ -629,13 +636,35 @@ bool valid_shape(int B, int Cq, int Ck, int H) {
 
 }  // namespace
 
+// The tensor-core kernels (ring_fold_sm90.cu), for bf16 at hd 16, 64, 128.
+extern "C" int trpc_ring_fold_fwd_sm90(const void* q, const void* k,
+                                       const void* v, void* m, void* l,
+                                       void* o, const long long* strides,
+                                       int B, int Cq, int Ck, int H, int hd,
+                                       int q_off, int k_off, int causal,
+                                       float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int Cq, int Ck, int H, int hd,
+    int q_off, int k_off, int causal, float scale, void* stream);
+
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 8, 16, 64 or 128.
 // strides: (b, s, h) element strides of q, k, v (and dO for the
 // backward), in that order; the last dim of each is contiguous.  m, l,
 // lse, delta are contiguous [B, H, Cq] f32; o and dq contiguous
 // [B, H, Cq, hd] f32, dk and dv [B, H, Ck, hd] f32, all updated in place.
 // Each returns cudaGetLastError() after its launch (0 on success); the
-// launch is asynchronous on `stream`.
+// launch is asynchronous on `stream`.  The forward and dk/dv take bf16 at
+// hd 16, 64 and 128 to the tensor-core kernels, whose q, k, v and dO
+// views must be 16-byte aligned in base and strides (TMA's rule; the
+// wrapper copies any other); where the driver refuses the tensor map of
+// input i (0 q, 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its
+// CUresult).
+
+static bool tensor_cores(int dtype, int hd) {
+  return dtype == 0 && (hd == 16 || hd == 64 || hd == 128);
+}
 
 // return FN<T, hd>(...) for the head dims the kernels take
 #define TRPC_RF_HD(T, FN, ...)                 \
@@ -663,6 +692,10 @@ extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
                                   float scale, void* stream) {
   if (!valid_shape(B, Cq, Ck, H)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (tensor_cores(dtype, hd)) {
+    return trpc_ring_fold_fwd_sm90(q, k, v, m, l, o, strides, B, Cq, Ck, H,
+                                   hd, q_off, k_off, causal, scale, stream);
   }
   const Layout lay = layout_of(strides, 3);
   const Pos pos{q_off, k_off, causal, scale};
@@ -699,6 +732,11 @@ extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
                                        void* stream) {
   if (!valid_shape(B, Cq, Ck, H)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (tensor_cores(dtype, hd)) {
+    return trpc_ring_fold_bwd_dkdv_sm90(q, k, v, dout, lse, delta, dk, dv,
+                                        strides, B, Cq, Ck, H, hd, q_off,
+                                        k_off, causal, scale, stream);
   }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};

@@ -108,9 +108,10 @@ def _check(*ts) -> None:
                          f"{KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
 
 
-def _tma_ready(t) -> bool:
-    """TMA's rule for the tensor-core kernels: a 16-byte aligned base, and
-    positive strides of 16-byte multiples for every dim longer than 1."""
+def tma_ready(t) -> bool:
+    """TMA's rule for the tensor-core kernels (these and the ring fold's):
+    a 16-byte aligned base, and positive strides of 16-byte multiples for
+    every dim longer than 1."""
     if t.data_ptr() % 16:
         return False
     return all(st > 0 and st * t.element_size() % 16 == 0
@@ -126,7 +127,7 @@ def _cuda(*ts):
         raise ValueError(f"the causal_attention kernels run on cuda, not "
                          f"{ts[0].device}")
     return [t if t.stride(-1) == 1 and (t.dtype != torch.bfloat16
-                                        or _tma_ready(t))
+                                        or tma_ready(t))
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 

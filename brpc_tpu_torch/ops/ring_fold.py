@@ -1,5 +1,6 @@
 """The ring-attention fold: the hand-written CUDA kernels
-(``csrc/ring_fold.cu``) and the plain PyTorch version beside each.
+(``csrc/ring_fold_sm90.cu`` on the tensor cores, ``csrc/ring_fold.cu``
+SIMT) and the plain PyTorch version beside each.
 
 Function (brpc_tpu/parallel/ring_attention.py:56-71, one ring step's fold
 of the held K/V block, and its jax.grad; Ulysses' local attention
@@ -25,8 +26,14 @@ kernel's launches.  A CUDA tensor goes to the kernel or raises; only CPU
 tensors take the plain version.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
-own); the plain version takes any.  Bound and design: the kernel
-source's notes.
+own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` the
+forward and dk/dv take their products of bf16 values on the tensor cores
+and p's f32 products (p . f32(v), P^T . f32(dO)) as f32 FMAs on the CUDA
+cores; f32, head dim 8 and dq run the SIMT kernels.  TMA reads the
+tensor-core kernels' inputs, so a bf16 view whose base or strides are
+not 16-byte multiples is copied first.  ``split_bf16x3`` models the
+three-part bf16 split of p that was tried for p's products on the tensor
+cores.  Bound and design: the kernel sources' notes.
 """
 
 from __future__ import annotations
@@ -37,10 +44,15 @@ import threading
 import torch
 
 from brpc_tpu_torch import _native
+from brpc_tpu_torch.ops.causal_attention import tma_ready
 
 NEG = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 KERNEL_HEAD_DIMS = (8, 16, 64, 128)
+SM90_HEAD_DIMS = (16, 64, 128)
+# split_bf16x3 splits p 2^SPLIT_SHIFT, whose bf16 parts are all normal
+# for every f32 p (p >= 2^-149), so the split is exact
+SPLIT_SHIFT = 32
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -97,6 +109,24 @@ def ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale):
     m.copy_(m_new)
     l.copy_(l_new)
     o.copy_(o_new)
+
+
+def split_bf16x3(p):
+    """The three-part split of an f32 p for its products on the tensor
+    cores (a model: the main path never calls it): three bf16 tensors hi,
+    mid, lo with f32(hi) + f32(mid) + f32(lo) = p 2^SPLIT_SHIFT exactly,
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid) for
+    x = p 2^SPLIT_SHIFT.  A part times a bf16 value is exact in f32, so
+    the three products summed in IEEE f32 are p's f32 product but for
+    the order of the sum.  wgmma does not sum them so: on an H100 its
+    truncating additions left the fold's o past the f32 tolerance
+    (PERF.md, Findings), and the kernels take p's products on the CUDA
+    cores."""
+    x = p.float() * 2.0 ** SPLIT_SHIFT
+    hi = x.to(torch.bfloat16)
+    mid = (x - hi.float()).to(torch.bfloat16)
+    lo = (x - hi.float() - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
 
 
 def _p_ds(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
@@ -162,8 +192,12 @@ def _check(q, k, v, do, rows, cols) -> None:
                          f"{q.device}")
 
 
-def _last_dim_contiguous(*ts):
-    return [t if t.stride(-1) == 1
+def _kernel_views(*ts):
+    """The tensors as the kernels read them: a contiguous last dim (the
+    other dims through their strides), and in bf16 at SM90_HEAD_DIMS what
+    TMA takes; anything else is copied."""
+    tma = ts[0].dtype == torch.bfloat16 and ts[0].shape[-1] in SM90_HEAD_DIMS
+    return [t if t.stride(-1) == 1 and (not tma or tma_ready(t))
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 
@@ -202,7 +236,7 @@ def ring_fold_forward(q, k, v, m, l, o, q_off: int, k_off: int,
     if q.device.type == "cpu":
         ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
         return True
-    q, k, v = _last_dim_contiguous(q, k, v)
+    q, k, v = _kernel_views(q, k, v)
     _launch(_kernels().trpc_ring_fold_fwd, "ring_fold_fwd",
             [t.data_ptr() for t in (q, k, v, m, l, o)], _strides((q, k, v)),
             q, k.shape[1], q_off, k_off, causal, scale)
@@ -223,7 +257,7 @@ def ring_fold_backward_dq(q, k, v, do, lse, delta, dq, q_off: int,
         ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, dq, q_off, k_off,
                                causal, scale)
         return True
-    q, k, v, do = _last_dim_contiguous(q, k, v, do)
+    q, k, v, do = _kernel_views(q, k, v, do)
     _launch(_kernels().trpc_ring_fold_bwd_dq, "ring_fold_bwd_dq",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dq)],
             _strides((q, k, v, do)), q, k.shape[1], q_off, k_off, causal,
@@ -246,7 +280,7 @@ def ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off: int,
         ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, dk, dv, q_off,
                                  k_off, causal, scale)
         return True
-    q, k, v, do = _last_dim_contiguous(q, k, v, do)
+    q, k, v, do = _kernel_views(q, k, v, do)
     _launch(_kernels().trpc_ring_fold_bwd_dkdv, "ring_fold_bwd_dkdv",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
             _strides((q, k, v, do)), q, k.shape[1], q_off, k_off, causal,

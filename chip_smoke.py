@@ -11,8 +11,8 @@ printing one JSON line; any failure exits non-zero with no result line:
              ptxas -v's lines for each kernel (registers, shared memory,
              spills) and each kernel's count of HGMMA (wgmma) instructions
              in its SASS (cuobjdump -sass on the built library): the bf16
-             forward, dq and dk/dv kernels of causal_attention must have
-             some
+             forward, dq and dk/dv kernels of causal_attention and the
+             ring fold's bf16 forward and dk/dv must have some
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
@@ -96,11 +96,15 @@ printing one JSON line; any failure exits non-zero with no result line:
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
              (1, 3), causal and not, the wholly future (1, 3) block
              skipped with no launch (RING_TOL, with the bf16 flip rule);
-             each kernel timed in bf16 at the full-width block like the
-             others, beside its bound (q.k and dS products at the bf16
-             rate, the f32 products at the CUDA-core rate), the plain
-             version, SDPA on the block and host_call_ms; the kernel
-             names under torch.profiler
+             exact scores (integer q and k): the bf16 forward and dk/dv
+             hold m, l, o and dv within EXACT_TOL of the plain version,
+             which p rounded once to bf16 leaves; each kernel timed in
+             bf16 at the full-width block like the others, beside its
+             bound (products of bf16 values at the bf16 rate, p's f32
+             products at the f32 CUDA-core rate), the plain version,
+             SDPA on the block and host_call_ms; the kernel names under
+             torch.profiler: the tensor-core forward and dk/dv and the
+             SIMT dq
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -109,8 +113,10 @@ printing one JSON line; any failure exits non-zero with no result line:
              path and one more step on each, equal; then
              entry.dryrun_multichip(1) (one NCCL process)
 
-Before the last line it prints the kernels' JSON line and the card's
-``nvidia-smi`` name and power limit; the last line is
+Before the last line it prints the kernels' JSON line (with the HGMMA
+count and ptxas registers and spills of each kernel's hd 64
+instantiation) and the card's ``nvidia-smi`` name and power limit; the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside the repository, it exits 1 and prints
 no result.
@@ -221,11 +227,24 @@ def _cuda_tool(name: str) -> str:
                         "nvidia", "bin", name)
 
 
-def sass_hgmma(lib_path):
-    """{kernel: count of HGMMA instructions in its SASS}, each kernel
-    named as the demangler gives it, without return type, scope and
-    parameters (as causal_dkdv_sm90<64> or causal_dkdv_kernel<float, 64>)."""
+def _kernel_names(mangled):
+    """Each mangled kernel name as the demangler gives it, without return
+    type, scope and parameters (as causal_dkdv_sm90<64> or
+    causal_dkdv_kernel<float, 64>)."""
     import re
+    filt = _cuda_tool("cu++filt")
+    if not os.path.exists(filt):
+        filt = "c++filt"
+    plain = subprocess.run([filt, "-p", *mangled], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    assert len(plain) == len(mangled), (mangled, plain)
+    names = [re.search(r"(\w+<.*>|\w+)$", d.replace("(int)", ""))
+             for d in plain]
+    return [m.group(1) if m else d for m, d in zip(names, plain)]
+
+
+def sass_hgmma(lib_path):
+    """{kernel: count of HGMMA instructions in its SASS}."""
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib_path],
                          capture_output=True, text=True, check=True).stdout
     funcs, counts = [], []
@@ -235,16 +254,29 @@ def sass_hgmma(lib_path):
             counts.append(0)
         elif funcs and "HGMMA" in line:
             counts[-1] += 1
-    filt = _cuda_tool("cu++filt")
-    if not os.path.exists(filt):
-        filt = "c++filt"
-    plain = subprocess.run([filt, "-p", *funcs], capture_output=True,
-                           text=True, check=True).stdout.splitlines()
-    assert len(plain) == len(funcs), (funcs, plain)
-    names = [re.search(r"(\w+<.*>|\w+)$", d.replace("(int)", ""))
-             for d in plain]
-    return {m.group(1) if m else d: n
-            for m, d, n in zip(names, plain, counts)}
+    return dict(zip(_kernel_names(funcs), counts))
+
+
+def ptxas_kernels(report):
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ptxas
+    -v's report (bytes of spill stores and loads)."""
+    import re
+    funcs, props = [], []
+    for line in report:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            funcs.append(m.group(1))
+            props.append({})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props:
+            props[-1]["spill_stores"] = int(m.group(1))
+            props[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and props:
+            props[-1]["registers"] = int(m.group(1))
+    return dict(zip(_kernel_names(funcs), props))
 
 
 def phase_card():
@@ -266,18 +298,22 @@ def phase_card():
                  or "spill" in ln]
     assert ptxas, "ptxas reported no kernel"
     hgmma = sass_hgmma(kernels.result())
-    emit({"phase": "card", "nvidia_smi": smi,
-          "device_name": torch.cuda.get_device_name(0),
-          "device_count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": dict(_native.build_seconds),
-          "build_wall_s": time.monotonic() - t0,
-          "ptxas": ptxas, "sass_hgmma": hgmma})
+    line = {"phase": "card", "nvidia_smi": smi,
+            "device_name": torch.cuda.get_device_name(0),
+            "device_count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "build_s": dict(_native.build_seconds),
+            "build_wall_s": time.monotonic() - t0,
+            "ptxas": ptxas, "sass_hgmma": hgmma}
+    emit(line)
     tensor_core = {k: n for k, n in hgmma.items()
                    if k.startswith(("causal_fwd_sm90", "causal_dq_sm90",
-                                    "causal_dkdv_sm90"))}
-    assert len(tensor_core) == 9 and all(tensor_core.values()), hgmma
-    return smi
+                                    "causal_dkdv_sm90",
+                                    "ring_fold_fwd_sm90_kernel",
+                                    "ring_fold_dkdv_sm90_kernel"))}
+    assert len(tensor_core) == 15 and all(tensor_core.values()), hgmma
+    line["ptxas_by_kernel"] = ptxas_kernels(ptxas)
+    return line
 
 
 def phase_plane():
@@ -1070,6 +1106,12 @@ RING_TOL = {"bf16": dict(atol=1e-2, rtol=2e-2),
             "f32": dict(atol=1e-5, rtol=1e-5)}
 RING_FLIP_SHARE = 1e-4
 RING_FLIP_TOL = dict(atol=4e-2, rtol=8e-2)
+# exact scores: with q and k of entries in {-1, 0, 1} every score is the
+# same bits in the kernels and the plain version, so the bf16 kernels'
+# m, l, o and dv (p's f32 products as f32 FMAs) hold the plain version's
+# f32 within EXACT_TOL, the same sums in another order; p rounded once to
+# bf16 (the control) must leave it
+EXACT_TOL = dict(atol=1e-5, rtol=1e-5)
 MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
 
 
@@ -1077,24 +1119,23 @@ def fold_bounds(B, C, H, hd, elt):
     """{kernel: (least ms, what bounds it)} of one causal diagonal block:
     each input read once, each output written once (the f32 state and
     accumulators are both: n one [B, C, H, hd] tensor, acc one f32 [B, H,
-    C, hd], rows one f32 [B, H, C]); the products over the causal half,
-    q.k and dS.k / dS^T.q at the working type's rate (bf16 on the tensor
-    cores), p.v, dO.v and P^T.dO at the f32 CUDA-core rate, as the
-    reference keeps them f32."""
+    C, hd], rows one f32 [B, H, C]); the products over the causal half:
+    those of the working type's values (q.k, dO.v, dS.k, dS^T.q) at its
+    rate, bf16 on the tensor cores; p.v and P^T.dO, f32 products of an
+    f32 p, at the CUDA cores' f32 rate (the tensor cores' sum of p split
+    in bf16 parts did not hold them to f32: PERF.md, Findings)."""
     n, acc, rows = B * C * H * hd * elt, B * H * C * hd * 4, B * H * C * 4
     prod = 2 * hd * B * H * C * (C + 1) // 2
-    typed = BF16_FLOPS if elt == 2 else F32_FLOPS
+    typed = prod / (BF16_FLOPS if elt == 2 else F32_FLOPS)
+    of_p = prod / F32_FLOPS
 
     def bound(nbytes, t_ops):
         t_bytes = nbytes / HBM_BYTES_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                            else "operations")
-    return {"fwd": bound(3 * n + 4 * rows + 2 * acc,
-                         prod / typed + prod / F32_FLOPS),
-            "bwd_dq": bound(4 * n + 2 * rows + 2 * acc,
-                            2 * prod / typed + prod / F32_FLOPS),
-            "bwd_dkdv": bound(4 * n + 2 * rows + 4 * acc,
-                              2 * prod / typed + 2 * prod / F32_FLOPS)}
+    return {"fwd": bound(3 * n + 4 * rows + 2 * acc, typed + of_p),
+            "bwd_dq": bound(4 * n + 2 * rows + 2 * acc, 3 * typed),
+            "bwd_dkdv": bound(4 * n + 2 * rows + 4 * acc, 3 * typed + of_p)}
 
 
 def _fold_inputs(g, shape, dtype, fresh):
@@ -1153,12 +1194,64 @@ def _held(got, want, dt):
     return float(diff.max()), share
 
 
+def _fold_p_bf16(qkvd, state, q_off, k_off, causal, scale):
+    """The exact-scores control: [o, dv] of the plain fold and dk/dv with
+    p (P) rounded once to bf16 in their products."""
+    import torch
+    from brpc_tpu_torch.ops import ring_fold as rf
+    q, k, v, do = qkvd
+    m, l, o = state
+    s = rf.scores_plain(q, k, q_off, k_off, causal, scale)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    o = o * alpha[..., None] + torch.einsum(
+        "bhcd,bdhk->bhck", p.to(torch.bfloat16).float(), v.float())
+    lse, _ = _lse_delta(m_new, l * alpha + p.sum(-1), o, do)
+    pb = torch.exp(s - lse[..., None]).to(torch.bfloat16).float()
+    return [o, torch.einsum("bhcd,bchk->bhdk", pb, do.float())]
+
+
+def check_exact_scores(g, kernels, plains):
+    """The bf16 kernels on exact scores (EXACT_TOL): the full-width block
+    from a fresh state and a C=256 (3, 1) block on an earlier one.
+    Returns {case: {output: [max abs err, share of EXACT_TOL]}}, with the
+    control's share on o and dv (p rounded once to bf16)."""
+    import torch
+
+    def share(a, b):
+        diff = (a - b).abs()
+        return [float(diff.max()), float((diff / (
+            EXACT_TOL["atol"] + EXACT_TOL["rtol"] * b.abs())).max())]
+    out = {}
+    for name, shape, idx, src, fresh in (
+            ("full_0_0_causal", RING_SHAPE, 0, 0, True),
+            ("c256_3_1_causal", RING_SMALL, 3, 1, False)):
+        C, hd = shape[1], shape[3]
+        qkvd, state = _fold_inputs(g, shape, torch.bfloat16, fresh)
+        qkvd[:2] = [torch.randint(-1, 2, shape, generator=g, device="cuda")
+                    .to(torch.bfloat16) for _ in range(2)]
+        args = (idx * C, src * C, True, hd ** -0.5)   # 1/8 at hd 64: exact
+        got, _ = _fold_block(kernels, qkvd, state, *args)
+        want, _ = _fold_block(plains, qkvd, state, *args)
+        control = _fold_p_bf16(qkvd, state, *args)
+        torch.cuda.synchronize()
+        res = {o: share(got[i], want[i]) for o, i in
+               (("m", 0), ("l", 1), ("o", 2), ("dv", 5))}
+        res["control_o"] = share(control[0], want[2])
+        res["control_dv"] = share(control[1], want[5])
+        out[name] = res
+        del qkvd, state, got, want, control
+    return out
+
+
 def check_ring_fold(g):
     """The three fold kernels against their plain versions, f32 and bf16:
-    the full-width block and the RING_BLOCKS at C=256, causal and not.
-    Returns {case: {kernel: [max abs err, share of the tolerance]}} (the
-    forward's error on the normalised output o / l, its share over the
-    state m, l, o) and the skip checks."""
+    the full-width block and the RING_BLOCKS at C=256, causal and not;
+    then check_exact_scores.  Returns {case: {kernel: [max abs err, share
+    of the tolerance]}} (the forward's error on the normalised output
+    o / l, its share over the state m, l, o), the skip checks and the
+    exact-scores results."""
     import torch
     from brpc_tpu_torch.ops import ring_fold as rf
     kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
@@ -1205,7 +1298,7 @@ def check_ring_fold(g):
                                        min=1e-30)[..., None]).abs().max())
             results[f"{dt}/{name}"] = res
             del qkvd, state, got, want
-    return results, skipped
+    return results, skipped, check_exact_scores(g, kernels, plains)
 
 
 def _dense_plain(q, k, v, scale):
@@ -1261,7 +1354,7 @@ def phase_ring(smi):
     del got, want
 
     # 2. each kernel against its plain version
-    checks, skipped = check_ring_fold(g)
+    checks, skipped, exact = check_ring_fold(g)
 
     # 3. times of the full-width diagonal block in bf16
     (q, k, v, do), state = _fold_inputs(g, RING_SHAPE, torch.bfloat16, True)
@@ -1325,7 +1418,8 @@ def phase_ring(smi):
             "dtype": "bf16", "mesh": mesh.shape,
             "launches": launches, "skips": skips,
             "paths_vs_plain_autograd": paths, "checks": checks,
-            "skipped_blocks": skipped, "tolerance": RING_TOL,
+            "skipped_blocks": skipped, "exact_scores": exact,
+            "exact_tolerance": EXACT_TOL, "tolerance": RING_TOL,
             "flip_share": RING_FLIP_SHARE, "flip_tolerance": RING_FLIP_TOL,
             "kernels": rows, "max_abs_err": errs, "kernel_names": names,
             "library": "torch.nn.functional.scaled_dot_product_attention("
@@ -1336,12 +1430,16 @@ def phase_ring(smi):
     bad = {c: v for c, res in checks.items() for v in res.values()
            if v[1] > 1}
     assert not bad, f"the fold kernels differ from the plain version: {bad}"
+    bad = {c: o for c, res in exact.items() for o, v in res.items()
+           if (v[1] > 1) != o.startswith("control")}
+    assert not bad, f"exact scores: outside EXACT_TOL or a control inside: " \
+        f"{bad}"
     bad = {p: o for p, res in paths.items() for o, v in res.items()
            if v[1] > 1}
     assert not bad, f"ring/ulysses differ from plain autograd: {bad}"
     assert all(n == 2 for n in launches.values()), launches
-    assert names == ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
-                     "ring_fold_fwd_kernel"], names
+    assert names == ["ring_fold_dkdv_sm90_kernel", "ring_fold_dq_kernel",
+                     "ring_fold_fwd_sm90_kernel"], names
     assert len(skipped) == 2, skipped
     return line
 
@@ -1736,7 +1834,8 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 1
-    smi = phase_card()
+    card = phase_card()
+    smi = card["nvidia_smi"]
     phase_plane()
     phase_transport()
     k = phase_kernel()["full"]
@@ -1756,6 +1855,11 @@ def main() -> int:
         "cold_ms": k["cold_ms"], "library_cold_ms": k["library_cold_ms"],
         "launch_floor_ms": k["launch_floor_ms"],
         "host_call_ms": k["host_call_ms"], "window": k["window"]}]
+
+    def compiled(kernel):   # the hd 64 instantiation the shapes here run
+        return {"sass_hgmma": card["sass_hgmma"].get(kernel),
+                "ptxas": card["ptxas_by_kernel"].get(kernel)}
+
     err = attn["errs"]["bf16_S1024"]
     for name, wrapper, outs, replaces in (
             ("fwd", "causal_attention_forward", ("o",),
@@ -1770,6 +1874,7 @@ def main() -> int:
             "source": "brpc_tpu_torch/csrc/causal_attention_sm90.cu",
             "replaces": replaces, "launches": train_launches[wrapper],
             "max_abs_err": max(err[o] for o in outs), **row,
+            **compiled(f"causal_{name.replace('bwd_', '')}_sm90<64>"),
             "launches_in": "train phase, 5 steps x 4 layers",
             **({"serving_prefill_launches": prefill_launches}
                if name == "fwd" else {})})
@@ -1784,19 +1889,22 @@ def main() -> int:
         "values": PS_PARAMS, "dtype": "f32",
         "launches_in": "parallel phase, one int8 merge of the "
                        "parameter-server gradient"})
-    for name, wrapper, replaces in (
+    for name, wrapper, replaces, source, kernel in (
             ("fwd", "ring_fold_forward",
-             "brpc_tpu/parallel/ring_attention.py:56"),
+             "brpc_tpu/parallel/ring_attention.py:56", "ring_fold_sm90.cu",
+             "ring_fold_fwd_sm90_kernel<64>"),
             ("bwd_dq", "ring_fold_backward_dq",
-             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)"),
+             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)",
+             "ring_fold.cu", "ring_fold_dq_kernel<__nv_bfloat16, 64>"),
             ("bwd_dkdv", "ring_fold_backward_dkdv",
-             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)")):
+             "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)",
+             "ring_fold_sm90.cu", "ring_fold_dkdv_sm90_kernel<64>")):
         kernels.append({
             "name": f"ring_fold_{name}", "route": "cuda",
-            "source": "brpc_tpu_torch/csrc/ring_fold.cu",
+            "source": f"brpc_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": ring["launches"][wrapper],
             "max_abs_err": ring["max_abs_err"][name],
-            **ring["kernels"][name],
+            **ring["kernels"][name], **compiled(kernel),
             "launches_in": "ring phase: ring_attention and "
                            "ulysses_attention, forward and backward, on "
                            "the NCCL world of one"})

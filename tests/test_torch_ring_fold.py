@@ -24,29 +24,44 @@ On the CPU:
   chip_smoke.py hold the kernels to.  Control: the same model skipping
   masked tile pairs unconditionally leaves it on a block whose first
   rows have seen no key (the reference weighs their masked scores by 1).
+* ``split_bf16x3``, the split of p into three bf16 parts (of p 2^32)
+  for its products on the tensor cores: their sum is p exactly for
+  every f32 p in [0, 1] (a split of p itself loses bits below 2^-109),
+  and the three-part product with bf16 values, summed in IEEE f32,
+  holds the f32 product within ``F32_TOL``, which the single part hi
+  leaves.  (wgmma's own sum of them did not, on an H100: the kernels
+  take p's products as f32 FMAs.)
 * The wrappers: a wholly future block skipped with no launch, argument
   checks.
 
 The ``cuda``-marked legs run on the card: the three kernels against the
 plain version at head dims 8, 16, 64 and 128, bf16 and f32, ragged
 blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
-to contiguous ones; two runs bit-equal; the wholly future block with no
-launch; and no fallback (a head dim the kernels lack raises).  They skip
-without a card and run there with ``python -m pytest --noconftest -m cuda
+to contiguous ones; two runs bit-equal; an unaligned bf16 view copied
+for TMA, bit-equal; the wholly future block with no launch; no fallback
+(a head dim the kernels lack raises); the route under torch.profiler
+(bf16 at hd 64: the tensor-core forward and dk/dv; f32 and bf16 at hd 8:
+the SIMT kernels); and exact scores: with integer q and k every score is
+the same bits on both sides, so the kernels' m, l, o and dv hold the
+plain version's f32 products of p within ``EXACT_TOL`` (their sums in
+another order), which p rounded once to bf16 leaves.  They skip without
+a card and run there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_ring_fold.py`` (this file imports jax only inside its
 CPU legs).
 """
 
 import math
+import re
 
 import numpy as np
 import pytest
 import torch
 
 from brpc_tpu_torch.ops.ring_fold import (
-    KERNEL_HEAD_DIMS, NEG, ring_fold_backward_dkdv, ring_fold_backward_dq,
-    ring_fold_bwd_dkdv_plain, ring_fold_bwd_dq_plain, ring_fold_forward,
-    ring_fold_plain, scores_plain, visible)
+    KERNEL_HEAD_DIMS, NEG, SPLIT_SHIFT, ring_fold_backward_dkdv,
+    ring_fold_backward_dq, ring_fold_bwd_dkdv_plain, ring_fold_bwd_dq_plain,
+    ring_fold_forward, ring_fold_plain, scores_plain, split_bf16x3,
+    visible)
 from brpc_tpu_torch.parallel.ring_attention import RingAttention
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -65,6 +80,9 @@ CARD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2e-2),
             torch.float32: dict(atol=1e-5, rtol=1e-5)}
 FLIP_SHARE = 1e-4
 FLIP_TOL = dict(atol=4e-2, rtol=8e-2)
+# exact scores: the f32 products of p against the plain version's, the
+# same sums in another order
+EXACT_TOL = dict(atol=1e-5, rtol=1e-5)
 TILE = 64
 
 
@@ -369,6 +387,65 @@ def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
 
 
 # ---------------------------------------------------------------------------
+# the split of p
+
+
+def _naive_split(p):
+    hi = p.to(torch.bfloat16)
+    mid = (p - hi.float()).to(torch.bfloat16)
+    return hi, mid, (p - hi.float() - mid.float()).to(torch.bfloat16)
+
+
+def test_the_split_holds_p_exactly():
+    """hi + mid + lo = p 2^32 for every f32 p in [0, 1]: within 2^-24 of p
+    relative, and 2^-149 absolute below the smallest normal f32, with no
+    error at all; a split of p itself misses below 2^-109, where its
+    parts fall under bf16's normal range."""
+    rng = np.random.default_rng(29)
+    tiny = [2.0 ** -149, 3 * 2.0 ** -149, 2.0 ** -130, 2.0 ** -126,
+            2.0 ** -120 * (1 + 2.0 ** -23), 2.0 ** -110]
+    p = torch.cat([
+        torch.tensor([0.0, 1.0, 1 - 2.0 ** -24, 0.5, 2.0 ** -24] + tiny),
+        torch.from_numpy(rng.uniform(0, 1, 4096).astype(np.float32)),
+        # exp over a whole row's range of scores, down to subnormal p
+        torch.exp(torch.from_numpy(
+            rng.uniform(-104, 0, 4096).astype(np.float32))),
+        # a row that has seen no key weighs its masked scores by exp(0)
+        torch.exp(torch.tensor([NEG]) - torch.tensor([NEG]))]).float()
+    hi, mid, lo = split_bf16x3(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    back = (hi.float() + mid.float() + lo.float()) * 2.0 ** -SPLIT_SHIFT
+    err = (back - p).abs()
+    normal = p >= 2.0 ** -126
+    assert bool((err[normal] <= 2.0 ** -24 * p[normal]).all())
+    assert bool((err[~normal] <= 2.0 ** -149).all())
+    assert torch.equal(back, p)
+    naive = sum(t.float() for t in _naive_split(p))
+    assert not torch.equal(naive, p)
+    assert bool((naive[p >= 2.0 ** -109] == p[p >= 2.0 ** -109]).all())
+
+
+def test_three_part_products_hold_the_f32_product():
+    """sum_i part_i . f32(v) against the f32 einsum: within F32_TOL; the
+    part hi alone (p rounded once to bf16) is not."""
+    rng = np.random.default_rng(31)
+    s = torch.from_numpy(rng.normal(0, 2, (2, 3, 70, 130)).astype(
+        np.float32))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    v = torch.from_numpy(rng.standard_normal((2, 130, 3, 16)).astype(
+        np.float32)).to(torch.bfloat16).float()
+    want = torch.einsum("bhcd,bdhk->bhck", p, v)
+    parts = split_bf16x3(p)
+    got = sum(torch.einsum("bhcd,bdhk->bhck", t.float(), v)
+              for t in parts) * 2.0 ** -SPLIT_SHIFT
+    torch.testing.assert_close(got, want, **F32_TOL)
+    hi_only = torch.einsum("bhcd,bdhk->bhck", parts[0].float(),
+                           v) * 2.0 ** -SPLIT_SHIFT
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(hi_only, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers
 
 
@@ -556,3 +633,161 @@ def test_one_fold_attention_on_the_card_matches_plain_autograd(dtype,
     want = _local_grads(dense_plain, arrays, dtype, "cuda")
     torch.cuda.synchronize()
     _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_copy_an_unaligned_view():
+    """A bf16 k whose base is off 16 bytes (TMA's rule) is copied by the
+    wrapper: the forward and dk/dv give the bits of a contiguous k."""
+    _card()
+    q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, 64, torch.bfloat16,
+                                  "cuda")
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
+    k_odd = flat[1:].view(k.shape)               # base off by 2 bytes
+    k_odd.copy_(k)
+    lse, delta = _lse_delta(m, l, o, do)
+    outs = []
+    for kk in (k_odd, k):
+        state = [t.clone() for t in (m, l, o)]
+        ring_fold_forward(q, kk, v, *state, 130, 130, True, 0.125)
+        dk, dv = torch.zeros_like(o), torch.zeros_like(o)
+        ring_fold_backward_dkdv(q, kk, v, do, lse, delta, dk, dv, 130, 130,
+                                True, 0.125)
+        outs.append(state + [dk, dv])
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
+    """The route, read from the device's kernel names under
+    torch.profiler: bf16 at hd 64 launches the tensor-core forward and
+    dk/dv and the SIMT dq; f32, and bf16 at hd 8, the SIMT kernels."""
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for case, dtype, hd in (("bf16", torch.bfloat16, 64),
+                            ("f32", torch.float32, 64),
+                            ("bf16_hd8", torch.bfloat16, 8)):
+        q, k, v, do, m, l, o = _block(35, 1, 130, 130, 2, hd, dtype, "cuda")
+        lse, delta = _lse_delta(m, l, o, do)
+        acc = [torch.zeros_like(o) for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ring_fold_forward(q, k, v, m, l, o, 130, 130, True, 0.125)
+            ring_fold_backward_dq(q, k, v, do, lse, delta, acc[0], 130, 130,
+                                  True, 0.125)
+            ring_fold_backward_dkdv(q, k, v, do, lse, delta, *acc[1:], 130,
+                                    130, True, 0.125)
+            torch.cuda.synchronize()
+        names[case] = sorted({m.group(0) for e in prof.events() for m in
+                              [re.search(r"ring_fold_\w+_kernel", e.name)]
+                              if m})
+    assert names["bf16"] == ["ring_fold_dkdv_sm90_kernel",
+                             "ring_fold_dq_kernel",
+                             "ring_fold_fwd_sm90_kernel"], names
+    simt = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+            "ring_fold_fwd_kernel"]
+    assert names["f32"] == simt and names["bf16_hd8"] == simt, names
+
+
+def _fresh(m, l, o):
+    """The state before a ring's first fold."""
+    return torch.full_like(m, NEG), torch.zeros_like(l), torch.zeros_like(o)
+
+
+def _exact_inputs(seed, B, Cq, Ck, H, hd, fresh):
+    """bf16 q and k with entries in {-1, 0, 1}: q . k is an integer that
+    bf16 holds, so every score is the same bits in the kernels and the
+    plain version; v, dO unit normal; a fresh state or one from an
+    earlier fold."""
+    q, k, v, do, m, l, o = _block(seed, B, Cq, Ck, H, hd, torch.bfloat16,
+                                  "cuda")
+    rng = np.random.default_rng(seed + 2)
+    q, k = (torch.from_numpy(rng.integers(-1, 2, t.shape).astype(
+        np.float32)).to("cuda", torch.bfloat16) for t in (q, k))
+    return [q, k, v, do] + list(_fresh(m, l, o) if fresh else (m, l, o))
+
+
+def _fold_p_bf16(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
+    """Control: the plain fold and dv with p (P) rounded once to bf16 in
+    their products: [o, dv]."""
+    s = scores_plain(q, k, q_off, k_off, causal, scale)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    o = o * torch.exp(m - m_new)[..., None] + torch.einsum(
+        "bhcd,bdhk->bhck", p.to(torch.bfloat16).float(), v.float())
+    l_new = l * torch.exp(m - m_new) + p.sum(-1)
+    lse, _ = _lse_delta(m_new, l_new, o, do)
+    pb = torch.exp(s - lse[..., None]).to(torch.bfloat16).float()
+    return [o, torch.einsum("bhcd,bchk->bhdk", pb, do.float())]
+
+
+# (Cq, Ck, q_off, k_off, causal, fresh): the first block of a ring, a
+# past block on an earlier state, a fresh block whose first 64 rows see
+# no key, a ragged block without the mask, and a full-length block
+# (1024 keys: p's products summed by wgmma, through split_bf16x3, left o
+# 1.6-5x past EXACT_TOL there on an H100)
+EXACT_BLOCKS = [(256, 256, 256, 256, True, True),
+                (130, 130, 260, 0, True, False),
+                (128, 128, 0, 64, True, True),
+                (200, 70, 0, 0, False, False),
+                (1024, 1024, 0, 0, True, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal,fresh", EXACT_BLOCKS)
+def test_exact_scores_hold_the_f32_products_of_p(Cq, Ck, q_off, k_off,
+                                                 causal, fresh):
+    """On exact scores the bf16 kernels' m, l, o and dv (p's f32 products
+    as f32 FMAs) match the plain version within EXACT_TOL; the plain fold
+    with p rounded once to bf16 does not."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _exact_inputs(37, 2, Cq, Ck, 4, 64, fresh)
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, 0.125)
+    got = [t.clone() for t in (m, l, o)]
+    ring_fold_forward(q, k, v, *got, q_off, k_off, causal, 0.125)
+    dk, dv = torch.zeros_like(want[4]), torch.zeros_like(want[5])
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off, k_off,
+                            causal, 0.125)
+    control = _fold_p_bf16(q, k, v, do, m, l, o, q_off, k_off, causal,
+                           0.125)
+    torch.cuda.synchronize()
+    for g, w in zip(got + [dv], want[:3] + [want[5]]):
+        torch.testing.assert_close(g, w, **EXACT_TOL)
+    for c, w in zip(control, (want[2], want[5])):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(c, w, **EXACT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off", [(128, 128, 0, 64),
+                                               (100, 200, 0, 90)])
+def test_rows_that_have_seen_no_key_match_plain_on_the_card(Cq, Ck, q_off,
+                                                            k_off, hd,
+                                                            dtype):
+    """A ring's first fold of a block that its first rows see nothing of:
+    from m = -1e30 the reference weighs their masked scores by exp(0) = 1,
+    so the kernels may skip no masked tile pair there."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _block(39, 2, Cq, Ck, 3, hd, dtype, "cuda")
+    m, l, o = _fresh(m, l, o)
+    scale = 1.0 / math.sqrt(hd)
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      True, scale)
+    assert float(want[1][:, :, 0].min()) == float(Ck)   # p = 1 on every key
+    got = [t.clone() for t in (m, l, o)]
+    ring_fold_forward(q, k, v, *got, q_off, k_off, True, scale)
+    acc = [torch.zeros_like(t) for t in want[3:]]
+    ring_fold_backward_dq(q, k, v, do, lse, delta, acc[0], q_off, k_off,
+                          True, scale)
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, *acc[1:], q_off, k_off,
+                            True, scale)
+    torch.cuda.synchronize()
+    _close(got + acc, want, dtype)
