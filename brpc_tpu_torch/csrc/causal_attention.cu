@@ -31,10 +31,12 @@
 // f32 bits.
 //
 // Which kernel runs: every bf16 kernel (forward, dq, dk/dv) runs on the
-// tensor cores (causal_attention_sm90.cu: wgmma, TMA); the C entries
-// below dispatch it there.  This file keeps the f32 kernels (TF32
-// tensor cores keep 10 mantissa bits, too few for the f32 checks), so
-// its T is f32 in every launch.
+// tensor cores (causal_attention_sm90.cu: wgmma, TMA), and the f32
+// forward is causal_attention_f32.cu's one-pass kernel; the C entries
+// below dispatch them there.  This file keeps the f32 dq and dk/dv
+// kernels (TF32 tensor cores keep 10 mantissa bits, too few for the f32
+// checks), so its T is f32 in every launch; they read the f32 forward's
+// lse = m + log l.
 //
 // Bound on an H100: operations.  At B=8, S=1024, H=8, hd=64 in bf16 the
 // forward moves 34 MB (10 us at 3.35 TB/s) and does 8.6 GFLOP (8.7 us at
@@ -51,9 +53,7 @@
 //  - Tiles are staged in shared memory as f32 with padded rows (one float
 //    of pad), which keeps every operand read of the products below free
 //    of bank conflicts; rows at or past S are staged as zeros.
-//  - Three kernels, each one block per (query or key tile, h, b):
-//      fwd   per query tile: pass 1 the online (m, l) over key tiles
-//            0..qt; pass 2 the weights, rounded, times V.  Writes o, lse.
+//  - Two kernels, each one block per (query or key tile, h, b):
 //      dq    per query tile: pass 1 D = sum p dW; pass 2 dS and dq.
 //            Writes dq and D.  Launched first.
 //      dkdv  per key tile: over query tiles kt..end, p and dS (with the
@@ -239,10 +239,6 @@ __device__ __forceinline__ void store_rows(T* out,
 }
 
 template <int HD>
-constexpr int fwd_smem() {
-  return (3 * kTile * (HD + 1) + kTile * kLdP) * (int)sizeof(float);
-}
-template <int HD>
 constexpr int dq_smem() {
   return (4 * kTile * (HD + 1) + kTile * kLdP) * (int)sizeof(float);
 }
@@ -250,99 +246,6 @@ template <int HD>
 constexpr int dkdv_smem() {
   return (4 * kTile * (HD + 1) + 2 * kTile * kLdP + 2 * kTile) *
          (int)sizeof(float);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    causal_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ o,
-               float* __restrict__ lse, Layout lay, int S, int H,
-               float sqrt_hd) {
-  constexpr int kLd = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * kLd;
-  float* sV = sK + kTile * kLd;
-  float* sP = sV + kTile * kLd;
-  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;  // longest first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = qt * kTile;
-  const float inv = __frcp_rn(sqrt_hd);
-
-  load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, S);
-  float m[4];
-  float l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-  }
-  // pass 1: the online row max and sum
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // the last tile is consumed
-    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, S);
-    __syncthreads();
-    float s[4][4];
-    scores<T, HD>(s, sQ, sK, q0, kt * kTile, sqrt_hd, inv, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      const float mn = fmaxf(m[i], half_warp_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sum += expf(s[i][j] - mn);
-      }
-      l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(sum);
-      m[i] = mn;
-    }
-  }
-  // pass 2: o = sum_t T(p) v
-  float rl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    rl[i] = __frcp_rn(l[i]);
-  }
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[i][j] = 0.0f;
-    }
-  }
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, S);
-    load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, S);
-    __syncthreads();
-    float s[4][4];
-    scores<T, HD>(s, sQ, sK, q0, kt * kTile, sqrt_hd, inv, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = div_rn(expf(s[i][j] - m[i]), l[i], rl[i]);
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = round_t<T>(p);
-      }
-    }
-    __syncthreads();
-    tile_mma<NJ, kTile, kLdP, 1, kLd, 1>(acc, sP, sV, tx, ty);
-  }
-  store_rows<T, HD>(o, acc, b, h, q0, S, H, tx, ty);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row < S) {
-        lse[((long long)b * H + h) * S + row] = m[i] + logf(l[i]);
-      }
-    }
-  }
 }
 
 template <typename T, int HD>
@@ -537,21 +440,6 @@ Layout layout_of(const long long* strides, int n) {
 }
 
 template <typename T, int HD>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-        const Layout& lay, int B, int S, int H, float sqrt_hd,
-        cudaStream_t st) {
-  static const int attr =
-      allow_smem(causal_fwd_kernel<T, HD>, fwd_smem<HD>());
-  if (attr != 0) {
-    return attr;
-  }
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  causal_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, lay, S, H, sqrt_hd);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int HD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, void* dq, float* delta, const Layout& lay, int B,
            int S, int H, float sqrt_hd, cudaStream_t st) {
@@ -590,6 +478,13 @@ bool valid_shape(int B, int S, int H) {
 
 }  // namespace
 
+// The f32 forward (causal_attention_f32.cu): one pass, register tiles.
+extern "C" int trpc_causal_attention_fwd_f32(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse,
+                                             const long long* strides, int B,
+                                             int S, int H, int hd,
+                                             float sqrt_hd, void* stream);
 // The tensor-core kernels (causal_attention_sm90.cu), for bf16.
 extern "C" int trpc_causal_attention_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -636,10 +531,9 @@ extern "C" int trpc_causal_attention_fwd(const void* q, const void* k,
     return trpc_causal_attention_fwd_sm90(q, k, v, o, lse, strides, B, S, H,
                                           hd, sqrt_hd, stream);
   }
-  const Layout lay = layout_of(strides, 3);
-  cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
-    TRPC_CA_HD(float, fwd, q, k, v, o, (float*)lse, lay, B, S, H, sqrt_hd, st);
+    return trpc_causal_attention_fwd_f32(q, k, v, o, lse, strides, B, S, H,
+                                         hd, sqrt_hd, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -39,9 +39,9 @@
 // at the CUDA cores' rate.
 // The kernels of this file are the simple first ones: SIMT f32 FMAs for
 // every product, scores computed twice in the forward, so they run far
-// from that bound.  Every bf16 forward and dk/dv launch at hd 16, 64 and
-// 128 goes to the tensor-core kernels of ring_fold_sm90.cu instead; this
-// file keeps f32, hd 8 (the reference tests' own) and dq.
+// from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
+// and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu
+// instead; this file keeps f32 and hd 8 (the reference tests' own).
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -568,8 +568,8 @@ Layout layout_of(const long long* strides, int n) {
   return lay;
 }
 
-// The forward and dk/dv in bf16 at hd 16, 64 and 128 run on the tensor
-// cores (ring_fold_sm90.cu): no SIMT kernel of theirs is built.
+// Every kernel in bf16 at hd 16, 64 and 128 runs on the tensor cores
+// (ring_fold_sm90.cu): no SIMT kernel of theirs is built.
 template <typename T, int HD>
 constexpr bool kSimt = std::is_same<T, float>::value || HD == 8;
 
@@ -597,16 +597,20 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dq,
            const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
            cudaStream_t st) {
-  static const int attr =
-      allow_smem(ring_fold_dq_kernel<T, HD>, dq_smem<HD>());
-  if (attr != 0) {
-    return attr;
+  if constexpr (!kSimt<T, HD>) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    static const int attr =
+        allow_smem(ring_fold_dq_kernel<T, HD>, dq_smem<HD>());
+    if (attr != 0) {
+      return attr;
+    }
+    const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+    ring_fold_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        dq, lay, Cq, Ck, H, pos);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
-  ring_fold_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dq,
-      lay, Cq, Ck, H, pos);
-  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -643,6 +647,11 @@ extern "C" int trpc_ring_fold_fwd_sm90(const void* q, const void* k,
                                        int B, int Cq, int Ck, int H, int hd,
                                        int q_off, int k_off, int causal,
                                        float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int hd, int q_off, int k_off, int causal,
+    float scale, void* stream);
 extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -655,12 +664,11 @@ extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
 // lse, delta are contiguous [B, H, Cq] f32; o and dq contiguous
 // [B, H, Cq, hd] f32, dk and dv [B, H, Ck, hd] f32, all updated in place.
 // Each returns cudaGetLastError() after its launch (0 on success); the
-// launch is asynchronous on `stream`.  The forward and dk/dv take bf16 at
-// hd 16, 64 and 128 to the tensor-core kernels, whose q, k, v and dO
-// views must be 16-byte aligned in base and strides (TMA's rule; the
-// wrapper copies any other); where the driver refuses the tensor map of
-// input i (0 q, 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its
-// CUresult).
+// launch is asynchronous on `stream`.  Each takes bf16 at hd 16, 64 and
+// 128 to the tensor-core kernels, whose q, k, v and dO views must be
+// 16-byte aligned in base and strides (TMA's rule; the wrapper copies
+// any other); where the driver refuses the tensor map of input i (0 q,
+// 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).
 
 static bool tensor_cores(int dtype, int hd) {
   return dtype == 0 && (hd == 16 || hd == 64 || hd == 128);
@@ -713,6 +721,11 @@ extern "C" int trpc_ring_fold_bwd_dq(const void* q, const void* k,
                                      int causal, float scale, void* stream) {
   if (!valid_shape(B, Cq, Ck, H)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (tensor_cores(dtype, hd)) {
+    return trpc_ring_fold_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, strides,
+                                      B, Cq, Ck, H, hd, q_off, k_off, causal,
+                                      scale, stream);
   }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};

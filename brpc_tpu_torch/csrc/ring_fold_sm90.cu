@@ -1,20 +1,20 @@
-// ring_fold_sm90.cu — the bf16 ring fold's forward and dk/dv on Hopper:
-// wgmma for the products of bf16 values, f32 FMAs on the CUDA cores for
-// p's f32 products, TMA for every tile.
+// ring_fold_sm90.cu — the bf16 ring fold's forward, dq and dk/dv on
+// Hopper: wgmma for the products of bf16 values, f32 FMAs on the CUDA
+// cores for p's f32 products, TMA for every tile.
 //
 // Counterpart: the same function as csrc/ring_fold.cu (the fold of
 // brpc_tpu/parallel/ring_attention.py:56-71, its jax.grad, and
-// `_dense_local` :125-133), whose C entries keep f32, head dim 8 and the
-// dq kernel, and send every bf16 forward and dk/dv launch at head dims
-// 16, 64 and 128 here.  Layout and roundings are that file's:
+// `_dense_local` :125-133), whose C entries keep f32 and head dim 8, and
+// send every bf16 launch at head dims 16, 64 and 128 here.  Layout and
+// roundings are that file's:
 //   q, dO [B, Cq, H, hd] and k, v [B, Ck, H, hd] bf16, read through their
-//   (b, s, h) strides; m, l, lse, D [B, H, Cq] f32; o [B, H, Cq, hd] f32;
-//   dk, dv [B, H, Ck, hd] f32 (contiguous, updated in place)
+//   (b, s, h) strides; m, l, lse, D [B, H, Cq] f32; o, dq [B, H, Cq, hd]
+//   f32; dk, dv [B, H, Ck, hd] f32 (contiguous, updated in place)
 //   s  = f32(bf16(q . k)) * scale, -1e30 where q_off + i < k_off + j
 //   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
 //   l' = l a + sum_j p      o' = o a + p . f32(v)
 //   P = exp(s - lse)   dP = f32(dO) . f32(v)   dS = bf16(P (dP - D) scale)
-//   dk += dS^T . q     dv += P^T . f32(dO)
+//   dq += dS . k       dk += dS^T . q     dv += P^T . f32(dO)
 //
 // The f32 products of p.  p . f32(v) and P^T . f32(dO) are products of an
 // f32 p with bf16 values, f32 in the reference.  They run as f32 FMAs on
@@ -28,7 +28,7 @@
 // f32 tolerance 5x over 1024 keys in one accumulator and 1.6x with each
 // 64-key tile's sum promoted to an IEEE add (PERF.md, Findings).
 // q . k, dO . v (its products of bf16 values are exact; dP is rounded
-// nowhere else) and dS^T . q are single bf16 wgmmas.
+// nowhere else), dS . k and dS^T . q are single bf16 wgmmas.
 //
 // Bound on an H100 (B=8, C=1024, H=8, hd=64, one causal diagonal block;
 // chip_smoke.py's fold_bounds): operations.  A product over the causal
@@ -36,7 +36,9 @@
 // 64.2 us at the CUDA cores' 67 TFLOP/s in f32: the forward's q.k and
 // p.v take 68.5 us (its 59.8 MB of traffic, the f32 state read and
 // written, 17.8 us); dk/dv's three bf16 products and P^T.dO 77.2 us
-// (101.2 MB: 30.2 us).  Per score, besides the products, the kernels do
+// (101.2 MB: 30.2 us); dq's three bf16 products 13.1 us, so its bytes
+// bound it (67.6 MB, the f32 dq read and written among them: 20.2 us).
+// Per score, besides the products, the kernels do
 // a rounding and an exponential, and the forward takes its scores twice
 // (a max pass, then the p pass), as the reference's fold takes the
 // block's max before any p.
@@ -50,6 +52,17 @@
 //    key: the reference weighs its masked scores by exp(0) = 1).  Then
 //    (m, l, o) are read, updated once and written, as the reference folds
 //    once per block; no rescaling inside the block.
+//  - dq: one warpgroup per (64-row query tile, h, b), the longest tiles
+//    first; Q and dO loaded once, the tile's 64 lse and 64 D in
+//    registers, K and V streaming through the ring over the key tiles
+//    the forward visits.  S = Q.K^T and dP = dO.V^T are two wgmmas with
+//    both operands K-major; dS is rounded and packed as bf16x2 straight
+//    into the A fragment of dq += dS.K, whose B is the K tile read
+//    MN-major, so dS never touches shared memory.  The block's dq sums
+//    in wgmma's accumulator over the key tiles and is added to the
+//    carried dq once (one IEEE add an element), as the reference adds
+//    the block's product.  Three products and one exponential a score,
+//    nothing recomputed.
 //  - dk/dv: one warpgroup per (64-row key tile, h, b); K and V loaded
 //    once, Q and dO streaming with each tile's 64 lse and 64 D beside
 //    them.  The products are taken transposed, S^T = K.Q^T and dP^T =
@@ -235,6 +248,11 @@ __device__ __forceinline__ void product_ss(float (&s)[32], uint32_t a,
 template <int HD>
 constexpr int fwd_smem() {
   return 5 * Geo<HD>::kTileBytes + 32 + (kTile * kLdP + kTile) * 4 + kAlign;
+}
+// Q, dO, two stages of K and V, three mbarriers (in 32 bytes)
+template <int HD>
+constexpr int dq_smem() {
+  return 6 * Geo<HD>::kTileBytes + 32 + kAlign;
 }
 // K, V, two stages of Q and dO, three mbarriers (in 32 bytes), two
 // stages of the query tile's 64 lse and 64 D, the staged P^T
@@ -587,6 +605,134 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dq of one query tile over the key tiles the fold visits: the tiles not
+// wholly masked, or every tile if a row of the query tile has seen no
+// key.  Q and dO are loaded once; load i of the ring fills stage i % 2
+// with key tile i's K and V.  S, dP and dq += dS.K are all wgmmas: dS,
+// rounded to bf16, is packed straight into the A fragment, so nothing
+// is staged in shared memory.  The block's sum is added to the carried
+// dq once, as the reference adds the block's product.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, int Cq, int Ck, int H,
+                             Pos pos) {
+  constexpr int T = Geo<HD>::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = align_up(smem_u32(smem_raw));
+  const uint32_t sDO = sQ + T;
+  const uint32_t bar = sQ + 6 * T;  // full[0], full[1], then Q's and dO's
+  // blocks start in index order, x fastest: every (h, b) of the longest
+  // query tiles first
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);
+  const int c0 = (tid & 3) * 2;
+  const int q0 = qt * kTile;
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  float L[2];  // lse, +inf past Cq: P = 0 there
+  float D[2];
+  int degen = 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    L[r] = row < Cq ? lse[bh + row] : INFINITY;
+    D[r] = row < Cq ? delta[bh + row] : 0.0f;
+    degen |= row < Cq && degenerate(L[r]);
+  }
+  degen = __syncthreads_or(degen);
+  int n = 0;  // the key tiles not wholly masked: a prefix
+  while (n < n_kt && (degen || !all_masked(pos, q0, Cq, n * kTile, kTile))) {
+    ++n;
+  }
+  if (n == 0) {  // no row of the tile sees a key of the block: dq unchanged
+    return;
+  }
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto issue = [&](int i) {  // thread 0: key tile i into stage i % 2
+    const int st = i & 1;
+    mbar_expect_tx(bar + 8 * st, 2 * T);
+    load_tile<HD>(sQ + (2 + st) * T, mk, bar + 8 * st, i * kTile, h, b);
+    load_tile<HD>(sQ + (4 + st) * T, mv, bar + 8 * st, i * kTile, h, b);
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 8, 1);
+    mbar_init(bar + 16, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar + 16, 2 * T);
+    load_tile<HD>(sQ, &tq, bar + 16, q0, h, b);
+    load_tile<HD>(sDO, &tdo, bar + 16, q0, h, b);
+    issue(0);
+  }
+  float acc[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) {
+    acc[x] = 0.0f;
+  }
+  mbar_wait(bar + 16, 0);
+  for (int i = 0; i < n; ++i) {
+    __syncthreads();  // iteration i - 1 is done with stage (i + 1) % 2
+    if (tid == 0 && i + 1 < n) {
+      issue(i + 1);
+    }
+    mbar_wait(bar + 8 * (i & 1), (i >> 1) & 1);
+    const uint32_t sK = sQ + (2 + (i & 1)) * T;
+    const int k0 = i * kTile;
+    float s[32];
+    float w[32];
+    reg_fence(s);
+    reg_fence(w);
+    wg_fence();
+    issue_ss<HD>(s, sQ, sK);
+    issue_ss<HD>(w, sDO, sQ + (4 + (i & 1)) * T);
+    wg_commit();
+    wg_wait_all();
+    reg_fence(s);
+    reg_fence(w);
+    fold_scores<false>(s, edge_pair(pos, q0, k0, Ck), r0, c0, q0, k0, Ck,
+                       pos);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int r = (x >> 1) & 1;
+      const float p = expf(__fsub_rn(s[x], L[r]));
+      w[x] = __fmul_rn(__fmul_rn(p, __fsub_rn(w[x], D[r])), pos.scale);
+    }
+    uint32_t ads[4][4];
+    pack_a(ads, w);  // dS, rounded to bf16 as the reference rounds it
+    product_rs<HD>(acc, ads, sK);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (row >= Cq) {
+      continue;
+    }
+    float* dst = dq + (bh + row) * HD + c0;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      float2 x = *reinterpret_cast<float2*>(dst + 8 * j);
+      x.x = __fadd_rn(x.x, acc[4 * j + 2 * r]);
+      x.y = __fadd_rn(x.y, acc[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dst + 8 * j) = x;
+    }
+  }
+}
+
 // --- host -------------------------------------------------------------
 
 // grid.x = B H blocks, grid.y one per 64-row tile
@@ -615,6 +761,33 @@ int fwd(const void* q, const void* k, const void* v, float* m, float* l,
   ring_fold_fwd_sm90_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
                                   stream>>>(maps[0], maps[1], maps[2], m, l,
                                             o, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, float* dq,
+           const long long* st, int B, int Cq, int Ck, int H, const Pos& pos,
+           cudaStream_t stream) {
+  const int tiles = (Cq + kTile - 1) / kTile;
+  if (!grid_fits(B, H, tiles)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap maps[4];
+  const int e = tensor_maps<HD, 4>(maps, {q, k, v, dout}, st, B,
+                                   {Cq, Ck, Ck, Cq}, H);
+  if (e != 0) {
+    return e;
+  }
+  constexpr int bytes = dq_smem<HD>();
+  static const int attr = allow_smem(ring_fold_dq_sm90_kernel<HD>, bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  ring_fold_dq_sm90_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
+                                 stream>>>(maps[0], maps[1], maps[2],
+                                           maps[3], lse, delta, dq, Cq, Ck,
+                                           H, pos);
   return (int)cudaGetLastError();
 }
 
@@ -669,6 +842,16 @@ extern "C" int trpc_ring_fold_fwd_sm90(const void* q, const void* k,
   const Pos pos{q_off, k_off, causal, scale};
   TRPC_RF_SM90(fwd, q, k, v, (float*)m, (float*)l, (float*)o, strides, B,
                Cq, Ck, H, pos, (cudaStream_t)stream);
+}
+
+extern "C" int trpc_ring_fold_bwd_dq_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int hd, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  const Pos pos{q_off, k_off, causal, scale};
+  TRPC_RF_SM90(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta,
+               (float*)dq, strides, B, Cq, Ck, H, pos, (cudaStream_t)stream);
 }
 
 extern "C" int trpc_ring_fold_bwd_dkdv_sm90(

@@ -25,10 +25,12 @@ Three kernels, one wrapper each, and each wrapper counts its launches
 * :func:`causal_attention_backward_dkdv`  dk and dv, from D.
 
 In bf16 all three run on the tensor cores
-(``csrc/causal_attention_sm90.cu``: wgmma, TMA), whose tile loads need
-16-byte aligned bases and strides: the wrapper copies a view that has
-neither.  f32 runs the SIMT kernels of ``csrc/causal_attention.cu``; the
-C entries choose by dtype.
+(``csrc/causal_attention_sm90.cu``: wgmma, TMA).  In f32 the forward is
+a one-pass kernel on the CUDA cores (``csrc/causal_attention_f32.cu``:
+register tiles, cp.async), and dq and dk/dv are the SIMT kernels of
+``csrc/causal_attention.cu``; the C entries choose by dtype.  TMA and
+cp.async copy 16 bytes at a time, so the wrapper copies a view whose
+base or strides are not 16-byte multiples.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card; the plain version takes any.
 Bound and design: see the kernel sources' notes.
@@ -109,9 +111,10 @@ def _check(*ts) -> None:
 
 
 def tma_ready(t) -> bool:
-    """TMA's rule for the tensor-core kernels (these and the ring fold's):
-    a 16-byte aligned base, and positive strides of 16-byte multiples for
-    every dim longer than 1."""
+    """TMA's rule for the tensor-core kernels (these and the ring fold's),
+    which the f32 forward's 16-byte cp.async copies share: a 16-byte
+    aligned base, and positive strides of 16-byte multiples for every dim
+    longer than 1."""
     if t.data_ptr() % 16:
         return False
     return all(st > 0 and st * t.element_size() % 16 == 0
@@ -120,14 +123,14 @@ def tma_ready(t) -> bool:
 
 def _cuda(*ts):
     """The tensors as the kernels read them, after the checks: a
-    contiguous last dim (the other dims are read through their strides),
-    and in bf16 what TMA takes; anything else is copied."""
+    contiguous last dim (the other dims are read through their strides)
+    and what TMA and cp.async take (``tma_ready``); anything else is
+    copied."""
     _check(*ts)
     if ts[0].device.type != "cuda":
         raise ValueError(f"the causal_attention kernels run on cuda, not "
                          f"{ts[0].device}")
-    return [t if t.stride(-1) == 1 and (t.dtype != torch.bfloat16
-                                        or tma_ready(t))
+    return [t if t.stride(-1) == 1 and tma_ready(t)
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 

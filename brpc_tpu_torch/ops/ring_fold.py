@@ -26,12 +26,12 @@ kernel's launches.  A CUDA tensor goes to the kernel or raises; only CPU
 tensors take the plain version.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
-own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` the
-forward and dk/dv take their products of bf16 values on the tensor cores
-and p's f32 products (p . f32(v), P^T . f32(dO)) as f32 FMAs on the CUDA
-cores; f32, head dim 8 and dq run the SIMT kernels.  TMA reads the
-tensor-core kernels' inputs, so a bf16 view whose base or strides are
-not 16-byte multiples is copied first.  ``split_bf16x3`` models the
+own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` every
+kernel takes its products of bf16 values on the tensor cores (dq all
+three of them) and p's f32 products (p . f32(v), P^T . f32(dO)) as f32
+FMAs on the CUDA cores; f32 and head dim 8 run the SIMT kernels.  TMA
+reads the tensor-core kernels' inputs, so a bf16 view whose base or
+strides are not 16-byte multiples is copied first.  ``split_bf16x3`` models the
 three-part bf16 split of p that was tried for p's products on the tensor
 cores.  Bound and design: the kernel sources' notes.
 """

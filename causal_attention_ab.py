@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 r"""Other trees' causal_attention beside the checkout's, on one NVIDIA
-GPU: the bf16 forward, dq and dk/dv kernels and their wrappers' host
-time.
+GPU: the bf16 forward, dq and dk/dv kernels, their wrappers' host time,
+and the f32 forward's time and accuracy.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -22,7 +22,13 @@ reversed.  Each prints one JSON line:
   median of 7 rounds of 400 calls timed before the device catches up,
   through the wrapper (contiguous inputs, and q, k, v as views of one
   fused projection, as the model passes them) and through the C entry
-  alone (ctypes, the arguments made once).
+  alone (ctypes, the arguments made once);
+* ``f32_fwd``: the f32 forward's ``device_ms`` at ATTN_SHAPE, and
+  ``f64_err``: at S = 1000 and 1024, head dims 16, 64 and 128, unit
+  scale and a wide range (q, k x 2, v x 8; B=2, H=3, numpy seed 14),
+  the largest |o - o64| of the kernel and of the plain version against
+  o computed in f64 throughout, and the kernel's o against the plain
+  version as a share of ATTN_TOL["f32"].
 
 Prints the card's nvidia-smi name and power limit first; exits non-zero
 if a tree's process failed.
@@ -65,6 +71,39 @@ def host_us(fn, calls=400, rounds=7) -> float:
         torch.cuda.synchronize()
         per_call.append((t1 - t0) / calls * 1e6)
     return statistics.median(per_call)
+
+
+def f64_errors(ca, cs) -> dict:
+    """{case: [kernel's max |o - o64|, plain version's, kernel's largest
+    |o - plain| / (atol + rtol |plain|) under ATTN_TOL["f32"]]}."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = cs.ATTN_TOL["f32"]
+    out = {}
+    for S in (1000, 1024):
+        for hd in (16, 64, 128):
+            for name, scale, v_scale in (("unit", 1.0, 1.0),
+                                         ("wide", 2.0, 8.0)):
+                rng = np.random.default_rng(14)
+                q, k, v = (torch.from_numpy((scale * rng.standard_normal(
+                    (2, S, 3, hd))).astype(np.float32)).to("cuda")
+                    for _ in range(3))
+                v = v * v_scale
+                o, _ = ca.causal_attention_forward(q, k, v)
+                plain = ca.causal_attention_plain(q, k, v)
+                s = torch.einsum("bshk,bthk->bhst", q.double(),
+                                 k.double()) / math.sqrt(hd)
+                mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                             device="cuda"))
+                w = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+                o64 = torch.einsum("bhst,bthk->bshk", w, v.double())
+                out[f"S{S}_hd{hd}_{name}"] = [
+                    float((o.double() - o64).abs().max()),
+                    float((plain.double() - o64).abs().max()),
+                    float(((o - plain).abs() / (
+                        tol["atol"] + tol["rtol"] * plain.abs())).max())]
+    return out
 
 
 def measure(tree: str) -> None:
@@ -124,8 +163,13 @@ def measure(tree: str) -> None:
             *dq_args)),
         "c_entry_dkdv": host_us(lambda: lib.trpc_causal_attention_bwd_dkdv(
             *dkdv_args))}
+    q, k, v = (torch.randn(*cs.ATTN_SHAPE, generator=g, device="cuda")
+               for _ in range(3))
+    f32 = {"device_ms": cs.device_ms(
+        lambda: ca.causal_attention_forward(q, k, v), flush),
+        "f64_err": f64_errors(ca, cs)}
     print(json.dumps({"tree": tree, "device_ms": device,
-                      "prefill_host_us": host}), flush=True)
+                      "prefill_host_us": host, "f32_fwd": f32}), flush=True)
 
 
 def main(argv) -> int:

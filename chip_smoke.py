@@ -11,8 +11,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              ptxas -v's lines for each kernel (registers, shared memory,
              spills) and each kernel's count of HGMMA (wgmma) instructions
              in its SASS (cuobjdump -sass on the built library): the bf16
-             forward, dq and dk/dv kernels of causal_attention and the
-             ring fold's bf16 forward and dk/dv must have some
+             forward, dq and dk/dv kernels of causal_attention and of
+             the ring fold must have some (18 instantiations); its
+             ptxas_by_kernel key gives each kernel's registers and spills
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
@@ -34,18 +35,20 @@ printing one JSON line; any failure exits non-zero with no result line:
              also writes the softmax backward's row sums; backward dk/dv)
              under autograd against autograd of the plain version at
              B=8, S=1024, H=8, hd=64 and at S=1000, f32 and bf16: o, dq,
-             dk, dv within ATTN_TOL (the attention_check line prints the
-             errors and the share of the limit used).  The dtype dispatch
-             read from the device's kernel names under torch.profiler:
-             bf16 forward, dq and dk/dv launch the tensor-core kernels
-             and no SIMT one, f32 the SIMT ones.  Each kernel timed
-             in bf16 on the device alone like decode_attention, beside its
-             bound, the plain version (CUDA events), the wrapper's
-             host-inclusive time (host_call_ms) and
-             scaled_dot_product_attention(is_causal=True) forward and
-             backward (a yardstick the port never calls); the f32 route
-             (the SIMT kernels) timed the same way at the same shape,
-             its bound at the f32 CUDA-core rate, SDPA in f32 beside it
+             dk, dv and the forward's lse within ATTN_TOL (the
+             attention_check line prints the errors and the share of the
+             limit used).  The dtype dispatch read from the device's
+             kernel names under torch.profiler: bf16 forward, dq and
+             dk/dv launch the tensor-core kernels and no SIMT one, f32
+             the one-pass forward and the SIMT dq and dk/dv.  Each
+             kernel timed in bf16 on the device alone like
+             decode_attention, beside its bound, the plain version (CUDA
+             events), the wrapper's host-inclusive time (host_call_ms)
+             and scaled_dot_product_attention(is_causal=True) forward
+             and backward (a yardstick the port never calls); the f32
+             route timed the same way at the same shape, its bound at
+             the f32 CUDA-core rate, SDPA in f32 beside it (its
+             launches: the train phase's f32 twin step)
   serving    ServingEngine at the full width of ModelConfig() on a Server:
              6 streaming LLM.Generate clients (prompts 32..256, 16 new
              tokens) and one that cancels mid-stream; every full client
@@ -89,9 +92,10 @@ printing one JSON line; any failure exits non-zero with no result line:
              member)
   ring       on an NCCL world of one rank and a mesh {"dp": 1, "sp": 1}:
              ring_attention and ulysses_attention at B=8, S=1024, H=8,
-             hd=64 in bf16, forward and backward, against autograd of
-             the plain `_dense_local` (the main path of the fold: its
-             launches are read over it); the three ring-fold kernels
+             hd=64 in bf16, then in f32, forward and backward, against
+             autograd of the plain `_dense_local` (the main path of the
+             fold: its launches are read over each); the three ring-fold
+             kernels
              against their plain versions in f32 and bf16, one full-width
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
              (1, 3), causal and not, the wholly future (1, 3) block
@@ -99,12 +103,13 @@ printing one JSON line; any failure exits non-zero with no result line:
              exact scores (integer q and k): the bf16 forward and dk/dv
              hold m, l, o and dv within EXACT_TOL of the plain version,
              which p rounded once to bf16 leaves; each kernel timed in
-             bf16 at the full-width block like the others, beside its
-             bound (products of bf16 values at the bf16 rate, p's f32
-             products at the f32 CUDA-core rate), the plain version,
-             SDPA on the block and host_call_ms; the kernel names under
-             torch.profiler: the tensor-core forward and dk/dv and the
-             SIMT dq
+             bf16 and in f32 at the full-width block like the others,
+             beside its bound (products of bf16 values at the bf16 rate,
+             p's f32 products and every f32 product at the f32 CUDA-core
+             rate), the plain version, SDPA on the block in the same
+             dtype and host_call_ms; the kernel names under
+             torch.profiler: bf16 the tensor-core forward, dq and dk/dv,
+             f32 the SIMT kernels
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -304,15 +309,16 @@ def phase_card():
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": dict(_native.build_seconds),
             "build_wall_s": time.monotonic() - t0,
-            "ptxas": ptxas, "sass_hgmma": hgmma}
+            "ptxas": ptxas, "sass_hgmma": hgmma,
+            "ptxas_by_kernel": ptxas_kernels(ptxas)}
     emit(line)
     tensor_core = {k: n for k, n in hgmma.items()
                    if k.startswith(("causal_fwd_sm90", "causal_dq_sm90",
                                     "causal_dkdv_sm90",
                                     "ring_fold_fwd_sm90_kernel",
+                                    "ring_fold_dq_sm90_kernel",
                                     "ring_fold_dkdv_sm90_kernel"))}
-    assert len(tensor_core) == 15 and all(tensor_core.values()), hgmma
-    line["ptxas_by_kernel"] = ptxas_kernels(ptxas)
+    assert len(tensor_core) == 18 and all(tensor_core.values()), hgmma
     return line
 
 
@@ -521,13 +527,25 @@ def attention_grads(fn, q, k, v, do):
         t.float() for t in torch.autograd.grad(o, leaves, do)]
 
 
+def _lse_plain(q, k):
+    """[B, H, S]: the log-sum-exp of each row's masked f32 scores (the
+    product in the working type, as the plain version takes it)."""
+    import torch
+    S, hd = q.shape[1], q.shape[-1]
+    s = torch.einsum("bshk,bthk->bhst", q, k).float() / hd ** 0.5
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    return torch.logsumexp(s.masked_fill(~mask, -1e30), dim=-1)
+
+
 def check_attention(g):
     """The kernels (CausalAttention) against the plain version's autograd
     on the same inputs, at ATTN_SHAPE and at S = ATTN_RAGGED_S, in f32
-    and bf16: {case: {output: max abs error}} and {case: {output: largest
+    and bf16, and the forward's lse against the rows' log-sum-exp:
+    {case: {output: max abs error}} and {case: {output: largest
     |got - plain| / (atol + rtol |plain|)}} under ATTN_TOL."""
     import torch
     from brpc_tpu_torch.ops.causal_attention import (CausalAttention,
+                                                     causal_attention_forward,
                                                      causal_attention_plain)
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain f32 einsums
     B, _, H, hd = ATTN_SHAPE
@@ -538,11 +556,13 @@ def check_attention(g):
                                 device="cuda").to(dtype) for _ in range(4)]
             got = attention_grads(CausalAttention.apply, *args)
             want = attention_grads(causal_attention_plain, *args)
+            got.append(causal_attention_forward(*args[:3])[1])
+            want.append(_lse_plain(*args[:2]))
             torch.cuda.synchronize()
             tol = ATTN_TOL[name]
             case = f"{name}_S{S}"
             errs[case], shares[case] = {}, {}
-            for out, a, w in zip(ATTN_OUTPUTS, got, want):
+            for out, a, w in zip(ATTN_OUTPUTS + ("lse",), got, want):
                 diff = (a - w).abs()
                 errs[case][out] = float(diff.max())
                 shares[case][out] = float(
@@ -686,12 +706,13 @@ def phase_attention():
     assert routes["bf16"] == ["causal_dkdv_sm90", "causal_dq_sm90",
                               "causal_fwd_sm90"], routes
     assert routes["f32"] == ["causal_dkdv_kernel", "causal_dq_kernel",
-                             "causal_fwd_kernel"], routes
+                             "causal_fwd_f32_kernel"], routes
     return {"errs": errs, "rows": rows, "rows_f32": rows_f32}
 
 
 def f32_attention_rows(q, k, v, do, flush, sdpa_bshk):
-    """The f32 route (csrc/causal_attention.cu, SIMT) timed at the same
+    """The f32 route (the one-pass forward of csrc/causal_attention_f32.cu,
+    the SIMT dq and dk/dv of csrc/causal_attention.cu) timed at the same
     shape like the bf16 one: {kernel: row} with its bound at the f32
     CUDA-core rate, the plain version, SDPA in f32 (the backward: fwd+bwd
     less fwd) and the wrapper's host-inclusive time."""
@@ -914,7 +935,7 @@ def phase_train():
     want = TRAIN_STEPS * cfg.n_layers
     assert all(n == want for n in launches.values()), launches
     assert decode_attention.launches == 0
-    return launches
+    return launches, f32_launches
 
 
 # The parameter-server gradient: sum of resnet50_param_shapes()
@@ -1309,59 +1330,23 @@ def _dense_plain(q, k, v, scale):
     return torch.einsum("bhcd,bdhk->bchk", w, v.float()).to(q.dtype)
 
 
-def phase_ring(smi):
-    """ring_attention and ulysses_attention on the NCCL world of one (the
-    main path of the fold: the launches are read over it), the fold
-    kernels against their plain versions, and their times on the device
-    at the full-width block in bf16."""
-    import re
-
+def fold_rows(g, dtype, flush):
+    """The three fold kernels timed at the full-width causal diagonal
+    block (RING_SHAPE, a fresh state) in `dtype` on the device alone,
+    each beside its bound (fold_bounds at the dtype's width), the plain
+    version (CUDA events), SDPA in the same dtype on the block (the
+    backward rows: fwd+bwd less fwd) and host_call_ms: ({kernel: row},
+    the block's q, k, v, dO)."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from brpc_tpu_torch.ops import ring_fold as rf
-    from brpc_tpu_torch.parallel import make_mesh
-    from brpc_tpu_torch.parallel.ring_attention import (RingAttention,
-                                                        ring_attention,
-                                                        ulysses_attention)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
-               rf.ring_fold_backward_dkdv)
-    g = torch.Generator(device="cuda").manual_seed(5)
     B, C, H, hd = RING_SHAPE
     scale = hd ** -0.5
-
-    # 1. the main path: ring and Ulysses attention, forward and backward,
-    #    over the mesh of the NCCL world of one, against plain autograd
-    mesh = make_mesh({"dp": 1, "sp": 1}, device_type="cuda")
-    q, k, v, do = (torch.randn(RING_SHAPE, generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    want = attention_grads(lambda *a: _dense_plain(*a, scale), q, k, v, do)
-    for w in kernels:
-        w.launches = w.skips = 0
-    torch.cuda.synchronize()
-    got = {name: attention_grads(
-        lambda *a, fn=fn: fn(*a, mesh, axis="sp", causal=True), q, k, v, do)
-        for name, fn in (("ring", ring_attention),
-                         ("ulysses", ulysses_attention))}
-    torch.cuda.synchronize()
-    launches = {w.__name__: w.launches for w in kernels}
-    skips = {w.__name__: w.skips for w in kernels}
-    paths = {name: {out: _held(a, b, "bf16") for out, a, b in
-                    zip(ATTN_OUTPUTS, outs, want)}
-             for name, outs in got.items()}
-    del got, want
-
-    # 2. each kernel against its plain version
-    checks, skipped, exact = check_ring_fold(g)
-
-    # 3. times of the full-width diagonal block in bf16
-    (q, k, v, do), state = _fold_inputs(g, RING_SHAPE, torch.bfloat16, True)
+    (q, k, v, do), state = _fold_inputs(g, RING_SHAPE, dtype, True)
     rf.ring_fold_forward(q, k, v, *state, 0, 0, True, scale)
     lse, delta = _lse_delta(*state, do)
     acc = [torch.zeros_like(state[2]) for _ in range(3)]
-    flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
     calls = {
         "fwd": (lambda: rf.ring_fold_forward(q, k, v, *state, 0, 0, True,
                                              scale),
@@ -1382,14 +1367,13 @@ def phase_ring(smi):
         return F.scaled_dot_product_attention(
             *(x.transpose(1, 2) for x in a), is_causal=True).transpose(1, 2)
 
-    sdpa_fwd = device_ms(lambda: sdpa(q, k, v), flush_buf.sum)
+    sdpa_fwd = device_ms(lambda: sdpa(q, k, v), flush)
     sdpa_fwd_bwd = device_ms(
-        lambda: torch.autograd.grad(sdpa(*leaves), leaves, do),
-        flush_buf.sum)
-    bounds = fold_bounds(B, C, H, hd, 2)
+        lambda: torch.autograd.grad(sdpa(*leaves), leaves, do), flush)
+    bounds = fold_bounds(B, C, H, hd, q.element_size())
     rows = {}
     for name, (kernel, plain) in calls.items():
-        ms, cold_ms = device_ms(kernel, flush_buf.sum)
+        ms, cold_ms = device_ms(kernel, flush)
         bound_ms, bound_by = bounds[name]
         library = sdpa_fwd if name == "fwd" else [
             a - b for a, b in zip(sdpa_fwd_bwd, sdpa_fwd)]
@@ -1399,33 +1383,109 @@ def phase_ring(smi):
                       "library_ms": library[0],
                       "library_cold_ms": library[1],
                       "host_call_ms": cuda_ms(kernel, 20)}
-    del flush_buf, state, acc
+    return rows, (q, k, v, do)
 
-    # 4. the kernels one RingAttention forward and backward launched
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        attention_grads(lambda *a: RingAttention.apply(
-            *a, None, "sp", True, scale), q, k, v, do)
-        torch.cuda.synchronize()
-    names = sorted({m.group(0) for e in prof.events()
-                    for m in [re.search(r"ring_fold_\w+_kernel", e.name)]
-                    if m})
-    errs = {kname: max(c[kname][0] for key, c in checks.items()
-                       if key.startswith("bf16/full"))
-            for kname in ("fwd", "bwd_dq", "bwd_dkdv")}
+
+def fold_paths(mesh, dtype, g):
+    """ring_attention and ulysses_attention over `mesh` at RING_SHAPE in
+    `dtype`, forward and backward, against autograd of the plain
+    `_dense_local`, with every fold wrapper's count set to 0 just before:
+    ({path: {output: [max abs error, share of RING_TOL]}}, {wrapper:
+    launches}, {wrapper: skips})."""
+    import torch
+
+    from brpc_tpu_torch.ops import ring_fold as rf
+    from brpc_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                        ulysses_attention)
+    kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
+               rf.ring_fold_backward_dkdv)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    scale = RING_SHAPE[3] ** -0.5
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    want = attention_grads(lambda *a: _dense_plain(*a, scale), q, k, v, do)
+    for w in kernels:
+        w.launches = w.skips = 0
+    torch.cuda.synchronize()
+    got = {name: attention_grads(
+        lambda *a, fn=fn: fn(*a, mesh, axis="sp", causal=True), q, k, v, do)
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention))}
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in kernels}
+    skips = {w.__name__: w.skips for w in kernels}
+    paths = {name: {out: _held(a, b, dt) for out, a, b in
+                    zip(ATTN_OUTPUTS, outs, want)}
+             for name, outs in got.items()}
+    return paths, launches, skips
+
+
+def phase_ring(smi):
+    """ring_attention and ulysses_attention on the NCCL world of one (the
+    main path of the fold: the launches are read over it), in bf16 and in
+    f32, the fold kernels against their plain versions, and their times
+    on the device at the full-width block in bf16 and in f32."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch.parallel import make_mesh
+    from brpc_tpu_torch.parallel.ring_attention import RingAttention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    scale = RING_SHAPE[3] ** -0.5
+
+    # 1. the main path: ring and Ulysses attention, forward and backward,
+    #    over the mesh of the NCCL world of one, against plain autograd,
+    #    in bf16 (the model's working type) and in f32
+    mesh = make_mesh({"dp": 1, "sp": 1}, device_type="cuda")
+    paths, launches, skips = fold_paths(mesh, torch.bfloat16, g)
+    paths_f32, launches_f32, skips_f32 = fold_paths(mesh, torch.float32, g)
+
+    # 2. each kernel against its plain version
+    checks, skipped, exact = check_ring_fold(g)
+
+    # 3. times of the full-width diagonal block in bf16 and in f32
+    flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    rows_f32, _ = fold_rows(g, torch.float32, flush_buf.sum)
+    rows, qkvd = fold_rows(g, torch.bfloat16, flush_buf.sum)
+    del flush_buf
+
+    # 4. the kernels one RingAttention forward and backward launched, in
+    #    bf16 and in f32
+    names = {}
+    for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            attention_grads(lambda *a: RingAttention.apply(
+                *a, None, "sp", True, scale), *(t.to(dtype) for t in qkvd))
+            torch.cuda.synchronize()
+        names[dt] = sorted({m.group(0) for e in prof.events() for m in
+                            [re.search(r"ring_fold_\w+_kernel", e.name)]
+                            if m})
+
+    def errs(dt):
+        return {kname: max(c[kname][0] for key, c in checks.items()
+                           if key.startswith(f"{dt}/full"))
+                for kname in ("fwd", "bwd_dq", "bwd_dkdv")}
     line = {"phase": "ring", "device_name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi, "shape": dict(zip(("B", "C", "H", "hd"),
                                                  RING_SHAPE)),
             "dtype": "bf16", "mesh": mesh.shape,
             "launches": launches, "skips": skips,
-            "paths_vs_plain_autograd": paths, "checks": checks,
+            "paths_vs_plain_autograd": paths,
+            "launches_f32": launches_f32, "skips_f32": skips_f32,
+            "paths_f32_vs_plain_autograd": paths_f32, "checks": checks,
             "skipped_blocks": skipped, "exact_scores": exact,
             "exact_tolerance": EXACT_TOL, "tolerance": RING_TOL,
             "flip_share": RING_FLIP_SHARE, "flip_tolerance": RING_FLIP_TOL,
-            "kernels": rows, "max_abs_err": errs, "kernel_names": names,
+            "kernels": rows, "kernels_f32": rows_f32,
+            "max_abs_err": errs("bf16"), "max_abs_err_f32": errs("f32"),
+            "kernel_names": names["bf16"], "kernel_names_f32": names["f32"],
             "library": "torch.nn.functional.scaled_dot_product_attention("
-                       "is_causal=True) on the block; it rounds its "
-                       "weights as it likes, not the fold's f32: a "
-                       "yardstick of time, not of the arithmetic"}
+                       "is_causal=True) on the block, in the row's dtype; "
+                       "it rounds its weights as it likes, not the fold's "
+                       "f32: a yardstick of time, not of the arithmetic"}
     emit(line)
     bad = {c: v for c, res in checks.items() for v in res.values()
            if v[1] > 1}
@@ -1434,12 +1494,16 @@ def phase_ring(smi):
            if (v[1] > 1) != o.startswith("control")}
     assert not bad, f"exact scores: outside EXACT_TOL or a control inside: " \
         f"{bad}"
-    bad = {p: o for p, res in paths.items() for o, v in res.items()
-           if v[1] > 1}
+    bad = {f"{dt}/{p}": o for dt, ps in (("bf16", paths), ("f32", paths_f32))
+           for p, res in ps.items() for o, v in res.items() if v[1] > 1}
     assert not bad, f"ring/ulysses differ from plain autograd: {bad}"
     assert all(n == 2 for n in launches.values()), launches
-    assert names == ["ring_fold_dkdv_sm90_kernel", "ring_fold_dq_kernel",
-                     "ring_fold_fwd_sm90_kernel"], names
+    assert all(n == 2 for n in launches_f32.values()), launches_f32
+    assert names["bf16"] == ["ring_fold_dkdv_sm90_kernel",
+                             "ring_fold_dq_sm90_kernel",
+                             "ring_fold_fwd_sm90_kernel"], names
+    assert names["f32"] == ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+                            "ring_fold_fwd_kernel"], names
     assert len(skipped) == 2, skipped
     return line
 
@@ -1841,7 +1905,7 @@ def main() -> int:
     k = phase_kernel()["full"]
     attn = phase_attention()
     launches, prefill_launches = phase_serving()
-    train_launches = phase_train()
+    train_launches, f32_twin_launches = phase_train()
     par = phase_parallel(smi)
     ring, _ = phase_mesh(smi)
     kernels = [{
@@ -1878,6 +1942,23 @@ def main() -> int:
             "launches_in": "train phase, 5 steps x 4 layers",
             **({"serving_prefill_launches": prefill_launches}
                if name == "fwd" else {})})
+    err = attn["errs"]["f32_S1024"]
+    for name, wrapper, outs, source, kernel in (
+            ("fwd", "causal_attention_forward", ("o", "lse"),
+             "causal_attention_f32.cu", "causal_fwd_f32_kernel<64>"),
+            ("bwd_dq", "causal_attention_backward_dq", ("dq",),
+             "causal_attention.cu", "causal_dq_kernel<float, 64>"),
+            ("bwd_dkdv", "causal_attention_backward_dkdv", ("dk", "dv"),
+             "causal_attention.cu", "causal_dkdv_kernel<float, 64>")):
+        kernels.append({
+            "name": f"causal_attention_{name}_f32", "route": "cuda",
+            "source": f"brpc_tpu_torch/csrc/{source}",
+            "replaces": "brpc_tpu/models/transformer.py:197"
+                        + ("" if name == "fwd" else " (its jax.grad)"),
+            "launches": f32_twin_launches[wrapper],
+            "max_abs_err": max(err[o] for o in outs),
+            **attn["rows_f32"][name], **compiled(kernel),
+            "launches_in": "train phase, the f32 twin step (4 layers)"})
     kernels.append({
         "name": "fake_quant_int8", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/quant_codec.cu",
@@ -1895,7 +1976,7 @@ def main() -> int:
              "ring_fold_fwd_sm90_kernel<64>"),
             ("bwd_dq", "ring_fold_backward_dq",
              "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)",
-             "ring_fold.cu", "ring_fold_dq_kernel<__nv_bfloat16, 64>"),
+             "ring_fold_sm90.cu", "ring_fold_dq_sm90_kernel<64>"),
             ("bwd_dkdv", "ring_fold_backward_dkdv",
              "brpc_tpu/parallel/ring_attention.py:56 (its jax.grad)",
              "ring_fold_sm90.cu", "ring_fold_dkdv_sm90_kernel<64>")):
@@ -1908,6 +1989,23 @@ def main() -> int:
             "launches_in": "ring phase: ring_attention and "
                            "ulysses_attention, forward and backward, on "
                            "the NCCL world of one"})
+    for name, wrapper, kernel in (
+            ("fwd", "ring_fold_forward", "ring_fold_fwd_kernel<float, 64>"),
+            ("bwd_dq", "ring_fold_backward_dq",
+             "ring_fold_dq_kernel<float, 64>"),
+            ("bwd_dkdv", "ring_fold_backward_dkdv",
+             "ring_fold_dkdv_kernel<float, 64>")):
+        kernels.append({
+            "name": f"ring_fold_{name}_f32", "route": "cuda",
+            "source": "brpc_tpu_torch/csrc/ring_fold.cu",
+            "replaces": "brpc_tpu/parallel/ring_attention.py:56"
+                        + ("" if name == "fwd" else " (its jax.grad)"),
+            "launches": ring["launches_f32"][wrapper],
+            "max_abs_err": ring["max_abs_err_f32"][name],
+            **ring["kernels_f32"][name], **compiled(kernel),
+            "launches_in": "ring phase: ring_attention and "
+                           "ulysses_attention in f32, forward and "
+                           "backward, on the NCCL world of one"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

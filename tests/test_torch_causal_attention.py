@@ -16,9 +16,12 @@ On the CPU:
   rounding the quotient to bf16 (what PyTorch does for ``bf16 / float``)
   moves the scores at hd = 32, where sqrt(hd) is no power of two.
 * ``kernel_model``, the kernels' arithmetic written in torch in their
-  order of work over 64-key tiles (the forward's two passes: the online
-  (m, l), then the weights rounded as the registers feed them to the
-  tensor cores, times V; p recomputed from lse; D = sum_t p dW taken
+  order of work over 64-key tiles (the bf16 forward's two passes: the
+  online (m, l), then the weights rounded as the registers feed them to
+  the tensor cores, times V; the f32 forward's one pass, the
+  accumulator rescaled with the online (m, l) and divided by l at the
+  end, held at S = 1024 at unit scale and at a wider range; p
+  recomputed from lse; D = sum_t p dW taken
   exactly, per tile and then over the tiles; dS rounded as the
   registers feed it; dk/dv on transposed tiles, rows keys and columns
   queries, summed over the query tiles in f32), against autograd of the
@@ -39,9 +42,12 @@ The ``cuda``-marked legs run on the card: the
 three kernels at head dims 16, 64 and 128, S from 1 to 1024 (tile edges
 63/64/65, a ragged 1000), bf16 and f32, against the plain version on
 the same inputs; strided (fused-projection) q, k, v, a transposed dO
-and an unaligned view in bf16; two dk/dv calls bit-equal; and the dtype
-dispatch (bf16 on the tensor cores, f32 on the SIMT kernels) read from
-the device's kernel names.  They skip without a card and run there with
+and an unaligned view in bf16; two dk/dv calls bit-equal; the one-pass
+f32 forward's o and lse at S = 1000 and 1024 (at a wider range against
+an f64 reference, as near to it as the plain version); and the dtype
+dispatch (bf16 on the tensor cores, f32 on the one-pass forward and the
+SIMT dq and dk/dv) read from the device's kernel names.  They skip
+without a card and run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
 (this file imports jax only inside its CPU legs).
 """
@@ -66,6 +72,9 @@ BF16_REF_FLIPS = 0.01
 # sums in another order (largest reading 1.9e-6)
 CARD_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2e-2),
             torch.float32: dict(atol=1e-5, rtol=1e-5)}
+# the f32 forward at a wide range (q, k x 2, v x 8), against an f64
+# reference: its largest error over the plain version's
+WIDE_ERR_RATIO = 1.5
 
 
 def _draw(seed, B, S, H, hd, scale=1.0):
@@ -126,16 +135,21 @@ def _bf16_agrees(got, want) -> bool:
 TILE = 64    # query and key rows of a tile in the kernels
 
 
-def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False,
+def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
                  untransposed_mask=False):
-    """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16,
-    the SIMT kernels of csrc/causal_attention.cu for f32) on tensors, in
-    their order of work over 64-row tiles: (o, dq, dk, dv) as f32.
+    """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16;
+    for f32 the one-pass forward of csrc/causal_attention_f32.cu and the
+    SIMT dq and dk/dv of csrc/causal_attention.cu) on tensors, in their
+    order of work over 64-row tiles: (o, dq, dk, dv) as f32.
 
-    Forward, two passes: the online row max and sum (m, l) over the key
-    tiles; then p = exp(s - m) / l, rounded to the working type as the
-    registers feed it to the tensor cores, times each V tile, summed over
-    the tiles in f32 and rounded once.  dq: D = sum_t p dW taken per tile
+    Forward in bf16, two passes: the online row max and sum (m, l) over
+    the key tiles; then p = exp(s - m) / l, rounded to the working type
+    as the registers feed it to the tensor cores, times each V tile,
+    summed over the tiles in f32 and rounded once.  Forward in f32, one
+    pass (``one_pass``, the default there): per key tile the online
+    (m, l), the accumulator rescaled by exp(m_old - m) plus exp(s - m)
+    times the V tile, divided by l at the end (T() is the identity in
+    f32, so no weight is rounded).  dq: D = sum_t p dW taken per tile
     and then over the tiles, from p recomputed from lse; dS rounded as
     the registers feed it to dS . K.  dk/dv, per key tile over query tiles
     kt..: the transposed tiles S^T = T(K.Q^T) / sqrt(hd) and dW^T, P^T and
@@ -143,13 +157,16 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=False,
     q summed in f32 over the query tiles and rounded once.
     ``drop_diagonal``: leave key t = s out of row s (a wrong kernel, for
     the tolerance's control; row 0 keeps its only key).  ``one_pass``:
-    the online softmax of one pass, which rounds exp(s - m_running) and
-    rescales the sum (a different rounding of the weights, for the second
-    control).  ``untransposed_mask``: dk/dv's diagonal tiles masked as
+    the online softmax of one pass, which in bf16 rounds
+    exp(s - m_running) and rescales the sum (a different rounding of the
+    weights, for the second control); None: one pass in f32 only, as the
+    kernels.  ``untransposed_mask``: dk/dv's diagonal tiles masked as
     the untransposed S = Q.K^T is (column <= row), which on S^T keeps the
     keys t >= s (the third control).  The exponential is ``expf`` in both
     dtypes, as in the plain version."""
     dt = q.dtype
+    if one_pass is None:
+        one_pass = dt == torch.float32
     S, hd = q.shape[1], q.shape[-1]
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     tiles = [(t0, min(t0 + TILE, S)) for t0 in range(0, S, TILE)]
@@ -330,6 +347,23 @@ def test_one_pass_weights_leave_the_two_pass_rounding():
         assert (_gap_share(one[:1], want[:1], tol) <= 1.0) == within
 
 
+@pytest.mark.parametrize("scale,v_scale", [(1.0, 1.0), (2.0, 8.0)],
+                         ids=["unit", "wide"])
+def test_one_pass_f32_forward_stays_within_the_card_tolerance(scale,
+                                                              v_scale):
+    """In f32 no weight is rounded before its product, so the f32 forward
+    may make one pass: at S = 1024, at unit scale and with scores and
+    values of a wider range (q, k x 2, v x 8), the one-pass model's o is
+    within CARD_TOL of the plain softmax-then-product.  The backward is
+    the same in both models."""
+    arrays = _draw(13, 1, 1024, 2, 64, scale)
+    arrays[2] = arrays[2] * v_scale
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    want = _torch_grads(causal_attention_plain, arrays, torch.float32)
+    got = kernel_model(q, k, v, do)
+    assert _gap_share(got[:1], want[:1], CARD_TOL[torch.float32]) <= 1.0
+
+
 def test_cpu_tensors_take_the_plain_version():
     arrays = _draw(7, 1, 9, 2, 24)         # a head dim no kernel takes
     q, k, v, _ = (torch.from_numpy(a) for a in arrays)
@@ -486,7 +520,8 @@ def test_dkdv_kernel_is_deterministic(hd):
 def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     """The dtype dispatch, read from the device's own kernel names under
     torch.profiler: bf16 forward, dq and dk/dv launch the wgmma kernels
-    and no SIMT kernel; f32 launches the SIMT kernels and no wgmma one."""
+    and no SIMT kernel; f32 launches the one-pass forward
+    (causal_fwd_f32_kernel), the SIMT dq and dk/dv, and no wgmma one."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     arrays = _draw(16, 1, 130, 2, 64)
@@ -505,9 +540,96 @@ def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     assert not has("bf16", "causal_fwd_kernel")
     assert not has("bf16", "causal_dq_kernel")
     assert not has("bf16", "causal_dkdv_kernel")
-    assert has("f32", "causal_fwd_kernel") and has("f32", "causal_dq_kernel")
-    assert has("f32", "causal_dkdv_kernel")
+    assert not has("bf16", "causal_fwd_f32_kernel")
+    assert has("f32", "causal_fwd_f32_kernel")
+    assert has("f32", "causal_dq_kernel") and has("f32", "causal_dkdv_kernel")
+    assert not has("f32", "causal_fwd_kernel")
     assert not has("f32", "_sm90")
+
+
+def _lse_plain(q, k):
+    """[B, H, S]: the log-sum-exp of each row's masked f32 scores."""
+    S, hd = q.shape[1], q.shape[-1]
+    s = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    return torch.logsumexp(s.masked_fill(~mask, -1e30), dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_f32_forward_matches_plain_on_the_card(S, hd):
+    """The one-pass f32 forward: o and lse within CARD_TOL of the plain
+    version."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _draw(14, 2, S, 3, hd)
+    q, k, v, _ = (torch.from_numpy(a).to("cuda") for a in arrays)
+    launches = causal_attention_forward.launches
+    o, lse = causal_attention_forward(q, k, v)
+    want = causal_attention_plain(q, k, v)
+    want_lse = _lse_plain(q, k)
+    torch.cuda.synchronize()
+    assert causal_attention_forward.launches == launches + 1
+    torch.testing.assert_close(o, want, **CARD_TOL[torch.float32])
+    torch.testing.assert_close(lse, want_lse, **CARD_TOL[torch.float32])
+
+
+def _f64_reference(q, k, v):
+    """o [B, S, H, hd] and lse [B, H, S] in f64 throughout."""
+    S, hd = q.shape[1], q.shape[-1]
+    q, k, v = (t.double() for t in (q, k, v))
+    s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    s = s.masked_fill(~mask, float("-inf"))
+    return (torch.einsum("bhst,bthk->bshk", torch.softmax(s, -1), v),
+            torch.logsumexp(s, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_f32_forward_at_a_wide_range_is_as_exact_as_plain(S, hd):
+    """q, k x 2 and v x 8: there f32 itself leaves CARD_TOL (the plain
+    version's largest error against an f64 reference is 6-16x its atol),
+    and two f32 versions that order their sums differently may differ by
+    more than CARD_TOL (the one-pass forward read up to 1.76x, the
+    earlier two-pass SIMT kernel up to 1.22x; causal_attention_ab.py on
+    an H100).  So o is held to the f64 reference: its largest error at
+    most WIDE_ERR_RATIO times the plain version's (read: 0.97-1.06); lse
+    within CARD_TOL of the reference's."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _draw(14, 2, S, 3, hd, 2.0)
+    arrays[2] = arrays[2] * 8.0
+    q, k, v, _ = (torch.from_numpy(a).to("cuda") for a in arrays)
+    o, lse = causal_attention_forward(q, k, v)
+    plain = causal_attention_plain(q, k, v)
+    ref, ref_lse = _f64_reference(q, k, v)
+    torch.cuda.synchronize()
+    err = float((o.double() - ref).abs().max())
+    plain_err = float((plain.double() - ref).abs().max())
+    assert err <= WIDE_ERR_RATIO * plain_err, (err, plain_err)
+    torch.testing.assert_close(lse.double(), ref_lse,
+                               **CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_f32_forward_copies_an_unaligned_view():
+    """An f32 k whose base is off 16 bytes (the rule of the forward's
+    16-byte cp.async copies) is copied by the wrapper: o and lse are the
+    bits of a contiguous k."""
+    _card()
+    q, k, v, _ = (torch.from_numpy(a).to("cuda")
+                  for a in _draw(18, 2, 200, 3, 64))
+    flat = torch.empty(k.numel() + 1, device="cuda")
+    k_odd = flat[1:].view(k.shape)               # base off by 4 bytes
+    k_odd.copy_(k)
+    got = causal_attention_forward(q, k_odd, v)
+    want = causal_attention_forward(q, k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

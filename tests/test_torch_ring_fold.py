@@ -18,7 +18,8 @@ On the CPU:
   of work (64-row query tiles, 64-key tiles; the forward's two passes,
   the block's row max then p, its sum and p . V; a tile pair with every
   query before every key skipped unless a row of the tile has seen no
-  key; dq per query tile, dk/dv per key tile over query tiles), against
+  key; dq per query tile, summed over its key tiles and added to the
+  carried dq once, dk/dv per key tile over query tiles), against
   the plain version within ``CARD_TOL`` (in bf16 all but a few flipped
   elements, within ``FLIP_TOL``), the tolerance the card legs and
   chip_smoke.py hold the kernels to.  Control: the same model skipping
@@ -40,8 +41,9 @@ blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
 to contiguous ones; two runs bit-equal; an unaligned bf16 view copied
 for TMA, bit-equal; the wholly future block with no launch; no fallback
 (a head dim the kernels lack raises); the route under torch.profiler
-(bf16 at hd 64: the tensor-core forward and dk/dv; f32 and bf16 at hd 8:
-the SIMT kernels); and exact scores: with integer q and k every score is
+(bf16 at hd 16, 64 and 128: the tensor-core forward, dq and dk/dv; f32
+and bf16 at hd 8: the SIMT kernels); dq added into a carried dq; and
+exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
 another order), which p rounded once to bf16 leaves.  They skip without
@@ -281,18 +283,24 @@ def _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk, q_off, k_off,
     return p, ds.float()
 
 
-def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
+def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+              dq=None):
     """The dq kernel (per query tile over key tiles) and the dk/dv kernel
-    (per key tile over query tiles): the block's (dq, dk, dv)."""
+    (per key tile over query tiles): (dq, dk, dv), dk and dv the block's,
+    dq the carried `dq` (zeros by default) plus the block's.  As the dq
+    kernel orders its work: per query tile the block's dS . K summed over
+    the key tiles it visits (every tile if a row of the query tile has
+    seen no key), then added to the carried dq once."""
     dtype, (B, Cq, H, hd), Ck = q.dtype, q.shape, k.shape[1]
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    dq = torch.zeros(B, H, Cq, hd)
+    dq = torch.zeros(B, H, Cq, hd) if dq is None else dq.clone()
     dk = torch.zeros(B, H, Ck, hd)
     dv = torch.zeros(B, H, Ck, hd)
     degen = _degenerate(lse)
     for q0 in range(0, Cq, TILE):
         nq = min(TILE, Cq - q0)
         tile_degen = _degenerate(lse[:, :, q0:q0 + nq])
+        acc = torch.zeros(B, H, nq, hd)
         for k0 in range(0, Ck, TILE):
             if _all_masked(q_off, q0, Cq, k_off, k0, causal) and \
                     not tile_degen:
@@ -300,8 +308,9 @@ def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale):
             nk = min(TILE, Ck - k0)
             _, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
                                q_off, k_off, causal, scale, dtype)
-            dq[:, :, q0:q0 + nq] += torch.einsum("bhcd,bdhk->bhck", ds,
-                                                 kf[:, k0:k0 + nk])
+            acc = acc + torch.einsum("bhcd,bdhk->bhck", ds,
+                                     kf[:, k0:k0 + nk])
+        dq[:, :, q0:q0 + nq] = dq[:, :, q0:q0 + nq] + acc
     for k0 in range(0, Ck, TILE):
         nk = min(TILE, Ck - k0)
         for q0 in range(0, Cq, TILE):
@@ -366,6 +375,29 @@ def test_fold_model_matches_plain(Cq, Ck, q_off, k_off, causal, dtype):
     got = list(fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale))
     got += bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", BLOCKS)
+def test_dq_model_adds_the_block_to_a_carried_dq(Cq, Ck, q_off, k_off,
+                                                 causal, dtype):
+    """The dq kernel's order of work (the block's sum per query tile,
+    then one add) from a dq carried over earlier blocks, against
+    ring_fold_bwd_dq_plain from the same dq."""
+    q, k, v, do, m, l, o = _block(41, 1, Cq, Ck, 2, 16, dtype)
+    scale = 0.25
+    _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                   causal, scale)
+    carried, = _draw(43, (1, 2, Cq, 16))
+    carried = torch.from_numpy(carried)
+    want = carried.clone()
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, want, q_off, k_off,
+                           causal, scale)
+    got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                    dq=carried)[0]
+    assert not torch.equal(got, carried)
+    _close([got], [want], dtype)
 
 
 def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
@@ -638,7 +670,7 @@ def test_one_fold_attention_on_the_card_matches_plain_autograd(dtype,
 @pytest.mark.cuda
 def test_tensor_core_kernels_copy_an_unaligned_view():
     """A bf16 k whose base is off 16 bytes (TMA's rule) is copied by the
-    wrapper: the forward and dk/dv give the bits of a contiguous k."""
+    wrapper: the forward, dq and dk/dv give the bits of a contiguous k."""
     _card()
     q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, 64, torch.bfloat16,
                                   "cuda")
@@ -650,10 +682,12 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
     for kk in (k_odd, k):
         state = [t.clone() for t in (m, l, o)]
         ring_fold_forward(q, kk, v, *state, 130, 130, True, 0.125)
-        dk, dv = torch.zeros_like(o), torch.zeros_like(o)
+        dq, dk, dv = (torch.zeros_like(o) for _ in range(3))
+        ring_fold_backward_dq(q, kk, v, do, lse, delta, dq, 130, 130, True,
+                              0.125)
         ring_fold_backward_dkdv(q, kk, v, do, lse, delta, dk, dv, 130, 130,
                                 True, 0.125)
-        outs.append(state + [dk, dv])
+        outs.append(state + [dq, dk, dv])
     torch.cuda.synchronize()
     for a, b in zip(*outs):
         assert torch.equal(a, b)
@@ -662,12 +696,14 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
 @pytest.mark.cuda
 def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     """The route, read from the device's kernel names under
-    torch.profiler: bf16 at hd 64 launches the tensor-core forward and
-    dk/dv and the SIMT dq; f32, and bf16 at hd 8, the SIMT kernels."""
+    torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
+    forward, dq and dk/dv; f32, and bf16 at hd 8, the SIMT kernels."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
     for case, dtype, hd in (("bf16", torch.bfloat16, 64),
+                            ("bf16_hd16", torch.bfloat16, 16),
+                            ("bf16_hd128", torch.bfloat16, 128),
                             ("f32", torch.float32, 64),
                             ("bf16_hd8", torch.bfloat16, 8)):
         q, k, v, do, m, l, o = _block(35, 1, 130, 130, 2, hd, dtype, "cuda")
@@ -683,12 +719,45 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
         names[case] = sorted({m.group(0) for e in prof.events() for m in
                               [re.search(r"ring_fold_\w+_kernel", e.name)]
                               if m})
-    assert names["bf16"] == ["ring_fold_dkdv_sm90_kernel",
-                             "ring_fold_dq_kernel",
-                             "ring_fold_fwd_sm90_kernel"], names
+    sm90 = ["ring_fold_dkdv_sm90_kernel", "ring_fold_dq_sm90_kernel",
+            "ring_fold_fwd_sm90_kernel"]
+    assert names["bf16"] == names["bf16_hd16"] == names["bf16_hd128"] == \
+        sm90, names
     simt = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
             "ring_fold_fwd_kernel"]
     assert names["f32"] == simt and names["bf16_hd8"] == simt, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off", [(130, 130, 130, 130),
+                                               (1000, 1000, 1000, 0)])
+def test_dq_kernel_adds_into_a_carried_dq_on_the_card(Cq, Ck, q_off, k_off,
+                                                      hd, dtype):
+    """dq carried over earlier blocks: the kernel adds the block's sum to
+    it once, within the tolerance and flip rule of the plain version's
+    dq += dS . k from the same dq, twice to the same bits."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _block(45, 2, Cq, Ck, 3, hd, dtype, "cuda")
+    scale = 1.0 / math.sqrt(hd)
+    _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off, True,
+                                   scale)
+    carried = torch.randn(2, 3, Cq, hd, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(
+                              47))
+    want = carried.clone()
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, want, q_off, k_off, True,
+                           scale)
+    got = [carried.clone() for _ in range(2)]
+    for dq in got:
+        ring_fold_backward_dq(q, k, v, do, lse, delta, dq, q_off, k_off, True,
+                              scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    _close([got[0]], [want], dtype)
 
 
 def _fresh(m, l, o):
