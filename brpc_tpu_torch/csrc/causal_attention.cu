@@ -32,36 +32,33 @@
 //
 // Which kernel runs: every bf16 kernel (forward, dq, dk/dv) runs on the
 // tensor cores (causal_attention_sm90.cu: wgmma, TMA), and the f32
-// forward is causal_attention_f32.cu's one-pass kernel; the C entries
-// below dispatch them there.  This file keeps the f32 dq and dk/dv
-// kernels (TF32 tensor cores keep 10 mantissa bits, too few for the f32
-// checks), so its T is f32 in every launch; they read the f32 forward's
-// lse = m + log l.
+// forward and dq are causal_attention_f32.cu's CUDA-core kernels (one
+// pass; dq's two passes over register tiles); the C entries below
+// dispatch them there.  This file keeps the f32 dk/dv kernel (TF32
+// tensor cores keep 10 mantissa bits, too few for the f32 checks), so
+// its T is f32 in every launch; it reads the f32 forward's lse = m +
+// log l and the D the f32 dq kernel writes.
 //
 // Bound on an H100: operations.  At B=8, S=1024, H=8, hd=64 in bf16 the
 // forward moves 34 MB (10 us at 3.35 TB/s) and does 8.6 GFLOP (8.7 us at
 // 989 TFLOP/s of bf16 tensor cores); the backward moves 67 MB and does
-// 21.5 GFLOP.  The kernels of this file are the simple first ones: SIMT
-// f32 FMAs, no tensor cores, so they run far from that bound (f32
+// 21.5 GFLOP.  The dk/dv kernel of this file is the simple first one:
+// SIMT f32 FMAs, no tensor cores, so it runs far from that bound (f32
 // outside the tensor cores peaks at 67 TFLOP/s).
 //
-// Design of this file's kernels:
+// Design of this file's kernel:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
 //    16 x 16 grid; thread (ty, tx) owns rows ty + 16 i (i < 4) and
-//    columns tx + 16 j of every tile product, so a row's 16 owners sit in
-//    one half-warp and reduce with four xor-shuffles.
+//    columns tx + 16 j of every tile product.
 //  - Tiles are staged in shared memory as f32 with padded rows (one float
 //    of pad), which keeps every operand read of the products below free
 //    of bank conflicts; rows at or past S are staged as zeros.
-//  - Two kernels, each one block per (query or key tile, h, b):
-//      dq    per query tile: pass 1 D = sum p dW; pass 2 dS and dq.
-//            Writes dq and D.  Launched first.
-//      dkdv  per key tile: over query tiles kt..end, p and dS (with the
-//            D written by dq), then dv += T(p)^T dO, dk += dS^T q.
+//  - dkdv, one block per (key tile, h, b): over query tiles kt..end, p
+//    and dS (with the D written by the dq kernel, which runs first),
+//    then dv += T(p)^T dO, dk += dS^T q.
 //  - Causality: tile pairs above the diagonal are never visited; inside
 //    the diagonal tile the -1e30 mask of the reference becomes p = 0.
 //    Every visited row has key 0, so (m, l) is never empty.
-//  - Query tiles run longest first (the grid's x is reversed).
 //
 // ptxas -v for each instantiation is printed on chip_smoke.py's card line.
 #include <cuda_runtime.h>
@@ -110,22 +107,6 @@ __device__ __forceinline__ float round_t(float x) {
 __device__ __forceinline__ float div_rn(float x, float y, float inv) {
   const float q = x * inv;
   return fmaf(fmaf(-q, y, x), inv, q);
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
 }
 
 // Rows [row0, row0 + 64) of head (b, h) into an f32 tile [64][HD + 1];
@@ -239,112 +220,9 @@ __device__ __forceinline__ void store_rows(T* out,
 }
 
 template <int HD>
-constexpr int dq_smem() {
-  return (4 * kTile * (HD + 1) + kTile * kLdP) * (int)sizeof(float);
-}
-template <int HD>
 constexpr int dkdv_smem() {
   return (4 * kTile * (HD + 1) + 2 * kTile * kLdP + 2 * kTile) *
          (int)sizeof(float);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    causal_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, T* __restrict__ dq,
-              float* __restrict__ delta, Layout lay, int S, int H,
-              float sqrt_hd) {
-  constexpr int kLd = HD + 1;
-  constexpr int NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + kTile * kLd;
-  float* sK = sDO + kTile * kLd;
-  float* sV = sK + kTile * kLd;
-  float* sDS = sV + kTile * kLd;
-  const int qt = (int)gridDim.x - 1 - (int)blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int q0 = qt * kTile;
-  const float inv = __frcp_rn(sqrt_hd);
-  const long long bh = ((long long)b * H + h) * S;
-
-  load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, S);
-  load_tile<T, HD>(sDO, dout, lay.t[3], b, h, q0, S);
-  float L[4];  // +inf past S: p = 0 there
-  float D[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    L[i] = row < S ? lse[bh + row] : INFINITY;
-    D[i] = 0.0f;
-  }
-  // pass 1: D = sum_t p dW
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, S);
-    load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, S);
-    __syncthreads();
-    float s[4][4];
-    float w[4][4];
-    scores<T, HD>(s, sQ, sK, q0, kt * kTile, sqrt_hd, inv, tx, ty);
-    dw_tile<T, HD>(w, sDO, sV, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        D[i] = fmaf(expf(s[i][j] - L[i]), w[i][j], D[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    D[i] = half_warp_sum(D[i]);
-  }
-  // pass 2: dS, then dq = sum_t dS k
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc[i][j] = 0.0f;
-    }
-  }
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();
-    load_tile<T, HD>(sK, k, lay.t[1], b, h, kt * kTile, S);
-    load_tile<T, HD>(sV, v, lay.t[2], b, h, kt * kTile, S);
-    __syncthreads();
-    float s[4][4];
-    float w[4][4];
-    scores<T, HD>(s, sQ, sK, q0, kt * kTile, sqrt_hd, inv, tx, ty);
-    dw_tile<T, HD>(w, sDO, sV, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - L[i]);
-        const float ds = p * (w[i][j] - D[i]);
-        sDS[(ty + 16 * i) * kLdP + tx + 16 * j] =
-            round_t<T>(div_rn(ds, sqrt_hd, inv));
-      }
-    }
-    __syncthreads();
-    tile_mma<NJ, kTile, kLdP, 1, kLd, 1>(acc, sDS, sK, tx, ty);
-  }
-  store_rows<T, HD>(dq, acc, b, h, q0, S, H, tx, ty);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      if (row < S) {
-        delta[bh + row] = D[i];
-      }
-    }
-  }
 }
 
 template <typename T, int HD>
@@ -440,22 +318,6 @@ Layout layout_of(const long long* strides, int n) {
 }
 
 template <typename T, int HD>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, void* dq, float* delta, const Layout& lay, int B,
-           int S, int H, float sqrt_hd, cudaStream_t st) {
-  static const int attr =
-      allow_smem(causal_dq_kernel<T, HD>, dq_smem<HD>());
-  if (attr != 0) {
-    return attr;
-  }
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  causal_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, (T*)dq,
-      delta, lay, S, H, sqrt_hd);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int HD>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, void* dk, void* dv,
              const Layout& lay, int B, int S, int H, float sqrt_hd,
@@ -478,13 +340,18 @@ bool valid_shape(int B, int S, int H) {
 
 }  // namespace
 
-// The f32 forward (causal_attention_f32.cu): one pass, register tiles.
+// The f32 forward and dq (causal_attention_f32.cu): register tiles on the
+// CUDA cores, a cp.async ring.
 extern "C" int trpc_causal_attention_fwd_f32(const void* q, const void* k,
                                              const void* v, void* o,
                                              void* lse,
                                              const long long* strides, int B,
                                              int S, int H, int hd,
                                              float sqrt_hd, void* stream);
+extern "C" int trpc_causal_attention_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, void* dq, void* delta, const long long* strides, int B,
+    int S, int H, int hd, float sqrt_hd, void* stream);
 // The tensor-core kernels (causal_attention_sm90.cu), for bf16.
 extern "C" int trpc_causal_attention_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse,
@@ -509,7 +376,8 @@ extern "C" int trpc_causal_attention_bwd_dkdv_sm90(
 // tensor-core kernels, whose q, k, v and dO views must be 16-byte
 // aligned in base and strides (TMA's rule; the wrapper copies any other);
 // where the driver refuses the tensor map of input i (0 q, 1 k, 2 v,
-// 3 dO) they return -(1000 (i + 1) + its CUresult).
+// 3 dO) they return -(1000 (i + 1) + its CUresult).  The f32 forward and
+// dq copy with 16-byte cp.async, under the same rule.
 
 // return FN<T, hd>(...) for the head dims the kernels take
 #define TRPC_CA_HD(T, FN, ...)                  \
@@ -550,11 +418,10 @@ extern "C" int trpc_causal_attention_bwd_dq(
                                              strides, B, S, H, hd, sqrt_hd,
                                              stream);
   }
-  const Layout lay = layout_of(strides, 4);
-  cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
-    TRPC_CA_HD(float, bwd_dq, q, k, v, dout, (const float*)lse, dq,
-               (float*)delta, lay, B, S, H, sqrt_hd, st);
+    return trpc_causal_attention_bwd_dq_f32(q, k, v, dout, lse, dq, delta,
+                                            strides, B, S, H, hd, sqrt_hd,
+                                            stream);
   }
   return (int)cudaErrorInvalidValue;
 }

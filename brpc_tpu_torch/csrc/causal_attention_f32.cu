@@ -1,246 +1,96 @@
-// causal_attention_f32.cu — the f32 forward of causal attention on the
-// CUDA cores: one pass over the keys, register tiles fed by 16-byte
-// shared-memory reads, a two-stage cp.async ring for K and V.
+// causal_attention_f32.cu — causal attention in f32 on the CUDA cores:
+// the forward in one pass over the keys, and the backward's dq (with the
+// row sums D the dk/dv kernel reads); register tiles fed by 16-byte
+// shared-memory reads, a two-stage cp.async ring for K and V (the
+// machinery of f32_tile.cuh).
 //
-// Counterpart: the f32 forward of csrc/causal_attention.cu's function
-// (the gather branch of brpc_tpu/models/transformer.py:197-203 and
-// prefill, brpc_tpu/models/decode.py:126-131), which every f32 forward
-// and f32 prefill launches through trpc_causal_attention_fwd; the f32
-// dq and dk/dv kernels there read its lse unchanged.  Layout:
-//   q, k, v [B, S, H, hd] f32, read through their (b, s, h) strides (the
-//   last dim contiguous; base and strides 16-byte multiples, which the
-//   wrapper ensures by copying any other view)
-//   o [B, S, H, hd] f32 contiguous; lse [B, H, S] f32 = m + log l
+// Counterpart: the f32 forward and dq of csrc/causal_attention.cu's
+// function (the gather branch of brpc_tpu/models/transformer.py:197-203,
+// its jax.grad, and prefill, brpc_tpu/models/decode.py:126-131), which
+// every f32 launch of trpc_causal_attention_fwd and _bwd_dq reaches; the
+// f32 dk/dv kernel there reads this file's lse and D unchanged.  Layout:
+//   q, k, v, dO [B, S, H, hd] f32, read through their (b, s, h) strides
+//   (the last dim contiguous; base and strides 16-byte multiples, which
+//   the wrapper ensures by copying any other view)
+//   o, dq [B, S, H, hd] f32 contiguous; lse, D [B, H, S] f32
 // Function, with T = f32 (every rounding to the working type is the
 // identity):
-//   s = f32(q . k) / sqrt(hd), -inf above the diagonal
-//   o = softmax(s) . v
+//   s  = f32(q . k) / sqrt(hd), -inf above the diagonal
+//   o  = softmax(s) . v         lse = m + log l
+//   p  = exp(s - lse)   dW = dO . v   D = sum_t p dW (exactly as the
+//   reference's jax.grad of its softmax; not the rowsum(dO * o) stand-in)
+//   dS = p (dW - D) / sqrt(hd)    dq = sum_t dS k
 // In f32 the weights are not rounded before their product, so nothing
 // forces the two passes the bf16 kernels make: one pass keeps the online
 // (m, l) and rescales the accumulator, o_acc = o_acc exp(m_old - m) +
 // exp(s - m) . v, and divides by l once at the end.  On the CPU that
 // order stays as close to the plain softmax-then-product as the plain
 // version is to exact arithmetic (tests/test_torch_causal_attention.py,
-// the one-pass f32 legs at S = 1024).  The division by sqrt(hd) stays
-// exact: a multiplication by 1 / sqrt(hd) where that is a power of two
-// (hd 16, 64), a correctly rounded division otherwise.
+// the one-pass f32 legs at S = 1024).  dq keeps the SIMT kernel's order
+// of work per tile: D summed over a row's key tiles first, then dS.  The
+// division by sqrt(hd) stays exact: a multiplication by 1 / sqrt(hd)
+// where that is a power of two (hd 16, 64), a correctly rounded division
+// otherwise.
 //
-// Bound on an H100 (B=8, S=1024, H=8, hd=64): operations.  The two
-// products over the causal half are 8.6 GFLOP, 128.3 us at the CUDA
+// Bound on an H100 (B=8, S=1024, H=8, hd=64): operations.  The forward's
+// two products over the causal half are 8.6 GFLOP, 128.3 us at the CUDA
 // cores' 67 TFLOP/s (TF32 keeps 10 mantissa bits, too few for the f32
 // tolerance, and a bf16 split summed by wgmma did not hold f32 either:
-// PERF.md, Findings); its 67 MB of traffic take 20 us.  Besides the
-// products, each score costs one exponential.
+// PERF.md, Findings); its 67 MB of traffic take 20 us.  dq's function
+// needs three products (q.k, dO.v, dS.k: 192.5 us); taking D exactly
+// from p and dW before any dS costs the kernel a second pass over q.k
+// and dO.v, five products, 321 us at that rate.  Besides the products,
+// each score costs one exponential a pass.
 //
 // Design:
 //  - One block of 128 threads (4 warps) per (64-row query tile, h, b),
 //    the longest query tiles first; key tiles 0..qt in order, only the
-//    diagonal tile masked.
-//  - Register tiles.  Thread t (ra = t / 8, cb = t % 8) owns rows
-//    ra + 16 i (i < 4) of the tile: columns cb + 8 j (j < 8) of each
-//    [64][64] score tile, and hd / 8 columns of o in groups of four
-//    (two at hd 16), group g at 4 cb + 32 g.  A row's eight owners are
-//    eight lanes of one warp, which reduce its max and sum with three
-//    xor-shuffles.  Each depth step of q.k reads one float4 of each of
-//    the thread's 4 Q rows and 8 K rows (4 x 8 outputs, 32 FMAs a step
-//    of 4 deep, 12 reads); each 4 keys of p.v read one float4 of p for
-//    each of 4 rows and the thread's columns of 4 V rows.
-//  - Shared memory holds Q, two stages of K and V in rows padded to
-//    hd + 4 floats (4 banks apart, so every read of 4 or 8 consecutive
-//    rows is conflict-free) and p in rows of 72 floats (8 banks apart:
-//    the scalar stores of a warp's 4 rows x 8 columns and the float4
-//    reads of its 4 rows are conflict-free); 103 KB at hd 64, two blocks
-//    an SM.
-//  - Copies: cp.async, 16 bytes a thread a copy (hd / 2 copies a thread
-//    a tile), one commit group per K/V tile: tile i + 1 lands while tile
-//    i is computed.  cp.async and not TMA: TMA writes dense rows, whose
-//    float4 reads of consecutive rows conflict unless a swizzle is undone
-//    at every read of the FMA loop, and it would need a tensor map
-//    encoded per launch; padded rows need neither.  Rows at or past S
-//    are zero-filled (a src-size of 0), so a masked p of 0 never meets
-//    stale memory.
-//  - No atomics: each block writes its own rows.
+//    diagonal tile masked.  Each thread owns 4 rows (f32_tile.cuh): a
+//    4 x 8 register tile of each score tile, hd / 8 accumulator columns.
+//  - Forward: Q resident, K and V through the ring, p staged at stride
+//    72 for p . V; Q, two stages of K and V, p: 103 KB at hd 64, two
+//    blocks an SM.
+//  - dq: Q and dO resident; K and V through the ring over key tiles
+//    0..qt twice, one ring for both passes (pass 2's tile 0 lands during
+//    pass 1's last tile).  Pass 1: the thread's tiles of dW = dO.V and
+//    s = Q.K, p = exp(s - lse), D += p dW in registers, summed over the
+//    row's 8 lanes at the end; nothing staged.  Pass 2: dW and s again,
+//    dS in registers, staged at stride 72 into the current V stage once
+//    every thread has read V for its dW (a barrier; V is dead then), and
+//    dq_acc += dS . K.  A V stage is max(64 (hd + 4), 64 x 72) floats,
+//    so Q, dO, two stages of K and V are 104 KB at hd 64: two blocks an
+//    SM, as the forward.
+//  - No atomics: each block writes its own rows, so two runs give the
+//    same bits.
+//
+// ptxas -v for each instantiation is printed on chip_smoke.py's card line.
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
 
+#include "f32_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 64;        // rows of a query or key tile
-constexpr int kThreads = 128;    // ra in [0, 16) by cb in [0, 8)
-constexpr int kLdP = kTile + 8;  // f32 row stride of the staged p
-
-template <int HD>
-struct Stage {
-  static constexpr int kLd = HD + 4;  // f32 row stride of Q, K and V
-  static constexpr int kFloats = kTile * kLd;
-  static constexpr int kCols = HD / 8;             // o columns a thread
-  static constexpr int kGroup = kCols < 4 ? kCols : 4;  // a vector
+struct Layout {  // q, k, v, dO
+  Strides t[4];
 };
-
-// sqrt(HD) a power of two: x / sqrt(HD) is exactly x * (1 / sqrt(HD))
-template <int HD>
-constexpr bool kPow2 = HD == 16 || HD == 64;
 
 template <int HD>
 constexpr int smem_bytes() {  // Q, two stages of K and of V, p
   return (5 * Stage<HD>::kFloats + kTile * kLdP) * (int)sizeof(float);
 }
 
-struct Strides {
-  long long b, s, h;
-};
-struct Layout {  // q, k, v
-  Strides t[3];
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global src into shared dst; zeros where !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [row0, row0 + 64) of head (b, h) into the padded tile at dst;
-// rows at or past S zero-filled.
+// floats of one dq V stage: a V tile, or the dS tile staged over it
 template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          const Strides& st, int b, int h,
-                                          int row0, int S) {
-  constexpr int kChunks = HD / 4;  // 16-byte copies a row
-  const float* base = src + b * st.b + h * st.h;
-  const uint32_t d = smem_u32(dst);
-  for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
-    const int r = e / kChunks;
-    const int c = e % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < S;
-    cp_async16(d + (r * Stage<HD>::kLd + 4 * c) * 4,
-               valid ? base + (long long)row * st.s + 4 * c : src, valid);
-  }
-}
+constexpr int kDqVStage = Stage<HD>::kFloats > kTile * kLdP
+                              ? Stage<HD>::kFloats
+                              : kTile * kLdP;
 
-// x / y rounded to nearest, given inv = __frcp_rn(y) (Markstein; as
-// causal_attention.cu).
-__device__ __forceinline__ float div_rn(float x, float y, float inv) {
-  const float q = x * inv;
-  return fmaf(fmaf(-q, y, x), inv, q);
-}
-
-__device__ __forceinline__ float max8(float x) {  // over a row's 8 lanes
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-}
-
-__device__ __forceinline__ float sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 4);
-}
-
-// The thread's o columns of one row of a padded tile (or of o): kCols
-// floats, vector g at column kGroup (cb + 8 g).
 template <int HD>
-__device__ __forceinline__ void cols_of(float (&x)[Stage<HD>::kCols],
-                                        const float* row, int cb) {
-  using G = Stage<HD>;
-#pragma unroll
-  for (int g = 0; g < G::kCols / G::kGroup; ++g) {
-    const float* p = row + G::kGroup * (cb + 8 * g);
-    if constexpr (G::kGroup == 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p);
-      x[4 * g] = t.x;
-      x[4 * g + 1] = t.y;
-      x[4 * g + 2] = t.z;
-      x[4 * g + 3] = t.w;
-    } else {
-      const float2 t = *reinterpret_cast<const float2*>(p);
-      x[2 * g] = t.x;
-      x[2 * g + 1] = t.y;
-    }
-  }
-}
-
-// s[i][j] = sum_x Q[ra + 16 i][x] K[cb + 8 j][x], over x in order.
-template <int HD>
-__device__ __forceinline__ void scores(float (&s)[4][8], const float* sQ,
-                                       const float* sK, int ra, int cb) {
-  constexpr int kLd = Stage<HD>::kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[i][j] = 0.0f;
-    }
-  }
-#pragma unroll 2
-  for (int x = 0; x < HD; x += 4) {
-    float4 a[4];
-    float4 c[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(sQ + (ra + 16 * i) * kLd + x);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      c[j] = *reinterpret_cast<const float4*>(sK + (cb + 8 * j) * kLd + x);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
-        s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
-        s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
-        s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][c] += sum_t sP[ra + 16 i][t] V[t][column c], over the 64 keys t
-// in order.
-template <int HD>
-__device__ __forceinline__ void weights_v(float (&acc)[4][Stage<HD>::kCols],
-                                          const float* sP, const float* sV,
-                                          int ra, int cb) {
-  using G = Stage<HD>;
-#pragma unroll 2
-  for (int t = 0; t < kTile; t += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      p[i] = *reinterpret_cast<const float4*>(sP + (ra + 16 * i) * kLdP + t);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float vv[G::kCols];
-      cols_of<HD>(vv, sV + (t + u) * G::kLd, cb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float w = u == 0 ? p[i].x : u == 1 ? p[i].y
-                                        : u == 2 ? p[i].z
-                                                 : p[i].w;
-#pragma unroll
-        for (int c = 0; c < G::kCols; ++c) {
-          acc[i][c] = fmaf(w, vv[c], acc[i][c]);
-        }
-      }
-    }
-  }
+constexpr int dq_smem_bytes() {  // Q, dO, two stages of K and of V / dS
+  return (4 * Stage<HD>::kFloats + 2 * kDqVStage<HD>) * (int)sizeof(float);
 }
 
 // o and lse for one query tile, in one pass over key tiles 0..qt; K and
@@ -337,21 +187,12 @@ __global__ void __launch_bounds__(kThreads)
     if (row >= S) {
       continue;
     }
-    float* dst = o + (((long long)b * S + row) * H + h) * HD;
+    float x[NC];
 #pragma unroll
-    for (int g = 0; g < NC / G::kGroup; ++g) {
-      float x[4];
-#pragma unroll
-      for (int e = 0; e < G::kGroup; ++e) {
-        x[e] = __fdiv_rn(acc[i][G::kGroup * g + e], l[i]);
-      }
-      float* p = dst + G::kGroup * (cb + 8 * g);
-      if constexpr (G::kGroup == 4) {
-        *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-      } else {
-        *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-      }
+    for (int c = 0; c < NC; ++c) {
+      x[c] = __fdiv_rn(acc[i][c], l[i]);
     }
+    store_cols<HD>(o + (((long long)b * S + row) * H + h) * HD, x, cb);
     if (cb == 0) {
       lse[((long long)b * H + h) * S + row] = m[i] + logf(l[i]);
     }
@@ -378,6 +219,179 @@ int fwd(const float* q, const float* k, const float* v, float* o,
   return (int)cudaGetLastError();
 }
 
+// One step of dq's key-tile ring: step n of 2 nt (tile n % nt, pass
+// n / nt) is in place in stage n % 2 once every thread has waited and
+// met the barrier, which also frees stage (n + 1) % 2 for step n + 1's
+// copies.  Then the thread's dW = dO . V and p = exp(s - L) of the tile.
+template <int HD>
+__device__ __forceinline__ void dq_step(
+    float (&w)[4][8], float (&p)[4][8], int n, int nt, int qt, float* sQ,
+    float* sDO, float* sK, float* sV, const float* k, const float* v,
+    const Layout& lay, int b, int h, int S, const float (&L)[4], int ra,
+    int cb, float sqrt_hd, float inv) {
+  using G = Stage<HD>;
+  cp_async_wait_all();
+  __syncthreads();
+  if (n + 1 < 2 * nt) {
+    const int next = (n + 1) % nt;
+    const int st = (n + 1) & 1;
+    load_tile<HD>(sK + st * G::kFloats, k, lay.t[1], b, h, next * kTile, S);
+    load_tile<HD>(sV + st * kDqVStage<HD>, v, lay.t[2], b, h, next * kTile,
+                  S);
+    cp_async_commit();
+  }
+  const int st = n & 1;
+  scores<HD>(w, sDO, sV + st * kDqVStage<HD>, ra, cb);
+  scores<HD>(p, sQ, sK + st * G::kFloats, ra, cb);
+  const bool diagonal = n % nt == qt;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x =
+          kPow2<HD> ? p[i][j] * inv : div_rn(p[i][j], sqrt_hd, inv);
+      // -inf above the diagonal, and L = +inf past S: p = 0 there
+      p[i][j] = expf(__fsub_rn(
+          diagonal && cb + 8 * j > ra + 16 * i ? -INFINITY : x, L[i]));
+    }
+  }
+}
+
+// dq and D for one query tile: pass 1 D = sum_t p dW over key tiles
+// 0..qt, pass 2 dS and dq = sum_t dS k over the same tiles.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    causal_dq_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ delta,
+                         Layout lay, int S, int H, float sqrt_hd) {
+  using G = Stage<HD>;
+  constexpr int NC = G::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sDO = sQ + G::kFloats;
+  float* sK = sDO + G::kFloats;     // two stages
+  float* sV = sK + 2 * G::kFloats;  // two stages; dS over V in pass 2
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;  // longest first
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int ra = threadIdx.x >> 3;
+  const int cb = threadIdx.x & 7;
+  const int q0 = qt * kTile;
+  const int nt = qt + 1;
+  const float inv = __frcp_rn(sqrt_hd);
+  const long long bh = ((long long)b * H + h) * S;
+
+  load_tile<HD>(sQ, q, lay.t[0], b, h, q0, S);
+  load_tile<HD>(sDO, dout, lay.t[3], b, h, q0, S);
+  load_tile<HD>(sK, k, lay.t[1], b, h, 0, S);
+  load_tile<HD>(sV, v, lay.t[2], b, h, 0, S);
+  cp_async_commit();
+  float L[4];  // +inf past S: p = 0 there
+  float D[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    L[i] = row < S ? lse[bh + row] : INFINITY;
+    D[i] = 0.0f;
+  }
+  // pass 1: D = sum_t p dW
+  for (int n = 0; n < nt; ++n) {
+    float w[4][8];
+    float p[4][8];
+    dq_step<HD>(w, p, n, nt, qt, sQ, sDO, sK, sV, k, v, lay, b, h, S, L, ra,
+                cb, sqrt_hd, inv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        D[i] = fmaf(p[i][j], w[i][j], D[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    D[i] = sum8(D[i]);
+  }
+  // pass 2: dS, then dq = sum_t dS k
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c] = 0.0f;
+    }
+  }
+  for (int n = nt; n < 2 * nt; ++n) {
+    float w[4][8];
+    float p[4][8];
+    dq_step<HD>(w, p, n, nt, qt, sQ, sDO, sK, sV, k, v, lay, b, h, S, L, ra,
+                cb, sqrt_hd, inv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float ds = p[i][j] * (w[i][j] - D[i]);
+        p[i][j] = kPow2<HD> ? ds * inv : div_rn(ds, sqrt_hd, inv);
+      }
+    }
+    const int st = n & 1;
+    float* sDS = sV + st * kDqVStage<HD>;  // [64][kLdP] over the V tile
+    __syncthreads();  // every thread has read V for its dW
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sDS[(ra + 16 * i) * kLdP + cb + 8 * j] = p[i][j];
+      }
+    }
+    __syncthreads();  // dS in place
+    weights_v<HD>(acc, sDS, sK + st * G::kFloats, ra, cb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    if (row >= S) {
+      continue;
+    }
+    store_cols<HD>(dq + (((long long)b * S + row) * H + h) * HD, acc[i], cb);
+    if (cb == 0) {
+      delta[bh + row] = D[i];
+    }
+  }
+}
+
+template <int HD>
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, float* dq, float* delta, const Layout& lay,
+           int B, int S, int H, float sqrt_hd, cudaStream_t stream) {
+  const int tiles = (S + kTile - 1) / kTile;
+  if ((long long)B * H > 0x7fffffffLL || tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int bytes = dq_smem_bytes<HD>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      causal_dq_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  causal_dq_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes, stream>>>(
+      q, k, v, dout, lse, dq, delta, lay, S, H, sqrt_hd);
+  return (int)cudaGetLastError();
+}
+
+Layout layout_of(const long long* strides, int n) {
+  Layout lay{};
+  for (int i = 0; i < n; ++i) {
+    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  return lay;
+}
+
 }  // namespace
 
 // Called by trpc_causal_attention_fwd (causal_attention.cu) for f32, with
@@ -388,10 +402,7 @@ extern "C" int trpc_causal_attention_fwd_f32(const void* q, const void* k,
                                              const long long* strides, int B,
                                              int S, int H, int hd,
                                              float sqrt_hd, void* stream) {
-  Layout lay{};
-  for (int i = 0; i < 3; ++i) {
-    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  }
+  const Layout lay = layout_of(strides, 3);
   const float* args[3] = {(const float*)q, (const float*)k, (const float*)v};
   cudaStream_t st = (cudaStream_t)stream;
   switch (hd) {
@@ -404,6 +415,33 @@ extern "C" int trpc_causal_attention_fwd_f32(const void* q, const void* k,
     case 128:
       return fwd<128>(args[0], args[1], args[2], (float*)o, (float*)lse, lay,
                       B, S, H, sqrt_hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Called by trpc_causal_attention_bwd_dq (causal_attention.cu) for f32,
+// with its arguments less the dtype; hd 16, 64 or 128.
+extern "C" int trpc_causal_attention_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, void* dq, void* delta, const long long* strides, int B,
+    int S, int H, int hd, float sqrt_hd, void* stream) {
+  const Layout lay = layout_of(strides, 4);
+  const float* args[4] = {(const float*)q, (const float*)k, (const float*)v,
+                          (const float*)dout};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return bwd_dq<16>(args[0], args[1], args[2], args[3],
+                        (const float*)lse, (float*)dq, (float*)delta, lay, B,
+                        S, H, sqrt_hd, st);
+    case 64:
+      return bwd_dq<64>(args[0], args[1], args[2], args[3],
+                        (const float*)lse, (float*)dq, (float*)delta, lay, B,
+                        S, H, sqrt_hd, st);
+    case 128:
+      return bwd_dq<128>(args[0], args[1], args[2], args[3],
+                         (const float*)lse, (float*)dq, (float*)delta, lay, B,
+                         S, H, sqrt_hd, st);
   }
   return (int)cudaErrorInvalidValue;
 }

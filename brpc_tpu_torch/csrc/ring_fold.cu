@@ -40,8 +40,10 @@
 // The kernels of this file are the simple first ones: SIMT f32 FMAs for
 // every product, scores computed twice in the forward, so they run far
 // from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
-// and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu
-// instead; this file keeps f32 and hd 8 (the reference tests' own).
+// and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu, and
+// the f32 forward at those head dims to the one-pass CUDA-core kernel of
+// ring_fold_f32.cu; this file keeps the f32 dq and dk/dv and every kernel
+// at hd 8 (the reference tests' own).
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -50,7 +52,7 @@
 //    and reduce with four xor-shuffles.  Tiles are staged in shared
 //    memory as f32 rows of max(hd, 16) + 1 floats (hd 8 is padded with
 //    zeros), rows past the block as zeros.
-//  - fwd, one block per (query tile, h, b): pass 1 the block's row max,
+//  - fwd (hd 8), one block per (query tile, h, b): pass 1 the row max,
 //    pass 2 p, its row sum and p . V; then the (m, l, o) update, once
 //    per block as the reference's fold.
 //    dq, per query tile: dP, dS and dq += dS . K over the key tiles.
@@ -569,15 +571,18 @@ Layout layout_of(const long long* strides, int n) {
 }
 
 // Every kernel in bf16 at hd 16, 64 and 128 runs on the tensor cores
-// (ring_fold_sm90.cu): no SIMT kernel of theirs is built.
+// (ring_fold_sm90.cu), and the f32 forward there on the CUDA cores
+// (ring_fold_f32.cu): no SIMT kernel of theirs is built.
 template <typename T, int HD>
 constexpr bool kSimt = std::is_same<T, float>::value || HD == 8;
+template <int HD>
+constexpr bool kSimtFwd = HD == 8;
 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, float* m, float* l,
         float* o, const Layout& lay, int B, int Cq, int Ck, int H,
         const Pos& pos, cudaStream_t st) {
-  if constexpr (!kSimt<T, HD>) {
+  if constexpr (!kSimtFwd<HD>) {
     return (int)cudaErrorInvalidValue;
   } else {
     static const int attr =
@@ -657,6 +662,14 @@ extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int hd,
     int q_off, int k_off, int causal, float scale, void* stream);
+// The one-pass CUDA-core forward (ring_fold_f32.cu), for f32 at hd 16,
+// 64, 128.
+extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
+                                      const void* v, void* m, void* l,
+                                      void* o, const long long* strides,
+                                      int B, int Cq, int Ck, int H, int hd,
+                                      int q_off, int k_off, int causal,
+                                      float scale, void* stream);
 
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 8, 16, 64 or 128.
 // strides: (b, s, h) element strides of q, k, v (and dO for the
@@ -668,10 +681,14 @@ extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
 // 128 to the tensor-core kernels, whose q, k, v and dO views must be
 // 16-byte aligned in base and strides (TMA's rule; the wrapper copies
 // any other); where the driver refuses the tensor map of input i (0 q,
-// 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).
+// 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  The
+// forward takes f32 at those head dims to the CUDA-core kernel, whose
+// 16-byte cp.async copies need the same alignment of q, k and v.
+
+static bool wide_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
 static bool tensor_cores(int dtype, int hd) {
-  return dtype == 0 && (hd == 16 || hd == 64 || hd == 128);
+  return dtype == 0 && wide_hd(hd);
 }
 
 // return FN<T, hd>(...) for the head dims the kernels take
@@ -704,6 +721,10 @@ extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
   if (tensor_cores(dtype, hd)) {
     return trpc_ring_fold_fwd_sm90(q, k, v, m, l, o, strides, B, Cq, Ck, H,
                                    hd, q_off, k_off, causal, scale, stream);
+  }
+  if (dtype == 1 && wide_hd(hd)) {
+    return trpc_ring_fold_fwd_f32(q, k, v, m, l, o, strides, B, Cq, Ck, H,
+                                  hd, q_off, k_off, causal, scale, stream);
   }
   const Layout lay = layout_of(strides, 3);
   const Pos pos{q_off, k_off, causal, scale};

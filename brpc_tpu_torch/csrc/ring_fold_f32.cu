@@ -1,0 +1,297 @@
+// ring_fold_f32.cu — the ring fold's forward in f32 on the CUDA cores:
+// one pass over the held block's keys, register tiles fed by 16-byte
+// shared-memory reads, a two-stage cp.async ring for K and V.
+//
+// Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71 in
+// f32 (and Ulysses' `_dense_local`, :125-133, one fold at offsets 0/0),
+// which ring_fold.cu's trpc_ring_fold_fwd sends here for f32 at hd 16, 64
+// and 128.  Layout and function are that file's:
+//   q [B, Cq, H, hd], k, v [B, Ck, H, hd] f32, read through their (b, s,
+//   h) strides (the last dim contiguous; base and strides 16-byte
+//   multiples, which the wrapper ensures by copying any other view)
+//   m, l [B, H, Cq] f32 and o [B, H, Cq, hd] f32 (o unnormalised),
+//   contiguous, updated in place
+//   s  = q . k * scale (f32 product, __fmul_rn), -1e30 where q_off + i <
+//        k_off + j (causal), -inf past Ck (no key: out of every max, sum)
+//   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
+//   l' = l a + sum_j p      o' = o a + p . v
+// In f32 the reference rounds no weight before p . v, so nothing forces
+// the SIMT kernel's two passes (the block's row max, then p): one pass
+// keeps a running max m_t from m, and per key tile
+//   m_t = max(m_run, tile row max)   c = exp(m_run - m_t)
+//   l_acc = l_acc c + sum exp(s - m_t)    acc = acc c + exp(s - m_t) . V
+// (the tile's exp(s - m_t) . V summed apart and then added to acc: 64
+// adds a tile at the tile sum's magnitude and one at acc's), then writes
+// m' = m_t, l' = l a + l_acc, o' = o a + acc once, with a = exp(m - m')
+// the reference's own (m' is the same max).  l and o are read there,
+// not at the start: the update keeps the reference's form o a + (p . v).
+// Wherever no tile after the first raises a row's max, every
+// exp(s - m_t) is the reference's p bit for bit; elsewhere only the
+// roundings of the rescaled partial sums differ (tests/
+// test_torch_ring_fold.py holds the order on the CPU at C = 1024).
+//
+// Skip rule.  A tile pair with every query before every key is all
+// -1e30, whose p is 0 for a row that has seen a key, so it is skipped;
+// but a row that has seen no key (m about -1e30) and sees none of this
+// block keeps m' = -1e30 and weighs its masked scores by exp(0) = 1, so
+// then every tile is visited.  The SIMT kernel decides that after its
+// first pass (m' degenerate); in one pass it is decided before the loop
+// from positions: row r is such a row iff m[r] is degenerate and, under
+// causal, q_off + r < k_off.  A row that sees a key has a finite score,
+// so its m' leaves -1e30: the two rules agree (a CPU leg checks it).
+// With m_run started at m, such a row keeps m_t = -1e30 and p = 1 on its
+// masked scores, as the reference.
+//
+// Bound on an H100 (B=8, C=1024, H=8, hd=64, one causal diagonal block):
+// operations.  q.k and p.v over the causal half are 8.6 GFLOP, 128.3 us
+// at the CUDA cores' 67 TFLOP/s (TF32 keeps 10 mantissa bits, too few
+// for the f32 tolerance; PERF.md, Findings); its 59.8 MB of traffic (the
+// state read and written among it) take 17.8 us.
+//
+// Design (the geometry, copies and products of f32_tile.cuh):
+//  - One block of 128 threads per (64-row query tile, h, b), the longest
+//    query tiles first; each thread owns 4 rows: a 4 x 8 register tile of
+//    each score tile, hd / 8 columns of acc.
+//  - Q resident; K and V tiles through the two-stage cp.async ring, tile
+//    i + 1 landing while tile i is computed; p staged at stride 72 for
+//    p . V.  Q, two stages of K and V, p: 103 KB at hd 64, two blocks an
+//    SM.
+//  - No atomics: each block updates its own rows of the state.
+#include <cuda_runtime.h>
+
+#include <math.h>
+
+#include "f32_tile.cuh"
+#include "ring_fold.cuh"
+
+namespace {
+
+struct Layout {  // q, k, v
+  Strides t[3];
+};
+
+template <int HD>
+constexpr int fwd_smem_bytes() {  // Q, two stages of K and of V, p
+  return (5 * Stage<HD>::kFloats + kTile * kLdP) * (int)sizeof(float);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_fwd_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ m, float* __restrict__ l,
+                             float* __restrict__ o, Layout lay, int Cq,
+                             int Ck, int H, Pos pos) {
+  using G = Stage<HD>;
+  constexpr int NC = G::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sK = sQ + G::kFloats;      // two stages
+  float* sV = sK + 2 * G::kFloats;  // two stages
+  float* sP = sV + 2 * G::kFloats;  // [64][kLdP]
+  // blocks start in index order, x fastest: every (h, b) of the longest
+  // query tiles first
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int ra = threadIdx.x >> 3;
+  const int cb = threadIdx.x & 7;
+  const int q0 = qt * kTile;
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  float m_run[4];
+  int degen = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    const bool valid = row < Cq;
+    m_run[i] = valid ? m[bh + row] : kNeg;
+    degen |= valid && degenerate(m_run[i]) && pos.causal &&
+             pos.q_off + row < pos.k_off;
+  }
+  degen = __syncthreads_or(degen);
+  // the key tiles visited: masked tiles come last (their keys are the
+  // latest), so a prefix
+  int n_vis = 0;
+  while (n_vis < n_kt &&
+         (degen || !all_masked(pos, q0, Cq, n_vis * kTile, kTile))) {
+    ++n_vis;
+  }
+  if (n_vis == 0) {
+    return;  // m' = m, a = 1, p = 0: the state stays as it is
+  }
+
+  load_tile<HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+  load_tile<HD>(sK, k, lay.t[1], b, h, 0, Ck);
+  load_tile<HD>(sV, v, lay.t[2], b, h, 0, Ck);
+  cp_async_commit();
+  float l_acc[4];
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l_acc[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c] = 0.0f;
+    }
+  }
+  for (int kt = 0; kt < n_vis; ++kt) {
+    cp_async_wait_all();
+    // tile kt is in place for every thread, and every thread is done
+    // with tile kt - 1's stage and with sP
+    __syncthreads();
+    if (kt + 1 < n_vis) {
+      const int st = (kt + 1) & 1;
+      load_tile<HD>(sK + st * G::kFloats, k, lay.t[1], b, h,
+                    (kt + 1) * kTile, Ck);
+      load_tile<HD>(sV + st * G::kFloats, v, lay.t[2], b, h,
+                    (kt + 1) * kTile, Ck);
+      cp_async_commit();
+    }
+    const int st = kt & 1;
+    const int k0 = kt * kTile;
+    float s[4][8];
+    scores<HD>(s, sQ, sK + st * G::kFloats, ra, cb);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ra + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + cb + 8 * j;
+        if (key >= Ck) {
+          s[i][j] = -INFINITY;
+        } else if (pos.causal && pos.q_off + row < pos.k_off + key) {
+          s[i][j] = kNeg;
+        } else {
+          s[i][j] = __fmul_rn(s[i][j], pos.scale);
+        }
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float mt = fmaxf(m_run[i], max8(mx));
+      const float corr = expf(__fsub_rn(m_run[i], mt));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = expf(__fsub_rn(s[i][j], mt));
+        sum += s[i][j];
+        sP[(ra + 16 * i) * kLdP + cb + 8 * j] = s[i][j];
+      }
+      l_acc[i] = __fadd_rn(__fmul_rn(l_acc[i], corr), sum8(sum));
+      m_run[i] = mt;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c] = __fmul_rn(acc[i][c], corr);
+      }
+    }
+    __syncthreads();  // sP in place
+    // the tile's p . V summed apart, then added: 64 adds a tile at the
+    // tile sum's magnitude and one at acc's, not every add at acc's (on
+    // an H100 over 1000 keys the state stays within 0.80 of
+    // RING_TOL["f32"] of the fold in f64, where the plain version's f32
+    // GEMM, which sums straight, lies up to 1.20x from it;
+    // causal_attention_ab.py)
+    float part[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        part[i][c] = 0.0f;
+      }
+    }
+    weights_v<HD>(part, sP, sV + st * G::kFloats, ra, cb);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        acc[i][c] = __fadd_rn(acc[i][c], part[i][c]);
+      }
+    }
+  }
+  // a = exp(m - m'), from m as it was: every owner of a row reads it
+  // before its first owner writes m'
+  float alpha[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    alpha[i] = row < Cq ? expf(__fsub_rn(m[bh + row], m_run[i])) : 0.0f;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    if (row >= Cq) {
+      continue;
+    }
+    if (cb == 0) {
+      m[bh + row] = m_run[i];
+      l[bh + row] = __fadd_rn(__fmul_rn(l[bh + row], alpha[i]), l_acc[i]);
+    }
+    // scalar accesses: o need not be 16-byte aligned
+    float* orow = o + (bh + row) * HD;
+#pragma unroll
+    for (int g = 0; g < NC / G::kGroup; ++g) {
+#pragma unroll
+      for (int e = 0; e < G::kGroup; ++e) {
+        const int c = G::kGroup * (cb + 8 * g) + e;
+        orow[c] = __fadd_rn(__fmul_rn(orow[c], alpha[i]),
+                            acc[i][G::kGroup * g + e]);
+      }
+    }
+  }
+}
+
+template <int HD>
+int fwd(const float* q, const float* k, const float* v, float* m, float* l,
+        float* o, const Layout& lay, int B, int Cq, int Ck, int H,
+        const Pos& pos, cudaStream_t stream) {
+  const int tiles = (Cq + kTile - 1) / kTile;
+  if ((long long)B * H > 0x7fffffffLL || tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int bytes = fwd_smem_bytes<HD>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      ring_fold_fwd_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  ring_fold_fwd_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
+                                 stream>>>(q, k, v, m, l, o, lay, Cq, Ck, H,
+                                           pos);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Called by trpc_ring_fold_fwd (ring_fold.cu) for f32 at hd 16, 64 or
+// 128, with its arguments less the dtype; the shape already checked.
+extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
+                                      const void* v, void* m, void* l,
+                                      void* o, const long long* strides,
+                                      int B, int Cq, int Ck, int H, int hd,
+                                      int q_off, int k_off, int causal,
+                                      float scale, void* stream) {
+  Layout lay{};
+  for (int i = 0; i < 3; ++i) {
+    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  const Pos pos{q_off, k_off, causal, scale};
+  const float* args[3] = {(const float*)q, (const float*)k, (const float*)v};
+  float* state[3] = {(float*)m, (float*)l, (float*)o};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return fwd<16>(args[0], args[1], args[2], state[0], state[1], state[2],
+                     lay, B, Cq, Ck, H, pos, st);
+    case 64:
+      return fwd<64>(args[0], args[1], args[2], state[0], state[1], state[2],
+                     lay, B, Cq, Ck, H, pos, st);
+    case 128:
+      return fwd<128>(args[0], args[1], args[2], state[0], state[1],
+                      state[2], lay, B, Cq, Ck, H, pos, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -4,8 +4,9 @@
 //
 // Counterpart: the same function as csrc/ring_fold.cu (the fold of
 // brpc_tpu/parallel/ring_attention.py:56-71, its jax.grad, and
-// `_dense_local` :125-133), whose C entries keep f32 and head dim 8, and
-// send every bf16 launch at head dims 16, 64 and 128 here.  Layout and
+// `_dense_local` :125-133), whose C entries send every bf16 launch at
+// head dims 16, 64 and 128 here (and the f32 forward there to
+// ring_fold_f32.cu).  Layout and
 // roundings are that file's:
 //   q, dO [B, Cq, H, hd] and k, v [B, Ck, H, hd] bf16, read through their
 //   (b, s, h) strides; m, l, lse, D [B, H, Cq] f32; o, dq [B, H, Cq, hd]

@@ -1,6 +1,7 @@
 """The ring-attention fold: the hand-written CUDA kernels
-(``csrc/ring_fold_sm90.cu`` on the tensor cores, ``csrc/ring_fold.cu``
-SIMT) and the plain PyTorch version beside each.
+(``csrc/ring_fold_sm90.cu`` on the tensor cores, ``csrc/ring_fold_f32.cu``
+on the CUDA cores, ``csrc/ring_fold.cu`` SIMT) and the plain PyTorch
+version beside each.
 
 Function (brpc_tpu/parallel/ring_attention.py:56-71, one ring step's fold
 of the held K/V block, and its jax.grad; Ulysses' local attention
@@ -29,9 +30,12 @@ Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
 own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` every
 kernel takes its products of bf16 values on the tensor cores (dq all
 three of them) and p's f32 products (p . f32(v), P^T . f32(dO)) as f32
-FMAs on the CUDA cores; f32 and head dim 8 run the SIMT kernels.  TMA
-reads the tensor-core kernels' inputs, so a bf16 view whose base or
-strides are not 16-byte multiples is copied first.  ``split_bf16x3`` models the
+FMAs on the CUDA cores.  In f32 at those head dims the forward is a
+one-pass kernel on the CUDA cores (register tiles, a cp.async ring), and
+dq and dk/dv are the SIMT kernels; head dim 8 runs the SIMT kernels in
+both dtypes.  TMA and cp.async copy 16 bytes at a time, so a view whose
+base or strides are not 16-byte multiples is copied first for the
+tensor-core kernels and the f32 forward.  ``split_bf16x3`` models the
 three-part bf16 split of p that was tried for p's products on the tensor
 cores.  Bound and design: the kernel sources' notes.
 """
@@ -192,12 +196,14 @@ def _check(q, k, v, do, rows, cols) -> None:
                          f"{q.device}")
 
 
-def _kernel_views(*ts):
+def _kernel_views(*ts, forward=False):
     """The tensors as the kernels read them: a contiguous last dim (the
-    other dims through their strides), and in bf16 at SM90_HEAD_DIMS what
-    TMA takes; anything else is copied."""
-    tma = ts[0].dtype == torch.bfloat16 and ts[0].shape[-1] in SM90_HEAD_DIMS
-    return [t if t.stride(-1) == 1 and (not tma or tma_ready(t))
+    other dims through their strides), and at SM90_HEAD_DIMS, in bf16 (TMA)
+    and in the f32 forward (cp.async), what ``tma_ready`` takes; anything
+    else is copied."""
+    aligned = ts[0].shape[-1] in SM90_HEAD_DIMS and (
+        forward or ts[0].dtype == torch.bfloat16)
+    return [t if t.stride(-1) == 1 and (not aligned or tma_ready(t))
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 
@@ -236,7 +242,7 @@ def ring_fold_forward(q, k, v, m, l, o, q_off: int, k_off: int,
     if q.device.type == "cpu":
         ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
         return True
-    q, k, v = _kernel_views(q, k, v)
+    q, k, v = _kernel_views(q, k, v, forward=True)
     _launch(_kernels().trpc_ring_fold_fwd, "ring_fold_fwd",
             [t.data_ptr() for t in (q, k, v, m, l, o)], _strides((q, k, v)),
             q, k.shape[1], q_off, k_off, causal, scale)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-r"""Other trees' causal_attention beside the checkout's, on one NVIDIA
-GPU: the bf16 forward, dq and dk/dv kernels, their wrappers' host time,
-and the f32 forward's time and accuracy.
+r"""Other trees' causal_attention and ring-fold kernels beside the
+checkout's, on one NVIDIA GPU: the bf16 forward, dq and dk/dv kernels,
+their wrappers' host time, the f32 forward's time and accuracy, and the
+times of the f32 dq and of the ring fold's f32 forward.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -28,7 +29,21 @@ reversed.  Each prints one JSON line:
   scale and a wide range (q, k x 2, v x 8; B=2, H=3, numpy seed 14),
   the largest |o - o64| of the kernel and of the plain version against
   o computed in f64 throughout, and the kernel's o against the plain
-  version as a share of ATTN_TOL["f32"].
+  version as a share of ATTN_TOL["f32"];
+* ``f32_dq``: the f32 dq's ``device_ms`` at ATTN_SHAPE;
+* ``f32_fold_fwd``: the ring fold's f32 forward's ``device_ms`` at
+  chip_smoke.py's RING_SHAPE (one causal diagonal block, a fresh state,
+  folded again at every call as chip_smoke.py times it);
+* ``sdpa_f32``: scaled_dot_product_attention(is_causal=True) in f32 at
+  ATTN_SHAPE, forward and forward+backward, ``device_ms`` (a yardstick of
+  time, the same library in every tree's process);
+* ``fold_f64_err``: the ring fold's f32 forward at head dims 16, 64 and
+  128 on a carried state (m ~ U(-1, 2), l ~ U(1, 4), o unit normal;
+  B=2, C=1000, H=3, q_off 1000, k_off 0, causal: every key seen) and
+  from a fresh state on a diagonal block (C=1024, offsets 0): the
+  largest |x - x64| / (atol + rtol |x64|) under RING_TOL["f32"] over m,
+  l and o of the kernel and of the plain version against the fold in
+  f64, and of the kernel against the plain version (numpy seed 17).
 
 Prints the card's nvidia-smi name and power limit first; exits non-zero
 if a tree's process failed.
@@ -106,6 +121,56 @@ def f64_errors(ca, cs) -> dict:
     return out
 
 
+def fold_f64_errors(rf, cs) -> dict:
+    """{case: [kernel vs f64, plain vs f64, kernel vs plain]}: shares of
+    RING_TOL["f32"], the largest over m, l and o."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = cs.RING_TOL["f32"]
+
+    def share(got, want):
+        return max(float(((a.double() - b.double()).abs() / (
+            tol["atol"] + tol["rtol"] * b.double().abs())).max())
+            for a, b in zip(got, want))
+    out = {}
+    for name, C, q_off, k_off, fresh in (("carried_c1000", 1000, 1000, 0,
+                                          False),
+                                         ("fresh_c1024", 1024, 0, 0, True)):
+        for hd in (16, 64, 128):
+            rng = np.random.default_rng(17)
+            q, k, v, o = (torch.from_numpy(rng.standard_normal(
+                shape).astype(np.float32)).to("cuda") for shape in (
+                    (2, C, 3, hd), (2, C, 3, hd), (2, C, 3, hd),
+                    (2, 3, C, hd)))
+            m = torch.from_numpy(rng.uniform(-1, 2, (2, 3, C)).astype(
+                np.float32)).to("cuda")
+            l = torch.from_numpy(rng.uniform(1, 4, (2, 3, C)).astype(
+                np.float32)).to("cuda")
+            if fresh:
+                m, l, o = m.fill_(-1e30), l.zero_(), o.zero_()
+            scale = hd ** -0.5
+            kern = [t.clone() for t in (m, l, o)]
+            rf.ring_fold_forward(q, k, v, *kern, q_off, k_off, True, scale)
+            plain = [t.clone() for t in (m, l, o)]
+            rf.ring_fold_plain(q, k, v, *plain, q_off, k_off, True, scale)
+            s = torch.einsum("bchk,bdhk->bhcd", q.double(),
+                             k.double()) * scale
+            qpos = q_off + torch.arange(C, device="cuda")
+            kpos = k_off + torch.arange(C, device="cuda")
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+            m64 = torch.maximum(m.double(), s.amax(-1))
+            p = torch.exp(s - m64[..., None])
+            a = torch.exp(m.double() - m64)
+            exact = [m64, l.double() * a + p.sum(-1),
+                     o.double() * a[..., None] + torch.einsum(
+                         "bhcd,bdhk->bhck", p, v.double())]
+            out[f"{name}_hd{hd}"] = [share(kern, exact),
+                                     share(plain, exact),
+                                     share(kern, plain)]
+    return out
+
+
 def measure(tree: str) -> None:
     sys.path.insert(0, tree)
     import torch
@@ -163,13 +228,34 @@ def measure(tree: str) -> None:
             *dq_args)),
         "c_entry_dkdv": host_us(lambda: lib.trpc_causal_attention_bwd_dkdv(
             *dkdv_args))}
-    q, k, v = (torch.randn(*cs.ATTN_SHAPE, generator=g, device="cuda")
-               for _ in range(3))
+    q, k, v, do = (torch.randn(*cs.ATTN_SHAPE, generator=g, device="cuda")
+                   for _ in range(4))
+    _, lse = ca.causal_attention_forward(q, k, v)
     f32 = {"device_ms": cs.device_ms(
         lambda: ca.causal_attention_forward(q, k, v), flush),
         "f64_err": f64_errors(ca, cs)}
+    f32_dq = cs.device_ms(
+        lambda: ca.causal_attention_backward_dq(q, k, v, do, lse), flush)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def sdpa(*a):
+        return torch.nn.functional.scaled_dot_product_attention(
+            *(x.transpose(1, 2) for x in a), is_causal=True).transpose(1, 2)
+
+    sdpa_f32 = {"fwd": cs.device_ms(lambda: sdpa(q, k, v), flush),
+                "fwd_bwd": cs.device_ms(lambda: torch.autograd.grad(
+                    sdpa(*leaves), leaves, do), flush)}
+    rf = importlib.import_module("brpc_tpu_torch.ops.ring_fold")
+    (fq, fk, fv, _), state = cs._fold_inputs(g, cs.RING_SHAPE, torch.float32,
+                                             True)
+    scale = cs.RING_SHAPE[3] ** -0.5
+    fold = cs.device_ms(lambda: rf.ring_fold_forward(
+        fq, fk, fv, *state, 0, 0, True, scale), flush)
     print(json.dumps({"tree": tree, "device_ms": device,
-                      "prefill_host_us": host, "f32_fwd": f32}), flush=True)
+                      "prefill_host_us": host, "f32_fwd": f32,
+                      "f32_dq": f32_dq, "f32_fold_fwd": fold,
+                      "sdpa_f32": sdpa_f32,
+                      "fold_f64_err": fold_f64_errors(rf, cs)}), flush=True)
 
 
 def main(argv) -> int:

@@ -1,5 +1,5 @@
 """Causal attention of the port (brpc_tpu_torch/ops/causal_attention.py,
-csrc/causal_attention.cu) against the reference's jnp fragment
+csrc/causal_attention*.cu) against the reference's jnp fragment
 (brpc_tpu/models/transformer.py:198-203) and against its own kernels.
 
 On the CPU:
@@ -44,9 +44,11 @@ three kernels at head dims 16, 64 and 128, S from 1 to 1024 (tile edges
 the same inputs; strided (fused-projection) q, k, v, a transposed dO
 and an unaligned view in bf16; two dk/dv calls bit-equal; the one-pass
 f32 forward's o and lse at S = 1000 and 1024 (at a wider range against
-an f64 reference, as near to it as the plain version); and the dtype
-dispatch (bf16 on the tensor cores, f32 on the one-pass forward and the
-SIMT dq and dk/dv) read from the device's kernel names.  They skip
+an f64 reference, as near to it as the plain version); an unaligned f32
+view copied for the f32 forward's and dq's cp.async, bit-equal, and dq
+twice to the same bits; and the dtype dispatch (bf16 on the tensor
+cores, f32 on the CUDA-core forward and dq and the SIMT dk/dv) read
+from the device's kernel names.  They skip
 without a card and run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
 (this file imports jax only inside its CPU legs).
@@ -138,8 +140,8 @@ TILE = 64    # query and key rows of a tile in the kernels
 def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
                  untransposed_mask=False):
     """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16;
-    for f32 the one-pass forward of csrc/causal_attention_f32.cu and the
-    SIMT dq and dk/dv of csrc/causal_attention.cu) on tensors, in their
+    for f32 the one-pass forward and the dq of csrc/causal_attention_f32.cu
+    and the SIMT dk/dv of csrc/causal_attention.cu) on tensors, in their
     order of work over 64-row tiles: (o, dq, dk, dv) as f32.
 
     Forward in bf16, two passes: the online row max and sum (m, l) over
@@ -520,8 +522,10 @@ def test_dkdv_kernel_is_deterministic(hd):
 def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     """The dtype dispatch, read from the device's own kernel names under
     torch.profiler: bf16 forward, dq and dk/dv launch the wgmma kernels
-    and no SIMT kernel; f32 launches the one-pass forward
-    (causal_fwd_f32_kernel), the SIMT dq and dk/dv, and no wgmma one."""
+    and no SIMT kernel; f32 launches the CUDA-core forward and dq
+    (causal_fwd_f32_kernel, causal_dq_f32_kernel), the SIMT dk/dv, and
+    no wgmma one; no dtype launches the SIMT dq (causal_dq_kernel), which
+    is gone."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     arrays = _draw(16, 1, 130, 2, 64)
@@ -542,7 +546,9 @@ def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     assert not has("bf16", "causal_dkdv_kernel")
     assert not has("bf16", "causal_fwd_f32_kernel")
     assert has("f32", "causal_fwd_f32_kernel")
-    assert has("f32", "causal_dq_kernel") and has("f32", "causal_dkdv_kernel")
+    assert has("f32", "causal_dq_f32_kernel")
+    assert has("f32", "causal_dkdv_kernel")
+    assert not has("f32", "causal_dq_kernel")
     assert not has("f32", "causal_fwd_kernel")
     assert not has("f32", "_sm90")
 
@@ -630,6 +636,39 @@ def test_f32_forward_copies_an_unaligned_view():
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+def test_f32_dq_copies_an_unaligned_view_and_repeats_its_bits(hd):
+    """The f32 dq kernel: a k and a dO whose bases are off 16 bytes (its
+    16-byte cp.async copies) are copied by the wrapper, giving the bits
+    of contiguous ones; a second run gives the same bits; and dq and D
+    are within CARD_TOL of the plain version's dq and of sum_t p dW."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _draw(19, 2, 1000, 3, hd)
+    q, k, v, do = (torch.from_numpy(a).to("cuda") for a in arrays)
+    _, lse = causal_attention_forward(q, k, v)
+    odd = []
+    for t in (k, do):
+        flat = torch.empty(t.numel() + 1, device="cuda")
+        odd.append(flat[1:].view(t.shape))           # base off by 4 bytes
+        odd[-1].copy_(t)
+    got = [causal_attention_backward_dq(q, odd[0], v, odd[1], lse)]
+    got += [causal_attention_backward_dq(q, k, v, do, lse) for _ in range(2)]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_dq, = torch.autograd.grad(causal_attention_plain(*leaves), leaves[0],
+                                   do)
+    p = torch.exp(torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
+                  - lse[..., None]).tril()
+    want_delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
+    torch.cuda.synchronize()
+    for a, b, c in zip(*got):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    torch.testing.assert_close(got[0][0], want_dq, **CARD_TOL[torch.float32])
+    torch.testing.assert_close(got[0][1], want_delta,
+                               **CARD_TOL[torch.float32])
 
 
 @pytest.mark.cuda

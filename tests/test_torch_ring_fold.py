@@ -1,5 +1,5 @@
 """The ring-attention fold of the port (brpc_tpu_torch/ops/ring_fold.py,
-csrc/ring_fold.cu) against the reference's jnp fold
+csrc/ring_fold*.cu) against the reference's jnp fold
 (brpc_tpu/parallel/ring_attention.py:56-71, `_dense_local` :125-133) and
 against its own kernels.
 
@@ -15,16 +15,22 @@ On the CPU:
   autograd against ``jax.vjp`` of ``_dense_local``: f32 within 1e-5
   forward and backward; bf16 bit-equal but for rare one-step flips.
 * ``fold_model``, the kernels' arithmetic written in torch in their order
-  of work (64-row query tiles, 64-key tiles; the forward's two passes,
-  the block's row max then p, its sum and p . V; a tile pair with every
-  query before every key skipped unless a row of the tile has seen no
-  key; dq per query tile, summed over its key tiles and added to the
-  carried dq once, dk/dv per key tile over query tiles), against
-  the plain version within ``CARD_TOL`` (in bf16 all but a few flipped
-  elements, within ``FLIP_TOL``), the tolerance the card legs and
-  chip_smoke.py hold the kernels to.  Control: the same model skipping
-  masked tile pairs unconditionally leaves it on a block whose first
-  rows have seen no key (the reference weighs their masked scores by 1).
+  of work (64-row query tiles, 64-key tiles; the forward in bf16 and at
+  hd 8 in two passes, the block's row max then p, its sum and p . V; in
+  f32 in one pass from the carried m, the sum and p . V rescaled as the
+  running max rises; a tile pair with every query before every key
+  skipped unless a row of the tile has seen no key, decided in one pass
+  before the loop from m and positions; dq per query tile, summed over
+  its key tiles and added to the carried dq once, dk/dv per key tile
+  over query tiles), against the plain version within ``CARD_TOL`` (in
+  bf16 all but a few flipped elements, within ``FLIP_TOL``), the
+  tolerance the card legs and chip_smoke.py hold the kernels to.  The
+  one-pass order also over 1024 keys against the plain version and the
+  jnp fold (a fresh state, a carried one, an off-diagonal block), and
+  its up-front rule against the two-pass rule's decision.  Control: the
+  same model skipping masked tile pairs unconditionally leaves it on a
+  block whose first rows have seen no key (the reference weighs their
+  masked scores by 1), in either order.
 * ``split_bf16x3``, the split of p into three bf16 parts (of p 2^32)
   for its products on the tensor cores: their sum is p exactly for
   every f32 p in [0, 1] (a split of p itself loses bits below 2^-109),
@@ -39,10 +45,12 @@ The ``cuda``-marked legs run on the card: the three kernels against the
 plain version at head dims 8, 16, 64 and 128, bf16 and f32, ragged
 blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
 to contiguous ones; two runs bit-equal; an unaligned bf16 view copied
-for TMA, bit-equal; the wholly future block with no launch; no fallback
+for TMA, and an unaligned f32 view copied for the f32 forward's
+cp.async, bit-equal; the wholly future block with no launch; no fallback
 (a head dim the kernels lack raises); the route under torch.profiler
 (bf16 at hd 16, 64 and 128: the tensor-core forward, dq and dk/dv; f32
-and bf16 at hd 8: the SIMT kernels); dq added into a carried dq; and
+there: the one-pass CUDA-core forward, the SIMT dq and dk/dv; hd 8 in
+both dtypes: the SIMT kernels); dq added into a carried dq; and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
@@ -155,6 +163,21 @@ def test_plain_fold_matches_the_jnp_fold(Cq, Ck, q_off, k_off, causal,
     _close((m, l, o), want, dtype)
 
 
+def _f64_fold(q, k, v, m, l, o, q_off, k_off, causal, scale):
+    """The fold of ring_fold_plain in f64 throughout: new (m, l, o)."""
+    q, k, v, m, l, o = (t.double() for t in (q, k, v, m, l, o))
+    s = torch.einsum("bchk,bdhk->bhcd", q, k) * scale
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k.shape[1], device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    return (m_new, l * alpha + p.sum(-1),
+            o * alpha[..., None] + torch.einsum("bhcd,bdhk->bhck", p, v))
+
+
 def _jnp_dense_local(q, k, v, causal, scale):
     """ring_attention.py:125-133."""
     import jax
@@ -233,13 +256,43 @@ def _degenerate(x):
     return bool((torch.exp(NEG - x) != 0).any())
 
 
+def _pass1_max(qf, kf, m_old, q0, nq, tiles, q_off, k_off, causal, scale,
+               dtype):
+    """The two-pass forward's first pass: max(m, the block's row max over
+    `tiles`)."""
+    m_new = torch.full_like(m_old, -math.inf)
+    for k0 in tiles:
+        s = _tile_scores(qf, kf, q0, k0, nq, min(TILE, kf.shape[1] - k0),
+                         q_off, k_off, causal, scale, dtype)
+        m_new = torch.maximum(m_new, s.amax(-1))
+    return torch.maximum(m_old, m_new)
+
+
+def _degenerate_up_front(m_old, q0, q_off, k_off, causal):
+    """The one-pass forward's rule, decided before its loop, per (b, h):
+    some row of the tile has a degenerate m and (causal) sees no key of
+    the block, q_off + row < k_off."""
+    rows = q_off + torch.arange(q0, q0 + m_old.shape[-1])
+    sees_none = causal & (rows < k_off)
+    return ((torch.exp(NEG - m_old) != 0) & sees_none).any(-1)
+
+
 def fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale,
-               skip_always=False):
-    """csrc/ring_fold.cu's forward: per 64-row query tile, pass 1 the
-    block's row max over the unmasked key tiles, pass 2 p, its sum and
-    p . V over the same tiles (every tile if a row has seen no key), then
-    the update once.  Returns new (m, l, o)."""
+               skip_always=False, one_pass=None):
+    """The fold kernels' forward in their order of work, per 64-row query
+    tile over the key tiles that are not wholly masked (every tile if a
+    row of the tile has seen no key and sees none of the block), then the
+    update (m', l a + sum, o a + acc) once, a = exp(m - m').  Two passes
+    (csrc/ring_fold.cu, csrc/ring_fold_sm90.cu): the block's row max m',
+    then p = exp(s - m'), its sum and p . V, the rule read from m'.  One
+    pass (``one_pass``; csrc/ring_fold_f32.cu): the rule decided up front
+    from m and positions; per key tile m_t = max(m_run, tile max) from
+    m_run = m, c = exp(m_run - m_t), sum = sum c + sum exp(s - m_t), acc
+    = acc c + exp(s - m_t) . V.  None: one pass in f32 but at head dim 8,
+    as the kernels.  Returns new (m, l, o)."""
     dtype, (Cq, Ck) = q.dtype, (q.shape[1], k.shape[1])
+    if one_pass is None:
+        one_pass = dtype == torch.float32 and q.shape[-1] != 8
     qf, kf, vf = q.float(), k.float(), v.float()
     m, l, o = m.clone(), l.clone(), o.clone()
     for q0 in range(0, Cq, TILE):
@@ -247,24 +300,33 @@ def fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale,
         tiles = [k0 for k0 in range(0, Ck, TILE)
                  if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
         m_old = m[:, :, q0:q0 + nq].clone()
-        m_new = torch.full_like(m_old, -math.inf)
-        for k0 in tiles:
-            s = _tile_scores(qf, kf, q0, k0, nq, min(TILE, Ck - k0), q_off,
-                             k_off, causal, scale, dtype)
-            m_new = torch.maximum(m_new, s.amax(-1))
-        m_new = torch.maximum(m_old, m_new)
-        if _degenerate(m_new) and not skip_always:
+        if one_pass:
+            degen = bool(_degenerate_up_front(m_old, q0, q_off, k_off,
+                                              causal).any())
+        else:
+            m_new = _pass1_max(qf, kf, m_old, q0, nq, tiles, q_off, k_off,
+                               causal, scale, dtype)
+            degen = _degenerate(m_new)
+        if degen and not skip_always:
             tiles = list(range(0, Ck, TILE))
+        m_run = m_old.clone()
         total = torch.zeros_like(m_old)
         acc = torch.zeros_like(o[:, :, q0:q0 + nq])
         for k0 in tiles:
             nk = min(TILE, Ck - k0)
             s = _tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off, causal,
                              scale, dtype)
+            if one_pass:
+                m_new = torch.maximum(m_run, s.amax(-1))
+                corr = torch.exp(m_run - m_new)
+                total, acc = total * corr, acc * corr[..., None]
+                m_run = m_new
             p = torch.exp(s - m_new[..., None])
             total = total + p.sum(-1)
             acc = acc + torch.einsum("bhcd,bdhk->bhck", p,
                                      vf[:, k0:k0 + nk])
+        if one_pass:
+            m_new = m_run
         alpha = torch.exp(m_old - m_new)
         l[:, :, q0:q0 + nq] = l[:, :, q0:q0 + nq] * alpha + total
         o[:, :, q0:q0 + nq] = o[:, :, q0:q0 + nq] * alpha[..., None] + acc
@@ -400,10 +462,12 @@ def test_dq_model_adds_the_block_to_a_carried_dq(Cq, Ck, q_off, k_off,
     _close([got], [want], dtype)
 
 
-def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
+@pytest.mark.parametrize("one_pass", [True, False],
+                         ids=["one_pass", "two_pass"])
+def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block(one_pass):
     """Rows 0..63 at q_off 0 see no key at k_off 64: from m = -1e30 the
     reference weighs their masked scores by exp(0) = 1, so the masked
-    tile pairs cannot be skipped there."""
+    tile pairs cannot be skipped there (in either order of work)."""
     q, k, v, _, m, l, o = _block(9, 1, 128, 128, 2, 16, torch.float32)
     m.fill_(NEG)
     l.zero_()
@@ -411,11 +475,75 @@ def test_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
     want = [t.clone() for t in (m, l, o)]
     ring_fold_plain(q, k, v, *want, 0, 64, True, 0.25)
     assert float(want[1][:, :, :64].min()) == 128.0    # p = 1 on every key
-    _close(fold_model(q, k, v, m, l, o, 0, 64, True, 0.25), want,
-           torch.float32)
-    bad = fold_model(q, k, v, m, l, o, 0, 64, True, 0.25, skip_always=True)
+    _close(fold_model(q, k, v, m, l, o, 0, 64, True, 0.25,
+                      one_pass=one_pass), want, torch.float32)
+    bad = fold_model(q, k, v, m, l, o, 0, 64, True, 0.25, skip_always=True,
+                     one_pass=one_pass)
     with pytest.raises(AssertionError):
         _close(bad, want, torch.float32)
+
+
+@pytest.mark.parametrize("fresh", [False, True], ids=["carried", "fresh"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_up_front_degenerate_rule_is_the_two_pass_rule(Cq, Ck, q_off, k_off,
+                                                       causal, fresh):
+    """The one-pass forward decides before its loop, from m and
+    positions, whether a query tile must visit every key tile; the
+    two-pass forward decided it from m' after its first pass.  Per (b, h,
+    query tile) the decisions agree, on a state from an earlier fold and
+    on a fresh one (m = -1e30), where a block whose first rows see no key
+    makes them true."""
+    q, k, _, _, m, _, _ = _block(47, 2, Cq, Ck, 2, 16, torch.float32)
+    if fresh:
+        m.fill_(NEG)
+    qf, kf = q.float(), k.float()
+    decided = []
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        tiles = [k0 for k0 in range(0, Ck, TILE)
+                 if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
+        m_old = m[:, :, q0:q0 + nq]
+        m_new = _pass1_max(qf, kf, m_old, q0, nq, tiles, q_off, k_off,
+                           causal, 0.25, torch.float32)
+        after = (torch.exp(NEG - m_new) != 0).any(-1)
+        up_front = _degenerate_up_front(m_old, q0, q_off, k_off, causal)
+        assert torch.equal(up_front, after), (q0, up_front, after)
+        decided.append(bool(after.any()))
+    sees_none = causal and q_off < k_off
+    assert any(decided) == (fresh and sees_none), decided
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_one_pass_f32_fold_holds_plain_and_jnp_over_1024_keys(case):
+    """The one-pass order of the f32 forward against ring_fold_plain and
+    the reference's jnp fold, within CARD_TOL, at C = 1024 (16 key tiles,
+    so the running max rises past the first tile in many rows): a ring's
+    first, diagonal block from a fresh state; the diagonal block of a
+    state carried from an earlier fold (the past block at k_off 0); and
+    an off-diagonal block on a state from an earlier fold."""
+    import jax.numpy as jnp
+    C, hd = 1024, 64
+    q, k, v, _, m, l, o = _block(49, 1, C, C, 2, hd, torch.float32)
+    scale = 1.0 / math.sqrt(hd)
+    q_off, k_off = {"fresh": (0, 0), "carried": (C, C),
+                    "off_diagonal": (C, 0)}[case]
+    if case != "off_diagonal":
+        m, l, o = _fresh(m, l, o)
+    if case == "carried":
+        k0, v0, _ = _draw(51, (1, C, 2, hd), (1, C, 2, hd), (1,))
+        ring_fold_plain(q, torch.from_numpy(k0), torch.from_numpy(v0), m, l,
+                        o, C, 0, True, scale)
+    want = [t.clone() for t in (m, l, o)]
+    ring_fold_plain(q, k, v, *want, q_off, k_off, True, scale)
+    jnp_want = _jnp_fold(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                         *(jnp.array(t.numpy()) for t in (m, l, o)),
+                         q_off, k_off, True, scale)
+    got = fold_model(q, k, v, m, l, o, q_off, k_off, True, scale)
+    _close(got, want, torch.float32)
+    _close(got, [torch.from_numpy(np.array(w)) for w in jnp_want],
+           torch.float32)
+    assert not torch.equal(got[2], want[2])    # another order of sums
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +704,17 @@ def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
     assert [w.launches for w in (ring_fold_forward, ring_fold_backward_dq,
                                  ring_fold_backward_dkdv)] == \
         [n + 1 for n in before]
-    _close(got + [dq, dk, dv], want, dtype)
+    if dtype == torch.float32:
+        # the f32 forward's order of sums is not the plain version's f32
+        # GEMM's, and over 1000 keys that GEMM is itself up to 1.20x
+        # CARD_TOL from the exact fold (causal_attention_ab.py on an
+        # H100): the state is held to the fold in f64 instead, within the
+        # same tolerance
+        _close(got, _f64_fold(q, k, v, m, l, o, q_off, k_off, causal, scale),
+               dtype)
+        _close([dq, dk, dv], want[3:], dtype)
+    else:
+        _close(got + [dq, dk, dv], want, dtype)
 
 
 @pytest.mark.cuda
@@ -697,7 +835,9 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
 def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     """The route, read from the device's kernel names under
     torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
-    forward, dq and dk/dv; f32, and bf16 at hd 8, the SIMT kernels."""
+    forward, dq and dk/dv; f32 there the one-pass CUDA-core forward
+    (ring_fold_fwd_f32_kernel) and the SIMT dq and dk/dv; hd 8 in both
+    dtypes the SIMT kernels."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -705,6 +845,9 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
                             ("bf16_hd16", torch.bfloat16, 16),
                             ("bf16_hd128", torch.bfloat16, 128),
                             ("f32", torch.float32, 64),
+                            ("f32_hd16", torch.float32, 16),
+                            ("f32_hd128", torch.float32, 128),
+                            ("f32_hd8", torch.float32, 8),
                             ("bf16_hd8", torch.bfloat16, 8)):
         q, k, v, do, m, l, o = _block(35, 1, 130, 130, 2, hd, dtype, "cuda")
         lse, delta = _lse_delta(m, l, o, do)
@@ -723,9 +866,41 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
             "ring_fold_fwd_sm90_kernel"]
     assert names["bf16"] == names["bf16_hd16"] == names["bf16_hd128"] == \
         sm90, names
+    f32 = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+           "ring_fold_fwd_f32_kernel"]
+    assert names["f32"] == names["f32_hd16"] == names["f32_hd128"] == f32, \
+        names
     simt = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
             "ring_fold_fwd_kernel"]
-    assert names["f32"] == simt and names["bf16_hd8"] == simt, names
+    assert names["f32_hd8"] == simt and names["bf16_hd8"] == simt, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (16, 64, 128))
+def test_f32_forward_copies_an_unaligned_view_and_repeats_its_bits(hd):
+    """An f32 k whose base is off 16 bytes (the rule of the f32 forward's
+    16-byte cp.async copies) is copied by the wrapper: m, l and o are the
+    bits of a contiguous k, and a second run gives the same bits; on a
+    carried state, a fresh one, and a block whose first rows see no key."""
+    _card()
+    for q_off, k_off, fresh in ((130, 130, False), (130, 130, True),
+                                (0, 64, True)):
+        q, k, v, do, m, l, o = _block(53, 2, 130, 130, 3, hd, torch.float32,
+                                      "cuda")
+        if fresh:
+            m, l, o = _fresh(m, l, o)
+        flat = torch.empty(k.numel() + 1, device="cuda")
+        k_odd = flat[1:].view(k.shape)               # base off by 4 bytes
+        k_odd.copy_(k)
+        outs = []
+        for kk in (k_odd, k, k):
+            state = [t.clone() for t in (m, l, o)]
+            ring_fold_forward(q, kk, v, *state, q_off, k_off, True,
+                              hd ** -0.5)
+            outs.append(state)
+        torch.cuda.synchronize()
+        for a, b, c in zip(*outs):
+            assert torch.equal(a, b) and torch.equal(b, c)
 
 
 @pytest.mark.cuda
