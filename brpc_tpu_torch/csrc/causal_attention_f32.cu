@@ -1,18 +1,17 @@
 // causal_attention_f32.cu — causal attention in f32 on the CUDA cores:
-// the forward in one pass over the keys, and the backward's dq (with the
-// row sums D the dk/dv kernel reads); register tiles fed by 16-byte
-// shared-memory reads, a two-stage cp.async ring for K and V (the
-// machinery of f32_tile.cuh).
+// the forward in one pass over the keys, the backward's dq (with the row
+// sums D that dk/dv reads) and dk/dv; register tiles fed by 16-byte
+// shared-memory reads, cp.async copies (the machinery of f32_tile.cuh).
 //
-// Counterpart: the f32 forward and dq of csrc/causal_attention.cu's
-// function (the gather branch of brpc_tpu/models/transformer.py:197-203,
-// its jax.grad, and prefill, brpc_tpu/models/decode.py:126-131), which
-// every f32 launch of trpc_causal_attention_fwd and _bwd_dq reaches; the
-// f32 dk/dv kernel there reads this file's lse and D unchanged.  Layout:
+// Counterpart: the f32 launches of csrc/causal_attention.cu's function
+// (the gather branch of brpc_tpu/models/transformer.py:197-203, its
+// jax.grad, and prefill, brpc_tpu/models/decode.py:126-131), which every
+// f32 launch of trpc_causal_attention_fwd, _bwd_dq and _bwd_dkdv reaches.
+// Layout:
 //   q, k, v, dO [B, S, H, hd] f32, read through their (b, s, h) strides
 //   (the last dim contiguous; base and strides 16-byte multiples, which
 //   the wrapper ensures by copying any other view)
-//   o, dq [B, S, H, hd] f32 contiguous; lse, D [B, H, S] f32
+//   o, dq, dk, dv [B, S, H, hd] f32 contiguous; lse, D [B, H, S] f32
 // Function, with T = f32 (every rounding to the working type is the
 // identity):
 //   s  = f32(q . k) / sqrt(hd), -inf above the diagonal
@@ -20,6 +19,7 @@
 //   p  = exp(s - lse)   dW = dO . v   D = sum_t p dW (exactly as the
 //   reference's jax.grad of its softmax; not the rowsum(dO * o) stand-in)
 //   dS = p (dW - D) / sqrt(hd)    dq = sum_t dS k
+//   dk = sum_s dS q               dv = sum_s p dO
 // In f32 the weights are not rounded before their product, so nothing
 // forces the two passes the bf16 kernels make: one pass keeps the online
 // (m, l) and rescales the accumulator, o_acc = o_acc exp(m_old - m) +
@@ -27,10 +27,13 @@
 // order stays as close to the plain softmax-then-product as the plain
 // version is to exact arithmetic (tests/test_torch_causal_attention.py,
 // the one-pass f32 legs at S = 1024).  dq keeps the SIMT kernel's order
-// of work per tile: D summed over a row's key tiles first, then dS.  The
-// division by sqrt(hd) stays exact: a multiplication by 1 / sqrt(hd)
-// where that is a power of two (hd 16, 64), a correctly rounded division
-// otherwise.
+// of work per tile: D summed over a row's key tiles first, then dS.
+// dk/dv computes each score, p and dS as the row-major kernels do (the
+// same bits) and sums dk and dv over the queries in order, straight into
+// the accumulator, as the SIMT kernel it replaced did: the same bits as
+// it.  The division by sqrt(hd) stays exact: a multiplication by
+// 1 / sqrt(hd) where that is a power of two (hd 16, 64), a correctly
+// rounded division otherwise.
 //
 // Bound on an H100 (B=8, S=1024, H=8, hd=64): operations.  The forward's
 // two products over the causal half are 8.6 GFLOP, 128.3 us at the CUDA
@@ -39,14 +42,17 @@
 // PERF.md, Findings); its 67 MB of traffic take 20 us.  dq's function
 // needs three products (q.k, dO.v, dS.k: 192.5 us); taking D exactly
 // from p and dW before any dS costs the kernel a second pass over q.k
-// and dO.v, five products, 321 us at that rate.  Besides the products,
-// each score costs one exponential a pass.
+// and dO.v, five products, 321 us at that rate.  dk/dv's four products
+// (q.k, dO.v, p.dO, dS.q: 17.2 GFLOP) take 256.7 us at that rate.
+// Besides the products, each score costs one exponential a pass.
 //
 // Design:
-//  - One block of 128 threads (4 warps) per (64-row query tile, h, b),
-//    the longest query tiles first; key tiles 0..qt in order, only the
-//    diagonal tile masked.  Each thread owns 4 rows (f32_tile.cuh): a
-//    4 x 8 register tile of each score tile, hd / 8 accumulator columns.
+//  - One block of 128 threads (4 warps) per (64-row query tile, h, b)
+//    (dk/dv: per 64-row key tile), the longest tiles first; the forward
+//    and dq visit key tiles 0..qt in order, dk/dv query tiles kt..end,
+//    only the diagonal tile masked.  Each thread owns 4 rows
+//    (f32_tile.cuh): a 4 x 8 register tile of each score tile, hd / 8
+//    accumulator columns.
 //  - Forward: Q resident, K and V through the ring, p staged at stride
 //    72 for p . V; Q, two stages of K and V, p: 103 KB at hd 64, two
 //    blocks an SM.
@@ -60,6 +66,19 @@
 //    dq_acc += dS . K.  A V stage is max(64 (hd + 4), 64 x 72) floats,
 //    so Q, dO, two stages of K and V are 104 KB at hd 64: two blocks an
 //    SM, as the forward.
+//  - dk/dv: transposed tiles, rows keys and columns queries.  K and V
+//    resident; per query tile one stage of Q and dO and its lse and D
+//    (load_stats), then S^T = K . Q^T (scores: fmaf commutes and the
+//    depth order is the forward's, so each score is its bit), P^T staged
+//    at stride 72, dW^T = V . dO^T, dS^T from the thread's own staged p,
+//    staged beside it; dv += P^T . dO and dk += dS^T . Q (weights_v).
+//    Only one 4 x 8 tile is live beside the two accumulators, which
+//    keeps hd 128 clear of a spill.  K, V, Q, dO, P^T, dS^T: 104.5 KB at
+//    hd 64, two blocks an SM: the other block computes while one waits
+//    for its query tile (one block an SM at hd 128).  A two-stage
+//    cp.async ring of Q and dO fits only one block an SM at hd 64, and
+//    ran 0.70 ms against this layout's 0.57 on an H100 (PERF.md,
+//    Findings).
 //  - No atomics: each block writes its own rows, so two runs give the
 //    same bits.
 //
@@ -365,6 +384,137 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int HD>
+constexpr int dkdv_smem_bytes() {  // K, V, Q, dO, P^T, dS^T, lse, D
+  return (4 * Stage<HD>::kFloats + 2 * kTile * kLdP + 2 * kTile) *
+         (int)sizeof(float);
+}
+
+// dk and dv for one key tile, over query tiles kt..end on transposed
+// tiles: rows keys ra + 16 i, columns queries cb + 8 j.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    causal_dkdv_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           Layout lay, int S, int H, float sqrt_hd) {
+  using G = Stage<HD>;
+  constexpr int NC = G::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + G::kFloats;
+  float* sQ = sV + G::kFloats;
+  float* sDO = sQ + G::kFloats;
+  float* sPT = sDO + G::kFloats;     // [64][kLdP]: P^T, rows keys
+  float* sDST = sPT + kTile * kLdP;  // [64][kLdP]: dS^T
+  float* sL = sDST + kTile * kLdP;   // [64]: lse of the query tile
+  float* sD = sL + kTile;            // [64]: D of the query tile
+  // blocks start in index order, x fastest: every (h, b) of key tile 0,
+  // which visits every query tile, first
+  const int kt = (int)blockIdx.y;
+  const int n_qt = (int)gridDim.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int ra = threadIdx.x >> 3;
+  const int cb = threadIdx.x & 7;
+  const int k0 = kt * kTile;
+  const float inv = __frcp_rn(sqrt_hd);
+  const long long bh = ((long long)b * H + h) * S;
+
+  // K and V resident; committed with the first query tile's copies
+  load_tile<HD>(sK, k, lay.t[1], b, h, k0, S);
+  load_tile<HD>(sV, v, lay.t[2], b, h, k0, S);
+  float acc_k[4][NC];
+  float acc_v[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc_k[i][c] = 0.0f;
+      acc_v[i][c] = 0.0f;
+    }
+  }
+  for (int qt = kt; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // every thread is done with the last query tile
+    load_tile<HD>(sQ, q, lay.t[0], b, h, q0, S);
+    load_tile<HD>(sDO, dout, lay.t[3], b, h, q0, S);
+    load_stats(sL, sD, lse + bh, delta + bh, q0, S);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the query tile in place for every thread
+    const bool diagonal = qt == kt;
+    float t[4][8];
+    scores<HD>(t, sK, sQ, ra, cb);  // S^T = K . Q^T, the scores' bits
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = cb + 8 * j;
+        const float x =
+            kPow2<HD> ? t[i][j] * inv : div_rn(t[i][j], sqrt_hd, inv);
+        // a key t sees the queries s >= t; lse = +inf past S: p = 0
+        sPT[(ra + 16 * i) * kLdP + c] =
+            diagonal && ra + 16 * i > c
+                ? 0.0f
+                : expf(__fsub_rn(x, col_lse(sL, q0, S, c)));
+      }
+    }
+    // a compiler fence: p is read back from shared memory below, not
+    // kept in 32 registers across the next product
+    asm volatile("" ::: "memory");
+    scores<HD>(t, sV, sDO, ra, cb);  // dW^T = V . dO^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int at = (ra + 16 * i) * kLdP + cb + 8 * j;
+        const float ds = sPT[at] * (t[i][j] - sD[cb + 8 * j]);  // its own p
+        sDST[at] = kPow2<HD> ? ds * inv : div_rn(ds, sqrt_hd, inv);
+      }
+    }
+    __syncthreads();  // P^T and dS^T in place
+    // dv += P^T . dO, dk += dS^T . Q, summed over the queries in order
+    weights_v<HD>(acc_v, sPT, sDO, ra, cb);
+    weights_v<HD>(acc_k, sDST, sQ, ra, cb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ra + 16 * i;
+    if (key < S) {
+      const long long at = (((long long)b * S + key) * H + h) * HD;
+      store_cols<HD>(dk + at, acc_k[i], cb);
+      store_cols<HD>(dv + at, acc_v[i], cb);
+    }
+  }
+}
+
+template <int HD>
+int bwd_dkdv(const float* q, const float* k, const float* v,
+             const float* dout, const float* lse, const float* delta,
+             float* dk, float* dv, const Layout& lay, int B, int S, int H,
+             float sqrt_hd, cudaStream_t stream) {
+  const int tiles = (S + kTile - 1) / kTile;
+  if ((long long)B * H > 0x7fffffffLL || tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int bytes = dkdv_smem_bytes<HD>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      causal_dkdv_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  causal_dkdv_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
+                               stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                         lay, S, H, sqrt_hd);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
 int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
            const float* lse, float* dq, float* delta, const Layout& lay,
            int B, int S, int H, float sqrt_hd, cudaStream_t stream) {
@@ -442,6 +592,35 @@ extern "C" int trpc_causal_attention_bwd_dq_f32(
       return bwd_dq<128>(args[0], args[1], args[2], args[3],
                          (const float*)lse, (float*)dq, (float*)delta, lay, B,
                          S, H, sqrt_hd, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Called by trpc_causal_attention_bwd_dkdv (causal_attention.cu) for f32,
+// with its arguments less the dtype; hd 16, 64 or 128.
+extern "C" int trpc_causal_attention_bwd_dkdv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int S, int H, int hd, float sqrt_hd,
+    void* stream) {
+  const Layout lay = layout_of(strides, 4);
+  const float* args[4] = {(const float*)q, (const float*)k, (const float*)v,
+                          (const float*)dout};
+  const float* stats[2] = {(const float*)lse, (const float*)delta};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return bwd_dkdv<16>(args[0], args[1], args[2], args[3], stats[0],
+                          stats[1], (float*)dk, (float*)dv, lay, B, S, H,
+                          sqrt_hd, st);
+    case 64:
+      return bwd_dkdv<64>(args[0], args[1], args[2], args[3], stats[0],
+                          stats[1], (float*)dk, (float*)dv, lay, B, S, H,
+                          sqrt_hd, st);
+    case 128:
+      return bwd_dkdv<128>(args[0], args[1], args[2], args[3], stats[0],
+                           stats[1], (float*)dk, (float*)dv, lay, B, S, H,
+                           sqrt_hd, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,21 @@
 // f32_tile.cuh — what the f32 kernels on the CUDA cores share
-// (causal_attention_f32.cu: the causal forward and dq; ring_fold_f32.cu:
-// the ring fold's forward): the padded-row geometry of a staged tile, the
-// cp.async copies that fill it, the row reductions, and the two register-
-// tile products, rows against rows over hd (scores) and a staged [64][64]
-// weight tile times 64 rows of hd (weights_v).
+// (causal_attention_f32.cu: the causal forward, dq and dk/dv;
+// ring_fold_f32.cu: the ring fold's forward and dk/dv): the padded-row
+// geometry of a staged tile, the cp.async copies that fill it, the row
+// reductions, the per-column row statistics of the transposed (dk/dv)
+// tiles, and the two register-tile products, rows against rows over hd
+// (scores) and a staged [64][64] weight tile times 64 rows of hd
+// (weights_v).
 //
 // Geometry.  A block is 128 threads (4 warps); a tile is 64 query or key
 // rows.  Thread t (ra = t / 8, cb = t % 8) owns rows ra + 16 i (i < 4):
 // columns cb + 8 j (j < 8) of each [64][64] product, and hd / 8 columns
 // of each [64][hd] accumulator in groups of four (two at hd 16), group g
-// at 4 cb + 32 g.  A row's eight owners are eight lanes of one warp,
-// which reduce its max and sum with three xor-shuffles.  Each depth step
+// at 4 cb + 32 g.  The dk/dv kernels take the products transposed: rows
+// are keys, columns queries, so a thread needs lse and D of its 8 query
+// columns, staged beside the query tile (load_stats, col_lse).  A row's
+// eight owners are eight lanes of one warp, which reduce its max and sum
+// with three xor-shuffles.  Each depth step
 // of a score product reads one float4 of each of the thread's 4 A rows
 // and 8 B rows (32 FMAs a step of 4 deep, 12 reads); each 4 keys of a
 // weights product read one float4 of weights for each of 4 rows and the
@@ -69,6 +74,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes from global src into shared dst; zeros where !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -93,6 +105,29 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
     cp_async16(d + (r * Stage<HD>::kLd + 4 * c) * 4,
                valid ? base + (long long)row * st.s + 4 * c : src, valid);
   }
+}
+
+// The row statistics of query rows [q0, q0 + 64) of one (b, h): lse[q0 +
+// r] into sL[r] and D[q0 + r] into sD[r] (lse and D point at the head's
+// row 0), 4-byte copies in the same group as the tile's (any alignment);
+// rows at or past C zero-filled, which col_lse reads as +inf.
+static_assert(kThreads == 2 * kTile, "one thread a statistic");
+__device__ __forceinline__ void load_stats(float* sL, float* sD,
+                                           const float* lse,
+                                           const float* delta, int q0,
+                                           int C) {
+  const int r = threadIdx.x % kTile;
+  const bool valid = q0 + r < C;
+  const float* src = threadIdx.x < kTile ? lse : delta;
+  float* dst = threadIdx.x < kTile ? sL : sD;
+  cp_async4(smem_u32(dst + r), valid ? src + q0 + r : src, valid);
+}
+
+// lse of query column c of the staged tile: +inf past C, so that p =
+// exp(s - lse) = 0 there.
+__device__ __forceinline__ float col_lse(const float* sL, int q0, int C,
+                                         int c) {
+  return q0 + c < C ? sL[c] : INFINITY;
 }
 
 // x / y rounded to nearest, given inv = __frcp_rn(y): the product with
@@ -139,8 +174,10 @@ __device__ __forceinline__ void cols_of(float (&x)[Stage<HD>::kCols],
 }
 
 // s[i][j] = sum_x A[ra + 16 i][x] B[cb + 8 j][x], over x in order: two
-// padded tiles, rows against rows (q.k, dO.v).
-template <int HD>
+// padded tiles, rows against rows (q.k, dO.v).  kUnroll depth steps are
+// unrolled (each holds 48 operand registers): 1 where two hd-128
+// accumulators leave no room for two.
+template <int HD, int kUnroll = 2>
 __device__ __forceinline__ void scores(float (&s)[4][8], const float* sQ,
                                        const float* sK, int ra, int cb) {
   constexpr int kLd = Stage<HD>::kLd;
@@ -151,7 +188,7 @@ __device__ __forceinline__ void scores(float (&s)[4][8], const float* sQ,
       s[i][j] = 0.0f;
     }
   }
-#pragma unroll 2
+#pragma unroll(kUnroll)
   for (int x = 0; x < HD; x += 4) {
     float4 a[4];
     float4 c[8];
@@ -223,6 +260,24 @@ __device__ __forceinline__ void store_cols(float* dst,
           make_float4(x[4 * g], x[4 * g + 1], x[4 * g + 2], x[4 * g + 3]);
     } else {
       *reinterpret_cast<float2*>(p) = make_float2(x[2 * g], x[2 * g + 1]);
+    }
+  }
+}
+
+// dst[c] += x[c] over the thread's columns of one accumulator row, each
+// add rounded once: the fold's carried state, updated in place through
+// scalar accesses (it need not be 16-byte aligned).
+template <int HD>
+__device__ __forceinline__ void add_cols(float* dst,
+                                         const float (&x)[Stage<HD>::kCols],
+                                         int cb) {
+  using G = Stage<HD>;
+#pragma unroll
+  for (int g = 0; g < G::kCols / G::kGroup; ++g) {
+#pragma unroll
+    for (int e = 0; e < G::kGroup; ++e) {
+      const int c = G::kGroup * (cb + 8 * g) + e;
+      dst[c] = __fadd_rn(dst[c], x[G::kGroup * g + e]);
     }
   }
 }

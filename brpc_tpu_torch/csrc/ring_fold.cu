@@ -41,9 +41,9 @@
 // every product, scores computed twice in the forward, so they run far
 // from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
 // and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu, and
-// the f32 forward at those head dims to the one-pass CUDA-core kernel of
-// ring_fold_f32.cu; this file keeps the f32 dq and dk/dv and every kernel
-// at hd 8 (the reference tests' own).
+// the f32 forward and dk/dv at those head dims to the CUDA-core kernels
+// of ring_fold_f32.cu; this file keeps the f32 dq and every kernel at
+// hd 8 (the reference tests' own).
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -571,12 +571,14 @@ Layout layout_of(const long long* strides, int n) {
 }
 
 // Every kernel in bf16 at hd 16, 64 and 128 runs on the tensor cores
-// (ring_fold_sm90.cu), and the f32 forward there on the CUDA cores
-// (ring_fold_f32.cu): no SIMT kernel of theirs is built.
+// (ring_fold_sm90.cu), and the f32 forward and dk/dv there on the CUDA
+// cores (ring_fold_f32.cu): no SIMT kernel of theirs is built.
 template <typename T, int HD>
-constexpr bool kSimt = std::is_same<T, float>::value || HD == 8;
+constexpr bool kSimtDq = std::is_same<T, float>::value || HD == 8;
 template <int HD>
 constexpr bool kSimtFwd = HD == 8;
+template <int HD>
+constexpr bool kSimtDkdv = HD == 8;
 
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, float* m, float* l,
@@ -602,7 +604,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dq,
            const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
            cudaStream_t st) {
-  if constexpr (!kSimt<T, HD>) {
+  if constexpr (!kSimtDq<T, HD>) {
     return (int)cudaErrorInvalidValue;
   } else {
     static const int attr =
@@ -623,7 +625,7 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, float* dk, float* dv,
              const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
              cudaStream_t st) {
-  if constexpr (!kSimt<T, HD>) {
+  if constexpr (!kSimtDkdv<HD>) {
     return (int)cudaErrorInvalidValue;
   } else {
     static const int attr =
@@ -662,7 +664,7 @@ extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int hd,
     int q_off, int k_off, int causal, float scale, void* stream);
-// The one-pass CUDA-core forward (ring_fold_f32.cu), for f32 at hd 16,
+// The CUDA-core forward and dk/dv (ring_fold_f32.cu), for f32 at hd 16,
 // 64, 128.
 extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
                                       const void* v, void* m, void* l,
@@ -670,6 +672,11 @@ extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
                                       int B, int Cq, int Ck, int H, int hd,
                                       int q_off, int k_off, int causal,
                                       float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dkdv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int Cq, int Ck, int H, int hd,
+    int q_off, int k_off, int causal, float scale, void* stream);
 
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 8, 16, 64 or 128.
 // strides: (b, s, h) element strides of q, k, v (and dO for the
@@ -682,8 +689,9 @@ extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
 // 16-byte aligned in base and strides (TMA's rule; the wrapper copies
 // any other); where the driver refuses the tensor map of input i (0 q,
 // 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  The
-// forward takes f32 at those head dims to the CUDA-core kernel, whose
-// 16-byte cp.async copies need the same alignment of q, k and v.
+// forward and dk/dv take f32 at those head dims to the CUDA-core
+// kernels, whose 16-byte cp.async copies need the same alignment of q,
+// k, v (and dO).
 
 static bool wide_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
@@ -771,6 +779,11 @@ extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
     return trpc_ring_fold_bwd_dkdv_sm90(q, k, v, dout, lse, delta, dk, dv,
                                         strides, B, Cq, Ck, H, hd, q_off,
                                         k_off, causal, scale, stream);
+  }
+  if (dtype == 1 && wide_hd(hd)) {
+    return trpc_ring_fold_bwd_dkdv_f32(q, k, v, dout, lse, delta, dk, dv,
+                                       strides, B, Cq, Ck, H, hd, q_off,
+                                       k_off, causal, scale, stream);
   }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};

@@ -1,20 +1,26 @@
-// ring_fold_f32.cu — the ring fold's forward in f32 on the CUDA cores:
-// one pass over the held block's keys, register tiles fed by 16-byte
-// shared-memory reads, a two-stage cp.async ring for K and V.
+// ring_fold_f32.cu — the ring fold's forward and dk/dv in f32 on the
+// CUDA cores: register tiles fed by 16-byte shared-memory reads and
+// cp.async copies (the machinery of f32_tile.cuh); the forward in one
+// pass over the held block's keys through a two-stage ring for K and V,
+// dk/dv on transposed tiles.
 //
 // Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71 in
-// f32 (and Ulysses' `_dense_local`, :125-133, one fold at offsets 0/0),
-// which ring_fold.cu's trpc_ring_fold_fwd sends here for f32 at hd 16, 64
-// and 128.  Layout and function are that file's:
-//   q [B, Cq, H, hd], k, v [B, Ck, H, hd] f32, read through their (b, s,
-//   h) strides (the last dim contiguous; base and strides 16-byte
+// f32 and its jax.grad (and Ulysses' `_dense_local`, :125-133, one fold
+// at offsets 0/0), which ring_fold.cu's trpc_ring_fold_fwd and
+// trpc_ring_fold_bwd_dkdv send here for f32 at hd 16, 64 and 128.
+// Layout and function are that file's:
+//   q, dO [B, Cq, H, hd], k, v [B, Ck, H, hd] f32, read through their
+//   (b, s, h) strides (the last dim contiguous; base and strides 16-byte
 //   multiples, which the wrapper ensures by copying any other view)
-//   m, l [B, H, Cq] f32 and o [B, H, Cq, hd] f32 (o unnormalised),
-//   contiguous, updated in place
+//   m, l, lse, D [B, H, Cq] f32, o [B, H, Cq, hd] f32 (o unnormalised),
+//   dk, dv [B, H, Ck, hd] f32, contiguous; m, l, o, dk, dv updated in
+//   place
 //   s  = q . k * scale (f32 product, __fmul_rn), -1e30 where q_off + i <
 //        k_off + j (causal), -inf past Ck (no key: out of every max, sum)
 //   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
 //   l' = l a + sum_j p      o' = o a + p . v
+//   P  = exp(s - lse)   dP = dO . v   dS = P (dP - D) scale
+//   dk += dS^T . q      dv += P^T . dO
 // In f32 the reference rounds no weight before p . v, so nothing forces
 // the SIMT kernel's two passes (the block's row max, then p): one pass
 // keeps a running max m_t from m, and per key tile
@@ -42,20 +48,40 @@
 // With m_run started at m, such a row keeps m_t = -1e30 and p = 1 on its
 // masked scores, as the reference.
 //
+// dk/dv computes each score, P and dS as the SIMT kernel did (the same
+// __f*_rn roundings; fmaf commutes and the depth order is the same, so
+// S^T = K . Q^T holds the scores' bits), sums dk and dv over the visited
+// queries in order straight into the accumulator, as it did, and adds
+// the block's sums to the carried dk, dv once: the SIMT kernel's bits.
+// Its skip rule is the SIMT kernel's: every query tile when some row's
+// lse is degenerate (a row that has seen no key weighs its masked scores
+// by 1), else only the tiles not wholly before the key tile.
+//
 // Bound on an H100 (B=8, C=1024, H=8, hd=64, one causal diagonal block):
 // operations.  q.k and p.v over the causal half are 8.6 GFLOP, 128.3 us
 // at the CUDA cores' 67 TFLOP/s (TF32 keeps 10 mantissa bits, too few
 // for the f32 tolerance; PERF.md, Findings); its 59.8 MB of traffic (the
-// state read and written among it) take 17.8 us.
+// state read and written among it) take 17.8 us.  dk/dv's four products
+// (q.k, dO.v, P^T.dO, dS^T.q) are 17.2 GFLOP, 256.7 us; its 101.2 MB
+// take 30.2 us.
 //
 // Design (the geometry, copies and products of f32_tile.cuh):
-//  - One block of 128 threads per (64-row query tile, h, b), the longest
-//    query tiles first; each thread owns 4 rows: a 4 x 8 register tile of
-//    each score tile, hd / 8 columns of acc.
-//  - Q resident; K and V tiles through the two-stage cp.async ring, tile
-//    i + 1 landing while tile i is computed; p staged at stride 72 for
-//    p . V.  Q, two stages of K and V, p: 103 KB at hd 64, two blocks an
-//    SM.
+//  - Forward: one block of 128 threads per (64-row query tile, h, b), the
+//    longest query tiles first; each thread owns 4 rows: a 4 x 8 register
+//    tile of each score tile, hd / 8 columns of acc.  Q resident; K and V
+//    tiles through the two-stage cp.async ring, tile i + 1 landing while
+//    tile i is computed; p staged at stride 72 for p . V.  Q, two stages
+//    of K and V, p: 103 KB at hd 64, two blocks an SM.
+//  - dk/dv: one block of 128 threads per (64-row key tile, h, b), key
+//    tile 0 (which the most query tiles see) first; transposed tiles,
+//    rows keys and columns queries.  K and V resident; per query tile one
+//    stage of Q and dO and its lse and D (load_stats), S^T = K . Q^T,
+//    P^T staged at stride 72, dP^T = V . dO^T, dS^T from the thread's
+//    own staged P, staged beside it; dv += P^T . dO, dk += dS^T . Q
+//    (weights_v).  One 4 x 8 tile live beside the two accumulators (no
+//    spill at hd 128).  K, V, Q, dO, P^T, dS^T: 104.5 KB at hd 64, two
+//    blocks an SM, so one block computes while the other waits for its
+//    query tile (one block an SM at hd 128).
 //  - No atomics: each block updates its own rows of the state.
 #include <cuda_runtime.h>
 
@@ -66,9 +92,17 @@
 
 namespace {
 
-struct Layout {  // q, k, v
-  Strides t[3];
+struct Layout {  // q, k, v (and dO)
+  Strides t[4];
 };
+
+Layout layout_of(const long long* strides, int n) {
+  Layout lay{};
+  for (int i = 0; i < n; ++i) {
+    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  return lay;
+}
 
 template <int HD>
 constexpr int fwd_smem_bytes() {  // Q, two stages of K and of V, p
@@ -264,6 +298,164 @@ int fwd(const float* q, const float* k, const float* v, float* m, float* l,
   return (int)cudaGetLastError();
 }
 
+// depth steps of dk/dv's score products unrolled: at hd 128 two would
+// spill (ptxas: 8 bytes at 255 registers)
+template <int HD>
+constexpr int kDkdvUnroll = HD == 128 ? 1 : 2;
+
+template <int HD>
+constexpr int dkdv_smem_bytes() {  // K, V, Q, dO, P^T, dS^T, lse, D
+  return (4 * Stage<HD>::kFloats + 2 * kTile * kLdP + 2 * kTile) *
+         (int)sizeof(float);
+}
+
+// dk and dv += the block's sums for one key tile, over the query tiles
+// that see it (every one if a row of the block has seen no key), on
+// transposed tiles: rows keys ra + 16 i, columns queries cb + 8 j.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dkdv_f32_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              Layout lay, int Cq, int Ck, int H, Pos pos) {
+  using G = Stage<HD>;
+  constexpr int NC = G::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;
+  float* sV = sK + G::kFloats;
+  float* sQ = sV + G::kFloats;
+  float* sDO = sQ + G::kFloats;
+  float* sPT = sDO + G::kFloats;     // [64][kLdP]: P^T, rows keys
+  float* sDST = sPT + kTile * kLdP;  // [64][kLdP]: dS^T
+  float* sL = sDST + kTile * kLdP;   // [64]: lse of the query tile
+  float* sD = sL + kTile;            // [64]: D of the query tile
+  // blocks start in index order, x fastest: every (h, b) of key tile 0,
+  // which the most query tiles see, first
+  const int kt = (int)blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int ra = threadIdx.x >> 3;
+  const int cb = threadIdx.x & 7;
+  const int k0 = kt * kTile;
+  const int n_qt = (Cq + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  int degen = 0;
+  for (int r = threadIdx.x; r < Cq; r += kThreads) {
+    degen |= degenerate(lse[bh + r]);
+  }
+  degen = __syncthreads_or(degen);
+  // the query tiles visited: masked tiles come first (their queries are
+  // the earliest), so a suffix
+  int qt0 = 0;
+  while (!degen && qt0 < n_qt &&
+         all_masked(pos, qt0 * kTile, Cq, k0, kTile)) {
+    ++qt0;
+  }
+  if (qt0 == n_qt) {
+    return;  // every P and dS of the key tile is 0: dk, dv stay
+  }
+
+  // K and V resident; committed with the first query tile's copies
+  load_tile<HD>(sK, k, lay.t[1], b, h, k0, Ck);
+  load_tile<HD>(sV, v, lay.t[2], b, h, k0, Ck);
+  float acc_k[4][NC];
+  float acc_v[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc_k[i][c] = 0.0f;
+      acc_v[i][c] = 0.0f;
+    }
+  }
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // every thread is done with the last query tile
+    load_tile<HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+    load_tile<HD>(sDO, dout, lay.t[3], b, h, q0, Cq);
+    load_stats(sL, sD, lse + bh, delta + bh, q0, Cq);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the query tile in place for every thread
+    float t[4][8];
+    scores<HD, kDkdvUnroll<HD>>(t, sK, sQ, ra, cb);  // S^T = K . Q^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ra + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = cb + 8 * j;
+        float s;
+        if (key >= Ck) {
+          s = -INFINITY;  // no key: p = 0 (the row is never stored)
+        } else if (pos.causal && pos.q_off + q0 + c < pos.k_off + key) {
+          s = kNeg;
+        } else {
+          s = __fmul_rn(t[i][j], pos.scale);
+        }
+        // lse = +inf past Cq: p = 0
+        sPT[(ra + 16 * i) * kLdP + c] =
+            expf(__fsub_rn(s, col_lse(sL, q0, Cq, c)));
+      }
+    }
+    // a compiler fence: p is read back from shared memory below, not
+    // kept in 32 registers across the next product
+    asm volatile("" ::: "memory");
+    scores<HD, kDkdvUnroll<HD>>(t, sV, sDO, ra, cb);  // dP^T = V . dO^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int at = (ra + 16 * i) * kLdP + cb + 8 * j;
+        sDST[at] = __fmul_rn(                        // its own p
+            __fmul_rn(sPT[at], __fsub_rn(t[i][j], sD[cb + 8 * j])),
+            pos.scale);
+      }
+    }
+    __syncthreads();  // P^T and dS^T in place
+    // dv += P^T . dO, dk += dS^T . Q, summed over the queries in order
+    weights_v<HD>(acc_v, sPT, sDO, ra, cb);
+    weights_v<HD>(acc_k, sDST, sQ, ra, cb);
+  }
+  // the block's sums added to the carried state once
+  const long long bhk = ((long long)b * H + h) * Ck;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ra + 16 * i;
+    if (key < Ck) {
+      add_cols<HD>(dk + (bhk + key) * HD, acc_k[i], cb);
+      add_cols<HD>(dv + (bhk + key) * HD, acc_v[i], cb);
+    }
+  }
+}
+
+template <int HD>
+int bwd_dkdv(const float* q, const float* k, const float* v,
+             const float* dout, const float* lse, const float* delta,
+             float* dk, float* dv, const Layout& lay, int B, int Cq, int Ck,
+             int H, const Pos& pos, cudaStream_t stream) {
+  const int tiles = (Ck + kTile - 1) / kTile;
+  if ((long long)B * H > 0x7fffffffLL || tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int bytes = dkdv_smem_bytes<HD>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      ring_fold_dkdv_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  ring_fold_dkdv_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
+                                  stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                            lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Called by trpc_ring_fold_fwd (ring_fold.cu) for f32 at hd 16, 64 or
@@ -274,10 +466,7 @@ extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
                                       int B, int Cq, int Ck, int H, int hd,
                                       int q_off, int k_off, int causal,
                                       float scale, void* stream) {
-  Layout lay{};
-  for (int i = 0; i < 3; ++i) {
-    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  }
+  const Layout lay = layout_of(strides, 3);
   const Pos pos{q_off, k_off, causal, scale};
   const float* args[3] = {(const float*)q, (const float*)k, (const float*)v};
   float* state[3] = {(float*)m, (float*)l, (float*)o};
@@ -292,6 +481,36 @@ extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
     case 128:
       return fwd<128>(args[0], args[1], args[2], state[0], state[1],
                       state[2], lay, B, Cq, Ck, H, pos, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Called by trpc_ring_fold_bwd_dkdv (ring_fold.cu) for f32 at hd 16, 64 or
+// 128, with its arguments less the dtype; the shape already checked.
+extern "C" int trpc_ring_fold_bwd_dkdv_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int Cq, int Ck, int H, int hd,
+    int q_off, int k_off, int causal, float scale, void* stream) {
+  const Layout lay = layout_of(strides, 4);
+  const Pos pos{q_off, k_off, causal, scale};
+  const float* args[6] = {(const float*)q,    (const float*)k,
+                          (const float*)v,    (const float*)dout,
+                          (const float*)lse, (const float*)delta};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return bwd_dkdv<16>(args[0], args[1], args[2], args[3], args[4],
+                          args[5], (float*)dk, (float*)dv, lay, B, Cq, Ck, H,
+                          pos, st);
+    case 64:
+      return bwd_dkdv<64>(args[0], args[1], args[2], args[3], args[4],
+                          args[5], (float*)dk, (float*)dv, lay, B, Cq, Ck, H,
+                          pos, st);
+    case 128:
+      return bwd_dkdv<128>(args[0], args[1], args[2], args[3], args[4],
+                           args[5], (float*)dk, (float*)dv, lay, B, Cq, Ck,
+                           H, pos, st);
   }
   return (int)cudaErrorInvalidValue;
 }

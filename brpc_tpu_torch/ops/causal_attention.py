@@ -25,13 +25,13 @@ Three kernels, one wrapper each, and each wrapper counts its launches
 * :func:`causal_attention_backward_dkdv`  dk and dv, from D.
 
 In bf16 all three run on the tensor cores
-(``csrc/causal_attention_sm90.cu``: wgmma, TMA).  In f32 the forward
-(one pass) and dq (two passes, D taken exactly first) are kernels on
-the CUDA cores (``csrc/causal_attention_f32.cu``: register tiles,
-cp.async), and dk/dv is the SIMT kernel of ``csrc/causal_attention.cu``;
-the C entries choose by dtype.  TMA and cp.async copy 16 bytes at a
-time, so the wrapper copies a view whose base or strides are not
-16-byte multiples.
+(``csrc/causal_attention_sm90.cu``: wgmma, TMA).  In f32 all three are
+kernels on the CUDA cores (``csrc/causal_attention_f32.cu``: register
+tiles, cp.async): the forward in one pass, dq in two (D taken exactly
+first), dk/dv on transposed tiles; the C entries of
+``csrc/causal_attention.cu`` choose by dtype.  TMA and cp.async copy 16
+bytes at a time, so the wrapper copies a view whose base or strides are
+not 16-byte multiples.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card; the plain version takes any.
 Bound and design: see the kernel sources' notes.
@@ -114,9 +114,9 @@ def _check(*ts) -> None:
 def tma_ready(t) -> bool:
     """TMA's rule for the tensor-core kernels (these and the ring fold's),
     which the f32 CUDA-core kernels' 16-byte cp.async copies share (the
-    causal forward and dq, the fold's forward): a 16-byte
-    aligned base, and positive strides of 16-byte multiples for every dim
-    longer than 1."""
+    causal forward, dq and dk/dv, the fold's forward and dk/dv): a
+    16-byte aligned base, and positive strides of 16-byte multiples for
+    every dim longer than 1."""
     if t.data_ptr() % 16:
         return False
     return all(st > 0 and st * t.element_size() % 16 == 0

@@ -14,8 +14,9 @@ write ``k_new[n]`` / ``v_new[n]`` into row ``p[n]`` of the layer's caches
 ``decode_attention`` launches the kernel for CUDA tensors (and raises if
 it cannot); for CPU tensors it runs :func:`decode_attention_plain`, which
 nothing on the CUDA path calls.  ``decode_attention.launches`` counts the
-kernel's launches.  The kernel takes head dims ``KERNEL_HEAD_DIMS``; the
-plain version any head dim up to ``MAX_HEAD_DIM``.
+kernel's launches.  The kernel takes head dims ``KERNEL_HEAD_DIMS`` and
+raises at any other; the plain version, which CPU tensors take, any head
+dim (as the reference's ``decode_step``).
 
 Bound on the card: memory — the K/V rows of the valid window are read
 once and two rows written per (n, h).  The kernel splits each (n, h)'s
@@ -34,7 +35,6 @@ import torch
 from brpc_tpu_torch import _native
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-MAX_HEAD_DIM = 128
 KERNEL_HEAD_DIMS = (16, 64, 128)
 _MISALIGNED = 716   # cudaErrorMisalignedAddress
 
@@ -97,8 +97,6 @@ def _check(q, k_new, v_new, k_cache_l, v_cache_l, p) -> None:
         raise ValueError("all tensors must be on one device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention takes contiguous tensors")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {hd} > {MAX_HEAD_DIM}")
     if q.device.type == "cuda" and hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the decode_attention kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, not {hd}")

@@ -30,12 +30,13 @@ Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
 own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` every
 kernel takes its products of bf16 values on the tensor cores (dq all
 three of them) and p's f32 products (p . f32(v), P^T . f32(dO)) as f32
-FMAs on the CUDA cores.  In f32 at those head dims the forward is a
-one-pass kernel on the CUDA cores (register tiles, a cp.async ring), and
-dq and dk/dv are the SIMT kernels; head dim 8 runs the SIMT kernels in
-both dtypes.  TMA and cp.async copy 16 bytes at a time, so a view whose
-base or strides are not 16-byte multiples is copied first for the
-tensor-core kernels and the f32 forward.  ``split_bf16x3`` models the
+FMAs on the CUDA cores.  In f32 at those head dims the forward (one
+pass) and dk/dv (transposed tiles) are kernels on the CUDA cores
+(register tiles, cp.async copies), and dq is the SIMT kernel; head dim
+8 runs the SIMT kernels in both dtypes.  TMA and cp.async copy 16 bytes
+at a time, so a view whose base or strides are not 16-byte multiples is
+copied first for the tensor-core kernels and the f32 forward and
+dk/dv.  ``split_bf16x3`` models the
 three-part bf16 split of p that was tried for p's products on the tensor
 cores.  Bound and design: the kernel sources' notes.
 """
@@ -196,13 +197,14 @@ def _check(q, k, v, do, rows, cols) -> None:
                          f"{q.device}")
 
 
-def _kernel_views(*ts, forward=False):
+def _kernel_views(*ts, cp_async=False):
     """The tensors as the kernels read them: a contiguous last dim (the
     other dims through their strides), and at SM90_HEAD_DIMS, in bf16 (TMA)
-    and in the f32 forward (cp.async), what ``tma_ready`` takes; anything
-    else is copied."""
+    and in f32 where the kernel copies with cp.async (``cp_async``: the
+    forward and dk/dv), what ``tma_ready`` takes; anything else is
+    copied."""
     aligned = ts[0].shape[-1] in SM90_HEAD_DIMS and (
-        forward or ts[0].dtype == torch.bfloat16)
+        cp_async or ts[0].dtype == torch.bfloat16)
     return [t if t.stride(-1) == 1 and (not aligned or tma_ready(t))
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
@@ -242,7 +244,7 @@ def ring_fold_forward(q, k, v, m, l, o, q_off: int, k_off: int,
     if q.device.type == "cpu":
         ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
         return True
-    q, k, v = _kernel_views(q, k, v, forward=True)
+    q, k, v = _kernel_views(q, k, v, cp_async=True)
     _launch(_kernels().trpc_ring_fold_fwd, "ring_fold_fwd",
             [t.data_ptr() for t in (q, k, v, m, l, o)], _strides((q, k, v)),
             q, k.shape[1], q_off, k_off, causal, scale)
@@ -286,7 +288,7 @@ def ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off: int,
         ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, dk, dv, q_off,
                                  k_off, causal, scale)
         return True
-    q, k, v, do = _kernel_views(q, k, v, do)
+    q, k, v, do = _kernel_views(q, k, v, do, cp_async=True)
     _launch(_kernels().trpc_ring_fold_bwd_dkdv, "ring_fold_bwd_dkdv",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
             _strides((q, k, v, do)), q, k.shape[1], q_off, k_off, causal,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 r"""Other trees' causal_attention and ring-fold kernels beside the
 checkout's, on one NVIDIA GPU: the bf16 forward, dq and dk/dv kernels,
-their wrappers' host time, the f32 forward's time and accuracy, and the
-times of the f32 dq and of the ring fold's f32 forward.
+their wrappers' host time, the f32 forward's time and accuracy, the
+times of the f32 dq and of the ring fold's f32 forward, and the f32
+dk/dv kernels' (causal and the fold's) times, bits and accuracy.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -43,12 +44,26 @@ reversed.  Each prints one JSON line:
   from a fresh state on a diagonal block (C=1024, offsets 0): the
   largest |x - x64| / (atol + rtol |x64|) under RING_TOL["f32"] over m,
   l and o of the kernel and of the plain version against the fold in
-  f64, and of the kernel against the plain version (numpy seed 17).
+  f64, and of the kernel against the plain version (numpy seed 17);
+* ``f32_dkdv``: the f32 dk/dv's ``device_ms`` at ATTN_SHAPE (lse and D
+  from the tree's own forward and dq), and ``f32_fold_dkdv`` the fold's
+  f32 dk/dv's at RING_SHAPE (lse and D of the fold of that block); each
+  beside ``sdpa_f32``'s backward (fwd_bwd less fwd);
+* ``dkdv_digest``: a sha256 of the bytes of dk and dv of those two
+  calls (two trees that print the same digest computed the same bits);
+* ``dkdv_f64_err``: at S = C = 1000 and 1024, head dims 16, 64 and 128,
+  unit scale and a wide range (q, k x 2, v x 8; B=2, H=3, numpy seed
+  23), of causal attention (lse and D from the plain softmax in f32)
+  and of the fold (a ring's first, diagonal block; lse and D of the
+  plain f32 fold): the largest |x - x64| over dk and over dv of the
+  kernel and of the plain version against the same in f64 throughout,
+  [kernel dk, plain dk, kernel dv, plain dv].
 
 Prints the card's nvidia-smi name and power limit first; exits non-zero
 if a tree's process failed.
 """
 
+import hashlib
 import importlib
 import importlib.util
 import json
@@ -171,6 +186,99 @@ def fold_f64_errors(rf, cs) -> dict:
     return out
 
 
+def _causal_f64_dkdv(q, k, v, do):
+    """dk, dv of causal attention in f64 throughout."""
+    import torch
+    S, hd = q.shape[1], q.shape[-1]
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bshk,bthk->bhst", *leaves[:2]) / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
+    w = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    o = torch.einsum("bhst,bthk->bshk", w, leaves[2])
+    return torch.autograd.grad(o, leaves[1:], do.double())
+
+
+def _fold_f64_dkdv(q, k, v, do, scale):
+    """dk, dv [B, H, C, hd] of a ring's first, diagonal fold in f64
+    throughout (its lse and D from the f64 fold)."""
+    import torch
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    C = q.shape[1]
+    s = torch.einsum("bchk,bdhk->bhcd", q, k) * scale
+    pos = torch.arange(C, device="cuda")
+    s = torch.where(pos[:, None] >= pos[None, :], s, -1e30)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhcd,bdhk->bhck", p, v)
+    delta = (do.transpose(1, 2) * o).sum(-1)
+    ds = p * (torch.einsum("bchk,bdhk->bhcd", do, v) - delta[..., None]) \
+        * scale
+    return (torch.einsum("bhcd,bchk->bhdk", ds, q),
+            torch.einsum("bhcd,bchk->bhdk", p, do))
+
+
+def dkdv_f64_errors(ca, rf, cs) -> dict:
+    """{case: [kernel dk, plain dk, kernel dv, plain dv]}: the largest
+    |x - x64| against the same function in f64 throughout."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def err(a, b):
+        return float((a.double() - b).abs().max())
+    out = {}
+    for S in (1000, 1024):
+        for hd in (16, 64, 128):
+            for name, scale, v_scale in (("unit", 1.0, 1.0),
+                                         ("wide", 2.0, 8.0)):
+                rng = np.random.default_rng(23)
+                q, k, v, do = (torch.from_numpy((scale * rng.standard_normal(
+                    (2, S, 3, hd))).astype(np.float32)).to("cuda")
+                    for _ in range(4))
+                v = v * v_scale
+                # causal attention: lse and D of the plain f32 softmax
+                s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
+                mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                             device="cuda"))
+                lse = torch.logsumexp(s.masked_fill(~mask, -1e30), -1)
+                p = torch.exp(s - lse[..., None]).tril()
+                delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
+                got = ca.causal_attention_backward_dkdv(q, k, v, do, lse,
+                                                        delta)
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                plain = torch.autograd.grad(ca.causal_attention_plain(
+                    *leaves), leaves[1:], do)
+                exact = _causal_f64_dkdv(q, k, v, do)
+                out[f"causal_S{S}_hd{hd}_{name}"] = [
+                    err(got[0], exact[0]), err(plain[0], exact[0]),
+                    err(got[1], exact[1]), err(plain[1], exact[1])]
+                # the fold: a ring's first, diagonal block
+                fscale = hd ** -0.5
+                m = torch.full((2, 3, S), -1e30, device="cuda")
+                l = torch.zeros(2, 3, S, device="cuda")
+                o = torch.zeros(2, 3, S, hd, device="cuda")
+                rf.ring_fold_plain(q, k, v, m, l, o, 0, 0, True, fscale)
+                flse, fdelta = cs._lse_delta(m, l, o, do)
+                kern = [torch.zeros_like(o) for _ in range(2)]
+                rf.ring_fold_backward_dkdv(q, k, v, do, flse, fdelta, *kern,
+                                           0, 0, True, fscale)
+                fplain = [torch.zeros_like(o) for _ in range(2)]
+                rf.ring_fold_bwd_dkdv_plain(q, k, v, do, flse, fdelta,
+                                            *fplain, 0, 0, True, fscale)
+                fexact = _fold_f64_dkdv(q, k, v, do, fscale)
+                out[f"fold_C{S}_hd{hd}_{name}"] = [
+                    err(kern[0], fexact[0]), err(fplain[0], fexact[0]),
+                    err(kern[1], fexact[1]), err(fplain[1], fexact[1])]
+    return out
+
+
+def _digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def measure(tree: str) -> None:
     sys.path.insert(0, tree)
     import torch
@@ -245,17 +353,35 @@ def measure(tree: str) -> None:
     sdpa_f32 = {"fwd": cs.device_ms(lambda: sdpa(q, k, v), flush),
                 "fwd_bwd": cs.device_ms(lambda: torch.autograd.grad(
                     sdpa(*leaves), leaves, do), flush)}
+    _, delta = ca.causal_attention_backward_dq(q, k, v, do, lse)
+    f32_dkdv = cs.device_ms(lambda: ca.causal_attention_backward_dkdv(
+        q, k, v, do, lse, delta), flush)
+    digest = {"causal": _digest(*ca.causal_attention_backward_dkdv(
+        q, k, v, do, lse, delta))}
     rf = importlib.import_module("brpc_tpu_torch.ops.ring_fold")
-    (fq, fk, fv, _), state = cs._fold_inputs(g, cs.RING_SHAPE, torch.float32,
-                                             True)
+    (fq, fk, fv, fdo), state = cs._fold_inputs(g, cs.RING_SHAPE,
+                                               torch.float32, True)
     scale = cs.RING_SHAPE[3] ** -0.5
     fold = cs.device_ms(lambda: rf.ring_fold_forward(
         fq, fk, fv, *state, 0, 0, True, scale), flush)
+    # the dk/dv of one fold of the block from a fresh state
+    _, state = cs._fold_inputs(g, cs.RING_SHAPE, torch.float32, True)
+    rf.ring_fold_forward(fq, fk, fv, *state, 0, 0, True, scale)
+    flse, fdelta = cs._lse_delta(*state, fdo)
+    acc = [torch.zeros_like(state[2]) for _ in range(2)]
+    rf.ring_fold_backward_dkdv(fq, fk, fv, fdo, flse, fdelta, *acc, 0, 0,
+                               True, scale)
+    digest["fold"] = _digest(*acc)
+    fold_dkdv = cs.device_ms(lambda: rf.ring_fold_backward_dkdv(
+        fq, fk, fv, fdo, flse, fdelta, *acc, 0, 0, True, scale), flush)
     print(json.dumps({"tree": tree, "device_ms": device,
                       "prefill_host_us": host, "f32_fwd": f32,
                       "f32_dq": f32_dq, "f32_fold_fwd": fold,
-                      "sdpa_f32": sdpa_f32,
-                      "fold_f64_err": fold_f64_errors(rf, cs)}), flush=True)
+                      "f32_dkdv": f32_dkdv, "f32_fold_dkdv": fold_dkdv,
+                      "dkdv_digest": digest, "sdpa_f32": sdpa_f32,
+                      "fold_f64_err": fold_f64_errors(rf, cs),
+                      "dkdv_f64_err": dkdv_f64_errors(ca, rf, cs)}),
+          flush=True)
 
 
 def main(argv) -> int:

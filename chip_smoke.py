@@ -14,8 +14,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              forward, dq and dk/dv kernels of causal_attention and of
              the ring fold must have some (18 instantiations); its
              ptxas_by_kernel key gives each kernel's registers and spills,
-             and the f32 CUDA-core kernels (causal forward and dq, the
-             fold's forward; 9 instantiations) must spill nothing
+             and the f32 CUDA-core kernels (causal forward, dq and dk/dv,
+             the fold's forward and dk/dv; 15 instantiations) must spill
+             nothing
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
@@ -42,7 +43,7 @@ printing one JSON line; any failure exits non-zero with no result line:
              limit used).  The dtype dispatch read from the device's
              kernel names under torch.profiler: bf16 forward, dq and
              dk/dv launch the tensor-core kernels and no SIMT one, f32
-             the CUDA-core forward and dq and the SIMT dk/dv.  Each
+             the CUDA-core forward, dq and dk/dv.  Each
              kernel timed in bf16 on the device alone like
              decode_attention, beside its bound, the plain version (CUDA
              events), the wrapper's host-inclusive time (host_call_ms)
@@ -111,8 +112,7 @@ printing one JSON line; any failure exits non-zero with no result line:
              rate), the plain version, SDPA on the block in the same
              dtype and host_call_ms; the kernel names under
              torch.profiler: bf16 the tensor-core forward, dq and dk/dv,
-             f32 the one-pass CUDA-core forward and the SIMT dq and
-             dk/dv
+             f32 the CUDA-core forward and dk/dv and the SIMT dq
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -325,8 +325,10 @@ def phase_card():
     f32_cores = {k: p for k, p in line["ptxas_by_kernel"].items()
                  if k.startswith(("causal_fwd_f32_kernel",
                                   "causal_dq_f32_kernel",
-                                  "ring_fold_fwd_f32_kernel"))}
-    assert len(f32_cores) == 9 and not any(
+                                  "causal_dkdv_f32_kernel",
+                                  "ring_fold_fwd_f32_kernel",
+                                  "ring_fold_dkdv_f32_kernel"))}
+    assert len(f32_cores) == 15 and not any(
         p.get("spill_stores") or p.get("spill_loads")
         for p in f32_cores.values()), f32_cores
     return line
@@ -715,14 +717,15 @@ def phase_attention():
                      "version's: fwd+bwd less fwd"})
     assert routes["bf16"] == ["causal_dkdv_sm90", "causal_dq_sm90",
                               "causal_fwd_sm90"], routes
-    assert routes["f32"] == ["causal_dkdv_kernel", "causal_dq_f32_kernel",
+    assert routes["f32"] == ["causal_dkdv_f32_kernel",
+                             "causal_dq_f32_kernel",
                              "causal_fwd_f32_kernel"], routes
     return {"errs": errs, "rows": rows, "rows_f32": rows_f32}
 
 
 def f32_attention_rows(q, k, v, do, flush, sdpa_bshk):
-    """The f32 route (the forward and dq of csrc/causal_attention_f32.cu,
-    the SIMT dk/dv of csrc/causal_attention.cu) timed at the same
+    """The f32 route (the forward, dq and dk/dv of
+    csrc/causal_attention_f32.cu) timed at the same
     shape like the bf16 one: {kernel: row} with its bound at the f32
     CUDA-core rate, the plain version, SDPA in f32 (the backward: fwd+bwd
     less fwd) and the wrapper's host-inclusive time."""
@@ -1512,7 +1515,8 @@ def phase_ring(smi):
     assert names["bf16"] == ["ring_fold_dkdv_sm90_kernel",
                              "ring_fold_dq_sm90_kernel",
                              "ring_fold_fwd_sm90_kernel"], names
-    assert names["f32"] == ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+    assert names["f32"] == ["ring_fold_dkdv_f32_kernel",
+                            "ring_fold_dq_kernel",
                             "ring_fold_fwd_f32_kernel"], names
     assert len(skipped) == 2, skipped
     return line
@@ -1959,7 +1963,7 @@ def main() -> int:
             ("bwd_dq", "causal_attention_backward_dq", ("dq",),
              "causal_attention_f32.cu", "causal_dq_f32_kernel<64>"),
             ("bwd_dkdv", "causal_attention_backward_dkdv", ("dk", "dv"),
-             "causal_attention.cu", "causal_dkdv_kernel<float, 64>")):
+             "causal_attention_f32.cu", "causal_dkdv_f32_kernel<64>")):
         kernels.append({
             "name": f"causal_attention_{name}_f32", "route": "cuda",
             "source": f"brpc_tpu_torch/csrc/{source}",
@@ -2004,8 +2008,8 @@ def main() -> int:
              "ring_fold_fwd_f32_kernel<64>"),
             ("bwd_dq", "ring_fold_backward_dq", "ring_fold.cu",
              "ring_fold_dq_kernel<float, 64>"),
-            ("bwd_dkdv", "ring_fold_backward_dkdv", "ring_fold.cu",
-             "ring_fold_dkdv_kernel<float, 64>")):
+            ("bwd_dkdv", "ring_fold_backward_dkdv", "ring_fold_f32.cu",
+             "ring_fold_dkdv_f32_kernel<64>")):
         kernels.append({
             "name": f"ring_fold_{name}_f32", "route": "cuda",
             "source": f"brpc_tpu_torch/csrc/{source}",

@@ -23,10 +23,12 @@ On the CPU:
   end, held at S = 1024 at unit scale and at a wider range; p
   recomputed from lse; D = sum_t p dW taken
   exactly, per tile and then over the tiles; dS rounded as the
-  registers feed it; dk/dv on transposed tiles, rows keys and columns
-  queries, summed over the query tiles in f32), against autograd of the
-  plain version: within ``CARD_TOL``, the tolerance the card legs and
-  chip_smoke.py hold the kernels to.
+  registers feed it; dk/dv per 64-key tile over the query tiles that
+  see it, on transposed tiles, rows keys and columns queries, summed
+  over the query tiles in f32, held at S = 1024 against jax.vjp of the
+  fragment too), against autograd of the plain version: within
+  ``CARD_TOL``, the tolerance the card legs and chip_smoke.py hold the
+  kernels to.
   Controls: the same model with the diagonal key (t = s) left out of
   every row leaves it; a one-pass online softmax, which rounds
   exp(s - m_running), leaves the bf16 agreement of o at unit-scale
@@ -36,6 +38,9 @@ On the CPU:
   rowsum(dO * o) stand-in for D would stay inside CARD_TOL: at these
   shapes it moves dq and dk by about one bf16 step, as the kernels' own
   flips do; the kernels take D exactly all the same.)
+* The plain f32 dk and dv against the same function in f64, at unit
+  scale and at a wide range (q, k x 2, v x 8), S = 1000 and 1024, hd 16,
+  64 and 128: what f32 itself leaves there.
 * Argument checks.
 
 The ``cuda``-marked legs run on the card: the
@@ -45,10 +50,12 @@ the same inputs; strided (fused-projection) q, k, v, a transposed dO
 and an unaligned view in bf16; two dk/dv calls bit-equal; the one-pass
 f32 forward's o and lse at S = 1000 and 1024 (at a wider range against
 an f64 reference, as near to it as the plain version); an unaligned f32
-view copied for the f32 forward's and dq's cp.async, bit-equal, and dq
-twice to the same bits; and the dtype dispatch (bf16 on the tensor
-cores, f32 on the CUDA-core forward and dq and the SIMT dk/dv) read
-from the device's kernel names.  They skip
+view copied for the f32 forward's, dq's and dk/dv's cp.async,
+bit-equal, and dq and dk/dv twice to the same bits; the f32 dk/dv
+kernel alone against the plain version at S = 65 to 1024, and against
+f64 at unit scale and a wide range, as exact as the plain version; and
+the dtype dispatch (bf16 on the tensor cores, f32 on the CUDA-core
+forward, dq and dk/dv) read from the device's kernel names.  They skip
 without a card and run there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_causal_attention.py``
 (this file imports jax only inside its CPU legs).
@@ -140,9 +147,9 @@ TILE = 64    # query and key rows of a tile in the kernels
 def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
                  untransposed_mask=False):
     """The kernels' arithmetic (csrc/causal_attention_sm90.cu for bf16;
-    for f32 the one-pass forward and the dq of csrc/causal_attention_f32.cu
-    and the SIMT dk/dv of csrc/causal_attention.cu) on tensors, in their
-    order of work over 64-row tiles: (o, dq, dk, dv) as f32.
+    csrc/causal_attention_f32.cu for f32: the one-pass forward, dq and
+    the transposed dk/dv) on tensors, in their order of work over 64-row
+    tiles: (o, dq, dk, dv) as f32.
 
     Forward in bf16, two passes: the online row max and sum (m, l) over
     the key tiles; then p = exp(s - m) / l, rounded to the working type
@@ -153,10 +160,12 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
     times the V tile, divided by l at the end (T() is the identity in
     f32, so no weight is rounded).  dq: D = sum_t p dW taken per tile
     and then over the tiles, from p recomputed from lse; dS rounded as
-    the registers feed it to dS . K.  dk/dv, per key tile over query tiles
-    kt..: the transposed tiles S^T = T(K.Q^T) / sqrt(hd) and dW^T, P^T and
-    dS^T from lse and D per column (query), dv += T(P^T) dO and dk += dS^T
-    q summed in f32 over the query tiles and rounded once.
+    the registers feed it to dS . K.  dk/dv, per 64-key tile over query
+    tiles kt.. (the causal skip rule: the tiles wholly before the key
+    tile are never visited): the transposed tiles S^T = T(K.Q^T) /
+    sqrt(hd) and dW^T, P^T and dS^T from lse and D per column (query), a
+    query tile's dv += T(P^T) dO and dk += dS^T q summed in f32 and added
+    to the key tile's sums, rounded once.
     ``drop_diagonal``: leave key t = s out of row s (a wrong kernel, for
     the tolerance's control; row 0 keeps its only key).  ``one_pass``:
     the online softmax of one pass, which in bf16 rounds
@@ -366,6 +375,69 @@ def test_one_pass_f32_forward_stays_within_the_card_tolerance(scale,
     assert _gap_share(got[:1], want[:1], CARD_TOL[torch.float32]) <= 1.0
 
 
+def _f64_grads(q, k, v, do):
+    """[dq, dk, dv] of the causal attention in f64 throughout."""
+    S, hd = q.shape[1], q.shape[-1]
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bshk,bthk->bhst", *leaves[:2]) / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    w = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    o = torch.einsum("bhst,bthk->bshk", w, leaves[2])
+    return list(torch.autograd.grad(o, leaves, do.double()))
+
+
+def _share64(got, want):
+    """The largest |got - want| / (atol + rtol |want|) under CARD_TOL's
+    f32 limits, in f64 (want an f64 reference)."""
+    tol = CARD_TOL[torch.float32]
+    return float(((got.double() - want).abs() / (
+        tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def _wide(seed, B, S, H, hd, wide):
+    """q, k, v, dO: unit normal, or at a wide range (q, k x 2, v x 8)."""
+    arrays = _draw(seed, B, S, H, hd, 2.0 if wide else 1.0)
+    if wide:
+        arrays[2] = arrays[2] * 8.0
+    return arrays
+
+
+def test_dkdv_model_holds_plain_and_jax_grad_at_S1024():
+    """The f32 dk/dv kernel's order of work (64-key tiles over query
+    tiles kt.., transposed tiles, per-tile sums) at S = 1024, hd 64:
+    dk and dv within CARD_TOL of autograd of the plain version and of
+    jax.vjp of the reference's fragment."""
+    arrays = _draw(21, 1, 1024, 2, 64)
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    got = kernel_model(q, k, v, do)[2:]
+    want = _torch_grads(causal_attention_plain, arrays, torch.float32)[2:]
+    tol = CARD_TOL[torch.float32]
+    assert _gap_share(got, want, tol) <= 1.0
+    assert _gap_share(got, _jax_vjp(arrays, np.float32)[2:], tol) <= 1.0
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_plain_f32_dkdv_against_f64(S, hd, wide):
+    """What f32 itself leaves in dk and dv: the plain version's autograd
+    against the same function in f64, as a share of CARD_TOL (CPU
+    readings: unit 0.06-0.11 in dk and dv; wide, dk 3.9-16.5 and dv
+    0.53-1.05).  At unit scale the plain version is well inside CARD_TOL
+    of f64; at the wide range its dk leaves it, so there two f32 orders
+    of the sums may differ by more than CARD_TOL, and the card leg holds
+    the kernel to f64 at WIDE_ERR_RATIO times the plain version's
+    error."""
+    arrays = _wide(20, 1, S, 2, hd, wide)
+    got = _torch_grads(causal_attention_plain, arrays, torch.float32)[2:]
+    want = _f64_grads(*(torch.from_numpy(a) for a in arrays))[1:]
+    shares = [_share64(g, w) for g, w in zip(got, want)]
+    if wide:
+        assert 1.0 < shares[0] <= 40.0 and shares[1] <= 2.5, shares
+    else:
+        assert max(shares) <= 0.5, shares
+
+
 def test_cpu_tensors_take_the_plain_version():
     arrays = _draw(7, 1, 9, 2, 24)         # a head dim no kernel takes
     q, k, v, _ = (torch.from_numpy(a) for a in arrays)
@@ -522,10 +594,10 @@ def test_dkdv_kernel_is_deterministic(hd):
 def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     """The dtype dispatch, read from the device's own kernel names under
     torch.profiler: bf16 forward, dq and dk/dv launch the wgmma kernels
-    and no SIMT kernel; f32 launches the CUDA-core forward and dq
-    (causal_fwd_f32_kernel, causal_dq_f32_kernel), the SIMT dk/dv, and
-    no wgmma one; no dtype launches the SIMT dq (causal_dq_kernel), which
-    is gone."""
+    and no SIMT kernel; f32 launches the CUDA-core forward, dq and dk/dv
+    (causal_fwd_f32_kernel, causal_dq_f32_kernel,
+    causal_dkdv_f32_kernel) and no wgmma one; no dtype launches a SIMT
+    kernel (causal_dq_kernel, causal_dkdv_kernel), which are gone."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     arrays = _draw(16, 1, 130, 2, 64)
@@ -547,7 +619,8 @@ def test_bf16_takes_the_tensor_cores_and_f32_the_simt_kernels():
     assert not has("bf16", "causal_fwd_f32_kernel")
     assert has("f32", "causal_fwd_f32_kernel")
     assert has("f32", "causal_dq_f32_kernel")
-    assert has("f32", "causal_dkdv_kernel")
+    assert has("f32", "causal_dkdv_f32_kernel")
+    assert not has("f32", "causal_dkdv_kernel")
     assert not has("f32", "causal_dq_kernel")
     assert not has("f32", "causal_fwd_kernel")
     assert not has("f32", "_sm90")
@@ -669,6 +742,90 @@ def test_f32_dq_copies_an_unaligned_view_and_repeats_its_bits(hd):
     torch.testing.assert_close(got[0][0], want_dq, **CARD_TOL[torch.float32])
     torch.testing.assert_close(got[0][1], want_delta,
                                **CARD_TOL[torch.float32])
+
+
+def _dkdv_inputs(arrays):
+    """q, k, v, dO on the card, and the lse and D the plain version's
+    softmax gives them (f32): the dk/dv kernel's inputs, apart from the
+    forward and dq kernels."""
+    q, k, v, do = (torch.from_numpy(a).to("cuda") for a in arrays)
+    hd = q.shape[-1]
+    lse = _lse_plain(q, k)
+    p = torch.exp(torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
+                  - lse[..., None]).tril()
+    delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def _plain_dkdv(q, k, v, do):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(causal_attention_plain(*leaves), leaves[1:],
+                               do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [65, 200, 1000, 1024])
+def test_f32_dkdv_matches_plain_on_the_card(S, hd):
+    """The f32 dk/dv kernel alone, from the plain softmax's lse and D:
+    dk and dv within CARD_TOL of the plain version's autograd, one
+    launch."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, lse, delta = _dkdv_inputs(_draw(22, 2, S, 3, hd))
+    launches = causal_attention_backward_dkdv.launches
+    got = causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+    want = _plain_dkdv(q, k, v, do)
+    torch.cuda.synchronize()
+    assert causal_attention_backward_dkdv.launches == launches + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_f32_dkdv_at_a_wide_range_is_as_exact_as_plain(S, hd, wide):
+    """dk and dv of the f32 dk/dv kernel against the function in f64
+    throughout, at unit scale and at a wide range (q, k x 2, v x 8, where
+    the plain version's dk lies up to 16x CARD_TOL from f64; CPU leg
+    test_plain_f32_dkdv_against_f64): the kernel's largest error at most
+    WIDE_ERR_RATIO times the plain version's, both from the same f32 lse
+    and D."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, lse, delta = _dkdv_inputs(_wide(23, 2, S, 3, hd, wide))
+    got = causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+    plain = _plain_dkdv(q, k, v, do)
+    exact = _f64_grads(q, k, v, do)[1:]
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("dk", "dv"), got, plain, exact):
+        err = float((g.double() - e).abs().max())
+        plain_err = float((p.double() - e).abs().max())
+        assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+def test_f32_dkdv_copies_an_unaligned_view_and_repeats_its_bits(hd):
+    """The f32 dk/dv kernel: a q and a v whose bases are off 16 bytes
+    (its 16-byte cp.async copies) are copied by the wrapper, giving the
+    bits of contiguous ones, and a second run gives the same bits."""
+    _card()
+    q, k, v, do, lse, delta = _dkdv_inputs(_draw(24, 2, 1000, 3, hd))
+    odd = []
+    for t in (q, v):
+        flat = torch.empty(t.numel() + 1, device="cuda")
+        odd.append(flat[1:].view(t.shape))           # base off by 4 bytes
+        odd[-1].copy_(t)
+    got = [causal_attention_backward_dkdv(odd[0], k, odd[1], do, lse,
+                                          delta)]
+    got += [causal_attention_backward_dkdv(q, k, v, do, lse, delta)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, c in zip(*got):
+        assert torch.equal(a, b) and torch.equal(b, c)
 
 
 @pytest.mark.cuda

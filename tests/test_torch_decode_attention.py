@@ -190,6 +190,26 @@ def test_cpu_takes_a_head_dim_the_kernel_does_not():
                                **SPLIT_TOL)
 
 
+def test_cpu_plain_version_takes_head_dim_256():
+    """Past the kernel's largest head dim the plain version still runs on
+    the CPU (as the reference's decode step takes any head dim): hd 256
+    within SPLIT_TOL of the split model and the jnp fragment."""
+    assert 256 > max(KERNEL_HEAD_DIMS)
+    arrays = _inputs([0, S - 1, 23], hd=256)
+    q, kn, vn, kc, vc, pa = _torch(arrays)
+    kp, vp = kc.clone(), vc.clone()
+    got = decode_attention(q, kn, vn, kc, vc, pa)   # CPU: the plain version
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, kn, vn, kp.clone(), vp.clone(), pa),
+        atol=0, rtol=0)
+    torch.testing.assert_close(got, split_model(q, kn, vn, kp, vp, pa),
+                               **SPLIT_TOL)
+    import jax.numpy as jnp
+    from test_torch_model import _jnp_fragment
+    wo, _, _ = _jnp_fragment(*(jnp.asarray(a) for a in arrays))
+    np.testing.assert_allclose(got.numpy(), np.asarray(wo), **SPLIT_TOL)
+
+
 def test_kernel_takes_the_head_dims_the_port_launches():
     from brpc_tpu_torch.models.transformer import ModelConfig
     from brpc_tpu_torch.serving.engine import tiny_config
@@ -311,6 +331,53 @@ def test_decode_step_matches_the_reference_at_hd128():
         tokens = np.asarray(wl).argmax(-1).astype(np.int32)
 
 
+def test_decode_step_matches_the_reference_at_hd256():
+    """A dense config with head_dim 256 (d_model 256, one head), past
+    every kernel head dim, decodes on the CPU through the port's
+    decode_step as through the reference's: two slots, three steps, in
+    f32, logits atol 1e-4 / rtol 1e-5 and caches atol 1e-5, as at hd
+    128."""
+    import jax
+    import jax.numpy as jnp
+    from brpc_tpu.models import decode as ref_decode
+    from brpc_tpu.models import transformer as ref_tf
+    from brpc_tpu_torch.models import decode as D
+    from brpc_tpu_torch.models import transformer as T
+    from brpc_tpu_torch.weights import params_from_jax
+    shape = dict(vocab=64, d_model=256, n_heads=1, n_layers=2, d_ff=256,
+                 max_seq=32, n_experts=0)
+    ref_cfg = ref_tf.ModelConfig(dtype=jnp.float32, **shape)
+    tree = jax.tree_util.tree_map(
+        np.asarray, ref_tf.init(jax.random.PRNGKey(1), ref_cfg))
+    cfg = T.ModelConfig(dtype=torch.float32, **shape)
+    assert cfg.head_dim == 256
+    model = params_from_jax(tree, cfg, device="cpu")
+    rng = np.random.default_rng(14)
+    slots, Sc = 2, 32
+    rc = ref_decode.init_cache(ref_cfg, slots, Sc)
+    pc = D.init_cache(cfg, slots, Sc, device="cpu")
+    for slot, plen in {0: 5, 1: 17}.items():
+        toks = rng.integers(0, 64, (1, plen), dtype=np.int32)
+        _, k, v = ref_decode.prefill(tree, jnp.asarray(toks), ref_cfg)
+        k, v = np.asarray(k[:, 0]), np.asarray(v[:, 0])
+        rc = ref_decode.install(rc, slot, k, v, plen)
+        D.install(pc, slot, k, v, plen)
+    active = np.array([True, True])
+    tokens = rng.integers(0, 64, (slots,), dtype=np.int32)
+    for _ in range(3):
+        wl, rc = ref_decode.decode_step(tree, rc, jnp.asarray(tokens),
+                                        jnp.asarray(active), ref_cfg)
+        gl, pc = D.decode_step(model, pc, torch.from_numpy(tokens),
+                               torch.from_numpy(active), cfg)
+        assert gl.shape == (slots, 64)
+        np.testing.assert_allclose(gl.numpy(), np.asarray(wl), atol=1e-4,
+                                   rtol=1e-5)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(pc[key].numpy(), np.asarray(rc[key]),
+                                       atol=1e-5, rtol=0)
+        tokens = np.asarray(wl).argmax(-1).astype(np.int32)
+
+
 def _f32(x: Fraction) -> np.float32:
     """x rounded to the nearest float32, ties to even."""
     c = np.float32(float(x))
@@ -392,6 +459,18 @@ def test_kernel_matches_plain_on_long_windows_on_the_card(S_, hd, dtype, p):
     torch.cuda.synchronize()
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
     torch.testing.assert_close(got.float(), want.float(), **CARD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_head_dim_256_on_the_card():
+    """No fallback: on the card a head dim outside KERNEL_HEAD_DIMS
+    raises before any launch, though the CPU takes it."""
+    _card()
+    q, kn, vn, kc, vc, pa = _torch(_inputs([0, S - 1], 256), "cuda")
+    before = decode_attention.launches
+    with pytest.raises(ValueError, match="not 256"):
+        decode_attention(q, kn, vn, kc, vc, pa)
+    assert decode_attention.launches == before
 
 
 def _scaled_hd128(p, scale=2.0):

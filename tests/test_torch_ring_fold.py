@@ -27,7 +27,12 @@ On the CPU:
   tolerance the card legs and chip_smoke.py hold the kernels to.  The
   one-pass order also over 1024 keys against the plain version and the
   jnp fold (a fresh state, a carried one, an off-diagonal block), and
-  its up-front rule against the two-pass rule's decision.  Control: the
+  its up-front rule against the two-pass rule's decision.  The dk/dv
+  order (the block's sums per key tile, added to a carried dk, dv once)
+  on the small blocks, and over 1024 queries (fresh, carried and
+  off-diagonal) against the plain version and jax.vjp of the
+  reference's fold.  The plain f32 dk and dv against f64 at unit scale
+  and a wide range (q, k x 2, v x 8).  Control: the
   same model skipping masked tile pairs unconditionally leaves it on a
   block whose first rows have seen no key (the reference weighs their
   masked scores by 1), in either order.
@@ -45,12 +50,14 @@ The ``cuda``-marked legs run on the card: the three kernels against the
 plain version at head dims 8, 16, 64 and 128, bf16 and f32, ragged
 blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
 to contiguous ones; two runs bit-equal; an unaligned bf16 view copied
-for TMA, and an unaligned f32 view copied for the f32 forward's
-cp.async, bit-equal; the wholly future block with no launch; no fallback
-(a head dim the kernels lack raises); the route under torch.profiler
-(bf16 at hd 16, 64 and 128: the tensor-core forward, dq and dk/dv; f32
-there: the one-pass CUDA-core forward, the SIMT dq and dk/dv; hd 8 in
-both dtypes: the SIMT kernels); dq added into a carried dq; and
+for TMA, and an unaligned f32 view copied for the f32 forward's and
+dk/dv's cp.async, bit-equal; the wholly future block with no launch; no
+fallback (a head dim the kernels lack raises); the route under
+torch.profiler (bf16 at hd 16, 64 and 128: the tensor-core forward, dq
+and dk/dv; f32 there: the CUDA-core forward and dk/dv, the SIMT dq; hd 8
+in both dtypes: the SIMT kernels); dq added into a carried dq; the f32
+dk/dv added into a carried dk, dv at C = 65 to 1024, and against f64 at
+unit scale and a wide range, as exact as the plain version; and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
@@ -94,6 +101,9 @@ FLIP_TOL = dict(atol=4e-2, rtol=8e-2)
 # same sums in another order
 EXACT_TOL = dict(atol=1e-5, rtol=1e-5)
 TILE = 64
+# the f32 dk/dv kernel at a wide range (q, k x 2, v x 8), against f64:
+# its largest error over the plain version's
+WIDE_ERR_RATIO = 1.5
 
 
 def _draw(seed, *shapes, scale=1.0):
@@ -346,18 +356,24 @@ def _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk, q_off, k_off,
 
 
 def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
-              dq=None):
+              dq=None, dk=None, dv=None):
     """The dq kernel (per query tile over key tiles) and the dk/dv kernel
-    (per key tile over query tiles): (dq, dk, dv), dk and dv the block's,
-    dq the carried `dq` (zeros by default) plus the block's.  As the dq
-    kernel orders its work: per query tile the block's dS . K summed over
-    the key tiles it visits (every tile if a row of the query tile has
-    seen no key), then added to the carried dq once."""
+    (per key tile over query tiles): (dq, dk, dv), each the carried one
+    (zeros by default) plus the block's.  As the dq kernel orders its
+    work: per query tile the block's dS . K summed over the key tiles it
+    visits (every tile if a row of the query tile has seen no key), then
+    added to the carried dq once.  As the dk/dv kernels order theirs
+    (csrc/ring_fold_f32.cu in f32 at hd 16, 64 and 128, on transposed
+    tiles; the tensor-core and SIMT kernels alike): per 64-key tile the
+    block's dS^T . Q and P^T . dO summed over the query tiles it visits
+    (every tile if a row of the block has seen no key, else those not
+    wholly before the key tile), then added to the carried dk, dv
+    once."""
     dtype, (B, Cq, H, hd), Ck = q.dtype, q.shape, k.shape[1]
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dq = torch.zeros(B, H, Cq, hd) if dq is None else dq.clone()
-    dk = torch.zeros(B, H, Ck, hd)
-    dv = torch.zeros(B, H, Ck, hd)
+    dk = torch.zeros(B, H, Ck, hd) if dk is None else dk.clone()
+    dv = torch.zeros(B, H, Ck, hd) if dv is None else dv.clone()
     degen = _degenerate(lse)
     for q0 in range(0, Cq, TILE):
         nq = min(TILE, Cq - q0)
@@ -375,16 +391,20 @@ def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
         dq[:, :, q0:q0 + nq] = dq[:, :, q0:q0 + nq] + acc
     for k0 in range(0, Ck, TILE):
         nk = min(TILE, Ck - k0)
+        acc_k = torch.zeros(B, H, nk, hd)
+        acc_v = torch.zeros(B, H, nk, hd)
         for q0 in range(0, Cq, TILE):
             if _all_masked(q_off, q0, Cq, k_off, k0, causal) and not degen:
                 continue
             nq = min(TILE, Cq - q0)
             p, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
                                q_off, k_off, causal, scale, dtype)
-            dk[:, :, k0:k0 + nk] += torch.einsum("bhcd,bchk->bhdk", ds,
-                                                 qf[:, q0:q0 + nq])
-            dv[:, :, k0:k0 + nk] += torch.einsum("bhcd,bchk->bhdk", p,
-                                                 dof[:, q0:q0 + nq])
+            acc_k = acc_k + torch.einsum("bhcd,bchk->bhdk", ds,
+                                         qf[:, q0:q0 + nq])
+            acc_v = acc_v + torch.einsum("bhcd,bchk->bhdk", p,
+                                         dof[:, q0:q0 + nq])
+        dk[:, :, k0:k0 + nk] = dk[:, :, k0:k0 + nk] + acc_k
+        dv[:, :, k0:k0 + nk] = dv[:, :, k0:k0 + nk] + acc_v
     return dq, dk, dv
 
 
@@ -460,6 +480,28 @@ def test_dq_model_adds_the_block_to_a_carried_dq(Cq, Ck, q_off, k_off,
                     dq=carried)[0]
     assert not torch.equal(got, carried)
     _close([got], [want], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", BLOCKS)
+def test_dkdv_model_adds_the_block_to_a_carried_dkdv(Cq, Ck, q_off, k_off,
+                                                     causal, dtype):
+    """The dk/dv kernels' order of work (the block's sums per key tile,
+    then one add) from dk, dv carried over earlier blocks, against
+    ring_fold_bwd_dkdv_plain from the same dk, dv."""
+    q, k, v, do, m, l, o = _block(55, 1, Cq, Ck, 2, 16, dtype)
+    scale = 0.25
+    _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                   causal, scale)
+    carried = [torch.from_numpy(a) for a in _draw(57, *[(1, 2, Ck, 16)] * 2)]
+    want = [t.clone() for t in carried]
+    ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, *want, q_off, k_off,
+                             causal, scale)
+    got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                    dk=carried[0], dv=carried[1])[1:]
+    assert not any(torch.equal(g, c) for g, c in zip(got, carried))
+    _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("one_pass", [True, False],
@@ -544,6 +586,116 @@ def test_one_pass_f32_fold_holds_plain_and_jnp_over_1024_keys(case):
     _close(got, [torch.from_numpy(np.array(w)) for w in jnp_want],
            torch.float32)
     assert not torch.equal(got[2], want[2])    # another order of sums
+
+
+def _jnp_fold_grads(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
+    """[dk, dv] ([B, H, Ck, hd]) of the reference: jax.vjp of the
+    normalised output o' / l' of one `fold` (ring_attention.py:57-69)
+    from the state (m, l, o), held constant, with cotangent dO."""
+    import jax
+    import jax.numpy as jnp
+
+    def out(k, v):
+        _, l2, o2 = _jnp_fold(jnp.asarray(q.numpy()), k, v,
+                              *(jnp.array(t.numpy()) for t in (m, l, o)),
+                              q_off, k_off, causal, scale)
+        return o2 / l2[..., None]
+    _, pull = jax.vjp(out, jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))
+    grads = pull(jnp.asarray(do.numpy().transpose(0, 2, 1, 3)))
+    return [torch.from_numpy(np.array(g).transpose(0, 2, 1, 3))
+            for g in grads]
+
+
+def _c1024_case(case, seed, hd=64):
+    """q, k, v, dO, (m, l, o) and the offsets of a C = 1024 block: a
+    ring's first, diagonal block from a fresh state; the diagonal block
+    of a state carried from an earlier fold (the past block at k_off 0);
+    an off-diagonal block on a state from an earlier fold."""
+    C = 1024
+    q, k, v, do, m, l, o = _block(seed, 1, C, C, 2, hd, torch.float32)
+    q_off, k_off = {"fresh": (0, 0), "carried": (C, C),
+                    "off_diagonal": (C, 0)}[case]
+    if case != "off_diagonal":
+        m, l, o = _fresh(m, l, o)
+    if case == "carried":
+        k0, v0 = (torch.from_numpy(a)
+                  for a in _draw(seed + 2, *[(1, C, 2, hd)] * 2))
+        ring_fold_plain(q, k0, v0, m, l, o, C, 0, True, hd ** -0.5)
+    return q, k, v, do, (m, l, o), q_off, k_off
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_dkdv_model_holds_plain_and_jax_grad_over_1024_queries(case):
+    """The f32 dk/dv kernel's order of work (64-key tiles over the query
+    tiles that see them, transposed tiles, per-tile sums, the skip rule)
+    at C = 1024, hd 64, from the lse and D of the plain fold: dk and dv
+    within CARD_TOL of ring_fold_bwd_dkdv_plain and of jax.vjp of the
+    reference's fold, normalised."""
+    q, k, v, do, state, q_off, k_off = _c1024_case(case, 59)
+    scale = 1.0 / math.sqrt(64)
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, True, scale)[1:]
+    _close(got, want[4:], torch.float32)
+    _close(got, _jnp_fold_grads(q, k, v, do, *state, q_off, k_off, True,
+                                scale), torch.float32)
+
+
+def _f64_dkdv(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
+    """[dk, dv] of one block in f64 throughout: the f64 fold's lse and
+    D, then the backward's formulas."""
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    m, l, o = _f64_fold(q, k, v, m, l, o, q_off, k_off, causal, scale)
+    lse = m + torch.log(l)
+    delta = (do.transpose(1, 2) * o / l[..., None]).sum(-1)
+    s = torch.einsum("bchk,bdhk->bhcd", q, k) * scale
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k.shape[1], device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.einsum("bchk,bdhk->bhcd", do, v) - delta[..., None]) \
+        * scale
+    return [torch.einsum("bhcd,bchk->bhdk", ds, q),
+            torch.einsum("bhcd,bchk->bhdk", p, do)]
+
+
+def _wide_block(seed, B, C, H, hd, wide, device="cpu"):
+    """A ring's first, diagonal block (a fresh state), its q, k, v, dO
+    unit normal or at a wide range (q, k x 2, v x 8)."""
+    q, k, v, do, m, l, o = _block(seed, B, C, C, H, hd, torch.float32)
+    if wide:
+        q, k, v = q * 2.0, k * 2.0, v * 8.0
+    return [t.to(device) for t in (q, k, v, do, *_fresh(m, l, o))]
+
+
+def _share64(got, want):
+    """The largest |got - want| / (atol + rtol |want|) under CARD_TOL's
+    f32 limits, in f64 (want an f64 reference)."""
+    tol = CARD_TOL[torch.float32]
+    return float(((got.double() - want).abs() / (
+        tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_plain_f32_dkdv_against_f64(C, hd, wide):
+    """What f32 itself leaves in the fold's dk and dv: the plain fold and
+    backward (a ring's first, diagonal block) against the same in f64
+    throughout, as a share of CARD_TOL (CPU readings: unit 0.06-0.12 in
+    dk and dv; wide, dk 6.2-15.2 and dv 0.53-1.01).  At the wide range
+    the plain dk leaves CARD_TOL of f64, so the card leg holds the
+    kernel to f64 at WIDE_ERR_RATIO times the plain version's error."""
+    q, k, v, do, m, l, o = _wide_block(61, 1, C, 2, hd, wide)
+    scale = hd ** -0.5
+    got = _plain_block(q, k, v, do, m, l, o, 0, 0, True, scale)[0][4:]
+    want = _f64_dkdv(q, k, v, do, m, l, o, 0, 0, True, scale)
+    shares = [_share64(g, w) for g, w in zip(got, want)]
+    if wide:
+        assert 1.0 < shares[0] <= 40.0 and shares[1] <= 2.5, shares
+    else:
+        assert max(shares) <= 0.5, shares
 
 
 # ---------------------------------------------------------------------------
@@ -835,9 +987,9 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
 def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     """The route, read from the device's kernel names under
     torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
-    forward, dq and dk/dv; f32 there the one-pass CUDA-core forward
-    (ring_fold_fwd_f32_kernel) and the SIMT dq and dk/dv; hd 8 in both
-    dtypes the SIMT kernels."""
+    forward, dq and dk/dv; f32 there the CUDA-core forward and dk/dv
+    (ring_fold_fwd_f32_kernel, ring_fold_dkdv_f32_kernel) and the SIMT
+    dq; hd 8 in both dtypes the SIMT kernels."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -866,7 +1018,7 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
             "ring_fold_fwd_sm90_kernel"]
     assert names["bf16"] == names["bf16_hd16"] == names["bf16_hd128"] == \
         sm90, names
-    f32 = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+    f32 = ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_kernel",
            "ring_fold_fwd_f32_kernel"]
     assert names["f32"] == names["f32_hd16"] == names["f32_hd128"] == f32, \
         names
@@ -933,6 +1085,94 @@ def test_dq_kernel_adds_into_a_carried_dq_on_the_card(Cq, Ck, q_off, k_off,
     torch.cuda.synchronize()
     assert torch.equal(got[0], got[1])
     _close([got[0]], [want], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [65, 200, 1000, 1024])
+def test_f32_dkdv_matches_plain_on_the_card(C, hd):
+    """The f32 dk/dv kernel on a causal diagonal block of a carried
+    state, adding into dk and dv carried over earlier blocks: within
+    CARD_TOL of ring_fold_bwd_dkdv_plain from the same dk, dv, one
+    launch."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _block(63, 2, C, C, 3, hd, torch.float32, "cuda")
+    scale = 1.0 / math.sqrt(hd)
+    _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, C, C, True, scale)
+    g = torch.Generator(device="cuda").manual_seed(65)
+    carried = [torch.randn(2, 3, C, hd, generator=g, device="cuda")
+               for _ in range(2)]
+    want = [t.clone() for t in carried]
+    ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, *want, C, C, True,
+                             scale)
+    got = [t.clone() for t in carried]
+    launches = ring_fold_backward_dkdv.launches
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, *got, C, C, True, scale)
+    torch.cuda.synchronize()
+    assert ring_fold_backward_dkdv.launches == launches + 1
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_f32_dkdv_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
+    """dk and dv of the f32 dk/dv kernel (a ring's first, diagonal block)
+    against the fold and backward in f64 throughout, at unit scale and at
+    a wide range (q, k x 2, v x 8, where the plain dk lies up to 15x
+    CARD_TOL from f64; CPU leg test_plain_f32_dkdv_against_f64): the
+    kernel's largest error at most WIDE_ERR_RATIO times the plain
+    version's, both from the plain f32 fold's lse and D."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _wide_block(67, 2, C, 3, hd, wide, "cuda")
+    scale = hd ** -0.5
+    plain, (lse, delta) = _plain_block(q, k, v, do, m, l, o, 0, 0, True,
+                                       scale)
+    got = [torch.zeros_like(t) for t in plain[4:]]
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, *got, 0, 0, True, scale)
+    exact = _f64_dkdv(q, k, v, do, m, l, o, 0, 0, True, scale)
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(("dk", "dv"), got, plain[4:], exact):
+        err = float((g.double() - e).abs().max())
+        plain_err = float((p.double() - e).abs().max())
+        assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (16, 64, 128))
+def test_f32_dkdv_copies_an_unaligned_view_and_repeats_its_bits(hd):
+    """An f32 q and dO whose bases are off 16 bytes (the f32 dk/dv's
+    16-byte cp.async copies) are copied by the wrapper: dk and dv are the
+    bits of contiguous ones, and a second run gives the same bits; on a
+    carried state and on a block whose first rows see no key (every
+    tile pair visited)."""
+    _card()
+    for q_off, k_off, fresh in ((130, 130, False), (0, 64, True)):
+        q, k, v, do, m, l, o = _block(69, 2, 130, 130, 3, hd, torch.float32,
+                                      "cuda")
+        if fresh:
+            m, l, o = _fresh(m, l, o)
+        scale = hd ** -0.5
+        _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                       True, scale)
+        odd = []
+        for t in (q, do):
+            flat = torch.empty(t.numel() + 1, device="cuda")
+            odd.append(flat[1:].view(t.shape))       # base off by 4 bytes
+            odd[-1].copy_(t)
+        outs = []
+        for qq, dd in ((odd[0], odd[1]), (q, do), (q, do)):
+            acc = [torch.zeros(2, 3, 130, hd, device="cuda")
+                   for _ in range(2)]
+            ring_fold_backward_dkdv(qq, k, v, dd, lse, delta, *acc, q_off,
+                                    k_off, True, scale)
+            outs.append(acc)
+        torch.cuda.synchronize()
+        for a, b, c in zip(*outs):
+            assert torch.equal(a, b) and torch.equal(b, c)
 
 
 def _fresh(m, l, o):
