@@ -20,6 +20,16 @@
 //   reference's jax.grad of its softmax; not the rowsum(dO * o) stand-in)
 //   dS = p (dW - D) / sqrt(hd)    dq = sum_t dS k
 //   dk = sum_s dS q               dv = sum_s p dO
+// where dq normalises the row's p by its sum l = sum_t p (w = p / l, D =
+// sum_t w dW, dS from w), as the reference's softmax weights sum to 1:
+// p from a rounded lse sums to 1 only within lse's rounding (about 1e-6
+// at a wide range of q and k), and taken as it is that error enters
+// every dS as -(l - 1) D p, where D is large (v x 8: dq read 2.5-2.7x
+// the plain version's error against f64 at hd 16 on an H100).  l and
+// sum_t p dW are summed with their rounding errors carried (Kahan): a
+// lane's plain sum rounds S / 8 times at D's magnitude, and that left dq
+// 2.2x the plain version's error at S = 1024, hd 16 (both on the CPU in
+// the kernel's order, tests/test_torch_causal_attention.py).
 // In f32 the weights are not rounded before their product, so nothing
 // forces the two passes the bf16 kernels make: one pass keeps the online
 // (m, l) and rescales the accumulator, o_acc = o_acc exp(m_old - m) +
@@ -59,8 +69,9 @@
 //  - dq: Q and dO resident; K and V through the ring over key tiles
 //    0..qt twice, one ring for both passes (pass 2's tile 0 lands during
 //    pass 1's last tile).  Pass 1: the thread's tiles of dW = dO.V and
-//    s = Q.K, p = exp(s - lse), D += p dW in registers, summed over the
-//    row's 8 lanes at the end; nothing staged.  Pass 2: dW and s again,
+//    s = Q.K, p = exp(s - lse), l += p and D += p dW in registers
+//    (compensated), summed over the row's 8 lanes at the end, D divided
+//    by l; nothing staged.  Pass 2: dW and s again, w = p / l (a product with 1 / l),
 //    dS in registers, staged at stride 72 into the current V stage once
 //    every thread has read V for its dW (a barrier; V is dead then), and
 //    dq_acc += dS . K.  A V stage is max(64 (hd + 4), 64 x 72) floats,
@@ -99,17 +110,6 @@ struct Layout {  // q, k, v, dO
 template <int HD>
 constexpr int smem_bytes() {  // Q, two stages of K and of V, p
   return (5 * Stage<HD>::kFloats + kTile * kLdP) * (int)sizeof(float);
-}
-
-// floats of one dq V stage: a V tile, or the dS tile staged over it
-template <int HD>
-constexpr int kDqVStage = Stage<HD>::kFloats > kTile * kLdP
-                              ? Stage<HD>::kFloats
-                              : kTile * kLdP;
-
-template <int HD>
-constexpr int dq_smem_bytes() {  // Q, dO, two stages of K and of V / dS
-  return (4 * Stage<HD>::kFloats + 2 * kDqVStage<HD>) * (int)sizeof(float);
 }
 
 // o and lse for one query tile, in one pass over key tiles 0..qt; K and
@@ -276,6 +276,16 @@ __device__ __forceinline__ void dq_step(
   }
 }
 
+// sum += x, the rounding error of the add kept in c and taken off the
+// next term (Kahan): the true sum is sum - c.  A lane of dq's pass 1 sums
+// up to S / 8 terms at the row sum's magnitude.
+__device__ __forceinline__ void kahan_add(float& sum, float& c, float x) {
+  const float y = __fsub_rn(x, c);
+  const float t = __fadd_rn(sum, y);
+  c = __fsub_rn(__fsub_rn(t, sum), y);
+  sum = t;
+}
+
 // dq and D for one query tile: pass 1 D = sum_t p dW over key tiles
 // 0..qt, pass 2 dS and dq = sum_t dS k over the same tiles.
 template <int HD>
@@ -311,13 +321,16 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_commit();
   float L[4];  // +inf past S: p = 0 there
   float D[4];
+  float l[4];
+  float cD[4];  // the rounding errors the sums carry (kahan_add)
+  float cl[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ra + 16 * i;
     L[i] = row < S ? lse[bh + row] : INFINITY;
-    D[i] = 0.0f;
+    D[i] = l[i] = cD[i] = cl[i] = 0.0f;
   }
-  // pass 1: D = sum_t p dW
+  // pass 1: l = sum_t p and sum_t p dW
   for (int n = 0; n < nt; ++n) {
     float w[4][8];
     float p[4][8];
@@ -327,13 +340,18 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        D[i] = fmaf(p[i][j], w[i][j], D[i]);
+        kahan_add(D[i], cD[i], __fmul_rn(p[i][j], w[i][j]));
+        kahan_add(l[i], cl[i], p[i][j]);
       }
     }
   }
+  // D = sum_t w dW, and l becomes 1 / l, which turns p into w (rows past
+  // S, where l = 0, are never stored)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    D[i] = sum8(D[i]);
+    l[i] = __fsub_rn(sum8(l[i]), sum8(cl[i]));
+    D[i] = __fdiv_rn(__fsub_rn(sum8(D[i]), sum8(cD[i])), l[i]);
+    l[i] = __frcp_rn(l[i]);
   }
   // pass 2: dS, then dq = sum_t dS k
   float acc[4][NC];
@@ -353,7 +371,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float ds = p[i][j] * (w[i][j] - D[i]);
+        const float ds = p[i][j] * l[i] * (w[i][j] - D[i]);
         p[i][j] = kPow2<HD> ? ds * inv : div_rn(ds, sqrt_hd, inv);
       }
     }

@@ -1,6 +1,6 @@
 // f32_tile.cuh — what the f32 kernels on the CUDA cores share
 // (causal_attention_f32.cu: the causal forward, dq and dk/dv;
-// ring_fold_f32.cu: the ring fold's forward and dk/dv): the padded-row
+// ring_fold_f32.cu: the ring fold's forward, dq and dk/dv): the padded-row
 // geometry of a staged tile, the cp.async copies that fill it, the row
 // reductions, the per-column row statistics of the transposed (dk/dv)
 // tiles, and the two register-tile products, rows against rows over hd
@@ -32,7 +32,9 @@
 // cp.async and not TMA: TMA writes dense rows, whose float4 reads of
 // consecutive rows conflict unless a swizzle is undone at every read of
 // the FMA loop; padded rows need neither that nor a tensor map encoded
-// per launch.
+// per launch.  The dq kernels stage dS over the V tile of the stage they
+// are on once every thread has read V, so a V stage of theirs holds
+// either (kDqVStage).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,6 +55,17 @@ struct Stage {
   static constexpr int kCols = HD / 8;             // o columns a thread
   static constexpr int kGroup = kCols < 4 ? kCols : 4;  // a vector
 };
+
+// floats of one dq V stage: a V tile, or the dS tile staged over it
+template <int HD>
+constexpr int kDqVStage = Stage<HD>::kFloats > kTile * kLdP
+                              ? Stage<HD>::kFloats
+                              : kTile * kLdP;
+
+template <int HD>
+constexpr int dq_smem_bytes() {  // Q, dO, two stages of K and of V / dS
+  return (4 * Stage<HD>::kFloats + 2 * kDqVStage<HD>) * (int)sizeof(float);
+}
 
 // sqrt(HD) a power of two: x / sqrt(HD) is exactly x * (1 / sqrt(HD))
 template <int HD>

@@ -41,9 +41,10 @@
 // every product, scores computed twice in the forward, so they run far
 // from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
 // and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu, and
-// the f32 forward and dk/dv at those head dims to the CUDA-core kernels
-// of ring_fold_f32.cu; this file keeps the f32 dq and every kernel at
-// hd 8 (the reference tests' own).
+// every f32 launch at those head dims to the CUDA-core kernels of
+// ring_fold_f32.cu; this file's kernels are built at hd 8 alone (the
+// reference tests' own head dim), in both dtypes, and its C entries
+// dispatch.
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -52,7 +53,7 @@
 //    and reduce with four xor-shuffles.  Tiles are staged in shared
 //    memory as f32 rows of max(hd, 16) + 1 floats (hd 8 is padded with
 //    zeros), rows past the block as zeros.
-//  - fwd (hd 8), one block per (query tile, h, b): pass 1 the row max,
+//  - fwd, one block per (query tile, h, b): pass 1 the row max,
 //    pass 2 p, its row sum and p . V; then the (m, l, o) update, once
 //    per block as the reference's fold.
 //    dq, per query tile: dP, dS and dq += dS . K over the key tiles.
@@ -69,8 +70,6 @@
 
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "ring_fold.cuh"
 
@@ -570,33 +569,19 @@ Layout layout_of(const long long* strides, int n) {
   return lay;
 }
 
-// Every kernel in bf16 at hd 16, 64 and 128 runs on the tensor cores
-// (ring_fold_sm90.cu), and the f32 forward and dk/dv there on the CUDA
-// cores (ring_fold_f32.cu): no SIMT kernel of theirs is built.
-template <typename T, int HD>
-constexpr bool kSimtDq = std::is_same<T, float>::value || HD == 8;
-template <int HD>
-constexpr bool kSimtFwd = HD == 8;
-template <int HD>
-constexpr bool kSimtDkdv = HD == 8;
-
 template <typename T, int HD>
 int fwd(const void* q, const void* k, const void* v, float* m, float* l,
         float* o, const Layout& lay, int B, int Cq, int Ck, int H,
         const Pos& pos, cudaStream_t st) {
-  if constexpr (!kSimtFwd<HD>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    static const int attr =
-        allow_smem(ring_fold_fwd_kernel<T, HD>, fwd_smem<HD>());
-    if (attr != 0) {
-      return attr;
-    }
-    const dim3 grid((Cq + kTile - 1) / kTile, H, B);
-    ring_fold_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
-        (const T*)q, (const T*)k, (const T*)v, m, l, o, lay, Cq, Ck, H, pos);
-    return (int)cudaGetLastError();
+  static const int attr =
+      allow_smem(ring_fold_fwd_kernel<T, HD>, fwd_smem<HD>());
+  if (attr != 0) {
+    return attr;
   }
+  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+  ring_fold_fwd_kernel<T, HD><<<grid, kThreads, fwd_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, m, l, o, lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -604,20 +589,16 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dq,
            const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
            cudaStream_t st) {
-  if constexpr (!kSimtDq<T, HD>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    static const int attr =
-        allow_smem(ring_fold_dq_kernel<T, HD>, dq_smem<HD>());
-    if (attr != 0) {
-      return attr;
-    }
-    const dim3 grid((Cq + kTile - 1) / kTile, H, B);
-    ring_fold_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        dq, lay, Cq, Ck, H, pos);
-    return (int)cudaGetLastError();
+  static const int attr =
+      allow_smem(ring_fold_dq_kernel<T, HD>, dq_smem<HD>());
+  if (attr != 0) {
+    return attr;
   }
+  const dim3 grid((Cq + kTile - 1) / kTile, H, B);
+  ring_fold_dq_kernel<T, HD><<<grid, kThreads, dq_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dq,
+      lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
@@ -625,20 +606,16 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, float* dk, float* dv,
              const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
              cudaStream_t st) {
-  if constexpr (!kSimtDkdv<HD>) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    static const int attr =
-        allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
-    if (attr != 0) {
-      return attr;
-    }
-    const dim3 grid((Ck + kTile - 1) / kTile, H, B);
-    ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        dk, dv, lay, Cq, Ck, H, pos);
-    return (int)cudaGetLastError();
+  static const int attr =
+      allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
+  if (attr != 0) {
+    return attr;
   }
+  const dim3 grid((Ck + kTile - 1) / kTile, H, B);
+  ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
+      dv, lay, Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
 }
 
 bool valid_shape(int B, int Cq, int Ck, int H) {
@@ -664,14 +641,18 @@ extern "C" int trpc_ring_fold_bwd_dkdv_sm90(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int hd,
     int q_off, int k_off, int causal, float scale, void* stream);
-// The CUDA-core forward and dk/dv (ring_fold_f32.cu), for f32 at hd 16,
-// 64, 128.
+// The CUDA-core kernels (ring_fold_f32.cu), for f32 at hd 16, 64, 128.
 extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
                                       const void* v, void* m, void* l,
                                       void* o, const long long* strides,
                                       int B, int Cq, int Ck, int H, int hd,
                                       int q_off, int k_off, int causal,
                                       float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int hd, int q_off, int k_off, int causal,
+    float scale, void* stream);
 extern "C" int trpc_ring_fold_bwd_dkdv_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
@@ -688,10 +669,9 @@ extern "C" int trpc_ring_fold_bwd_dkdv_f32(
 // 128 to the tensor-core kernels, whose q, k, v and dO views must be
 // 16-byte aligned in base and strides (TMA's rule; the wrapper copies
 // any other); where the driver refuses the tensor map of input i (0 q,
-// 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  The
-// forward and dk/dv take f32 at those head dims to the CUDA-core
-// kernels, whose 16-byte cp.async copies need the same alignment of q,
-// k, v (and dO).
+// 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  Each
+// takes f32 at those head dims to the CUDA-core kernels, whose 16-byte
+// cp.async copies need the same alignment of q, k, v (and dO).
 
 static bool wide_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
@@ -699,22 +679,15 @@ static bool tensor_cores(int dtype, int hd) {
   return dtype == 0 && wide_hd(hd);
 }
 
-// return FN<T, hd>(...) for the head dims the kernels take
-#define TRPC_RF_HD(T, FN, ...)                 \
-  switch (hd) {                                \
-    case 8: return FN<T, 8>(__VA_ARGS__);      \
-    case 16: return FN<T, 16>(__VA_ARGS__);    \
-    case 64: return FN<T, 64>(__VA_ARGS__);    \
-    case 128: return FN<T, 128>(__VA_ARGS__);  \
-  }
-
-// FN over the dtype and head dim
-#define TRPC_RF(FN, ...)                                  \
-  if (dtype == 0) {                                       \
-    TRPC_RF_HD(__nv_bfloat16, FN, __VA_ARGS__);           \
-  } else if (dtype == 1) {                                \
-    TRPC_RF_HD(float, FN, __VA_ARGS__);                   \
-  }                                                       \
+// return the SIMT FN<T, 8>(...) over the dtype: every other head dim the
+// kernels take went to ring_fold_sm90.cu or ring_fold_f32.cu
+#define TRPC_RF(FN, ...)                      \
+  if (hd == 8 && dtype == 0) {                \
+    return FN<__nv_bfloat16, 8>(__VA_ARGS__); \
+  }                                           \
+  if (hd == 8 && dtype == 1) {                \
+    return FN<float, 8>(__VA_ARGS__);         \
+  }                                           \
   return (int)cudaErrorInvalidValue;
 
 extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
@@ -755,6 +728,11 @@ extern "C" int trpc_ring_fold_bwd_dq(const void* q, const void* k,
     return trpc_ring_fold_bwd_dq_sm90(q, k, v, dout, lse, delta, dq, strides,
                                       B, Cq, Ck, H, hd, q_off, k_off, causal,
                                       scale, stream);
+  }
+  if (dtype == 1 && wide_hd(hd)) {
+    return trpc_ring_fold_bwd_dq_f32(q, k, v, dout, lse, delta, dq, strides,
+                                     B, Cq, Ck, H, hd, q_off, k_off, causal,
+                                     scale, stream);
   }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};

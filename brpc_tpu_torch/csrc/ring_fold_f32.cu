@@ -1,26 +1,26 @@
-// ring_fold_f32.cu — the ring fold's forward and dk/dv in f32 on the
-// CUDA cores: register tiles fed by 16-byte shared-memory reads and
-// cp.async copies (the machinery of f32_tile.cuh); the forward in one
-// pass over the held block's keys through a two-stage ring for K and V,
-// dk/dv on transposed tiles.
+// ring_fold_f32.cu — the ring fold's forward, dq and dk/dv in f32 on
+// the CUDA cores: register tiles fed by 16-byte shared-memory reads and
+// cp.async copies (the machinery of f32_tile.cuh); the forward and dq in
+// one pass over the held block's keys through a two-stage ring for K and
+// V, dk/dv on transposed tiles.
 //
 // Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71 in
 // f32 and its jax.grad (and Ulysses' `_dense_local`, :125-133, one fold
-// at offsets 0/0), which ring_fold.cu's trpc_ring_fold_fwd and
-// trpc_ring_fold_bwd_dkdv send here for f32 at hd 16, 64 and 128.
-// Layout and function are that file's:
+// at offsets 0/0), which ring_fold.cu's trpc_ring_fold_fwd,
+// trpc_ring_fold_bwd_dq and trpc_ring_fold_bwd_dkdv send here for f32 at
+// hd 16, 64 and 128.  Layout and function are that file's:
 //   q, dO [B, Cq, H, hd], k, v [B, Ck, H, hd] f32, read through their
 //   (b, s, h) strides (the last dim contiguous; base and strides 16-byte
 //   multiples, which the wrapper ensures by copying any other view)
-//   m, l, lse, D [B, H, Cq] f32, o [B, H, Cq, hd] f32 (o unnormalised),
-//   dk, dv [B, H, Ck, hd] f32, contiguous; m, l, o, dk, dv updated in
-//   place
+//   m, l, lse, D [B, H, Cq] f32, o, dq [B, H, Cq, hd] f32 (o
+//   unnormalised), dk, dv [B, H, Ck, hd] f32, contiguous; m, l, o, dq,
+//   dk, dv updated in place
 //   s  = q . k * scale (f32 product, __fmul_rn), -1e30 where q_off + i <
 //        k_off + j (causal), -inf past Ck (no key: out of every max, sum)
 //   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
 //   l' = l a + sum_j p      o' = o a + p . v
 //   P  = exp(s - lse)   dP = dO . v   dS = P (dP - D) scale
-//   dk += dS^T . q      dv += P^T . dO
+//   dq += dS . k        dk += dS^T . q      dv += P^T . dO
 // In f32 the reference rounds no weight before p . v, so nothing forces
 // the SIMT kernel's two passes (the block's row max, then p): one pass
 // keeps a running max m_t from m, and per key tile
@@ -48,6 +48,16 @@
 // With m_run started at m, such a row keeps m_t = -1e30 and p = 1 on its
 // masked scores, as the reference.
 //
+// dq takes D from its caller (D = sum dO . o / l of the folded state),
+// so it needs one pass and three products (q.k, dO.v, dS.k), not the
+// causal f32 dq's two.  It computes each score, dW, P and dS as the SIMT
+// kernel did (the same __f*_rn roundings; scores sums over hd in the
+// same order, and fmaf commutes), sums dq over the visited keys in order
+// straight into the accumulator, as tile_mma did, and adds the block's
+// sum to the carried dq once: the SIMT kernel's bits.  Its skip rule is
+// the SIMT kernel's: every key tile when some row of the query tile has
+// a degenerate lse, else the tiles up to the first wholly masked one.
+//
 // dk/dv computes each score, P and dS as the SIMT kernel did (the same
 // __f*_rn roundings; fmaf commutes and the depth order is the same, so
 // S^T = K . Q^T holds the scores' bits), sums dk and dv over the visited
@@ -63,7 +73,8 @@
 // for the f32 tolerance; PERF.md, Findings); its 59.8 MB of traffic (the
 // state read and written among it) take 17.8 us.  dk/dv's four products
 // (q.k, dO.v, P^T.dO, dS^T.q) are 17.2 GFLOP, 256.7 us; its 101.2 MB
-// take 30.2 us.
+// take 30.2 us.  dq's three products are 12.9 GFLOP, 192.5 us; its 67.6
+// MB take 20.2 us.
 //
 // Design (the geometry, copies and products of f32_tile.cuh):
 //  - Forward: one block of 128 threads per (64-row query tile, h, b), the
@@ -72,6 +83,13 @@
 //    tiles through the two-stage cp.async ring, tile i + 1 landing while
 //    tile i is computed; p staged at stride 72 for p . V.  Q, two stages
 //    of K and V, p: 103 KB at hd 64, two blocks an SM.
+//  - dq: the forward's grid and ring, less p: Q and dO resident, lse and
+//    D in registers (lse = +inf past Cq); per key tile dW = dO . V and s
+//    = Q . K as two 4 x 8 tiles, P and dS in registers, dS staged at
+//    stride 72 over the tile's V stage once every thread has read V (a
+//    barrier), then acc += dS . K (weights_v).  A V stage is max(64 (hd
+//    + 4), 64 x 72) floats: Q, dO, two stages of K and V are 104 KB at
+//    hd 64, two blocks an SM.
 //  - dk/dv: one block of 128 threads per (64-row key tile, h, b), key
 //    tile 0 (which the most query tiles see) first; transposed tiles,
 //    rows keys and columns queries.  K and V resident; per query tile one
@@ -298,6 +316,155 @@ int fwd(const float* q, const float* k, const float* v, float* m, float* l,
   return (int)cudaGetLastError();
 }
 
+// dq += the block's dS . K for one query tile, in one pass over the key
+// tiles it visits (every one if a row of the tile has seen no key, else
+// up to the first wholly masked tile); K and V tile n + 1 land in stage
+// (n + 1) % 2 while tile n is computed, and dS is staged over tile n's V.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dq_f32_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, Layout lay, int Cq,
+                            int Ck, int H, Pos pos) {
+  using G = Stage<HD>;
+  constexpr int NC = G::kCols;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;
+  float* sDO = sQ + G::kFloats;
+  float* sK = sDO + G::kFloats;     // two stages
+  float* sV = sK + 2 * G::kFloats;  // two stages; dS over V
+  // blocks start in index order, x fastest: every (h, b) of the longest
+  // query tiles first
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int ra = threadIdx.x >> 3;
+  const int cb = threadIdx.x & 7;
+  const int q0 = qt * kTile;
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  float L[4];  // +inf past Cq: p = 0 there
+  float D[4];
+  int degen = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    L[i] = row < Cq ? lse[bh + row] : INFINITY;
+    D[i] = row < Cq ? delta[bh + row] : 0.0f;
+    degen |= row < Cq && degenerate(L[i]);
+  }
+  degen = __syncthreads_or(degen);
+  // the key tiles visited: masked tiles come last (their keys are the
+  // latest), so a prefix
+  int n_vis = 0;
+  while (n_vis < n_kt &&
+         (degen || !all_masked(pos, q0, Cq, n_vis * kTile, kTile))) {
+    ++n_vis;
+  }
+  if (n_vis > 0) {
+    load_tile<HD>(sQ, q, lay.t[0], b, h, q0, Cq);
+    load_tile<HD>(sDO, dout, lay.t[3], b, h, q0, Cq);
+    load_tile<HD>(sK, k, lay.t[1], b, h, 0, Ck);
+    load_tile<HD>(sV, v, lay.t[2], b, h, 0, Ck);
+    cp_async_commit();
+  }
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c] = 0.0f;
+    }
+  }
+  for (int kt = 0; kt < n_vis; ++kt) {
+    cp_async_wait_all();
+    // tile kt is in place for every thread, and every thread is done
+    // with tile kt - 1's stage (its K and the dS over its V)
+    __syncthreads();
+    if (kt + 1 < n_vis) {
+      const int st = (kt + 1) & 1;
+      load_tile<HD>(sK + st * G::kFloats, k, lay.t[1], b, h,
+                    (kt + 1) * kTile, Ck);
+      load_tile<HD>(sV + st * kDqVStage<HD>, v, lay.t[2], b, h,
+                    (kt + 1) * kTile, Ck);
+      cp_async_commit();
+    }
+    const int st = kt & 1;
+    const int k0 = kt * kTile;
+    float* sVS = sV + st * kDqVStage<HD>;  // V, then dS [64][kLdP] over it
+    float w[4][8];
+    float s[4][8];
+    scores<HD>(w, sDO, sVS, ra, cb);                  // dW = dO . V
+    scores<HD>(s, sQ, sK + st * G::kFloats, ra, cb);  // s = Q . K
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ra + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = k0 + cb + 8 * j;
+        float x;
+        if (key >= Ck) {
+          x = -INFINITY;  // no key: p = 0, even where L is about -1e30
+        } else if (pos.causal && pos.q_off + row < pos.k_off + key) {
+          x = kNeg;
+        } else {
+          x = __fmul_rn(s[i][j], pos.scale);
+        }
+        const float p = expf(__fsub_rn(x, L[i]));
+        s[i][j] = __fmul_rn(__fmul_rn(p, __fsub_rn(w[i][j], D[i])),
+                            pos.scale);
+      }
+    }
+    __syncthreads();  // every thread has read V for its dW
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sVS[(ra + 16 * i) * kLdP + cb + 8 * j] = s[i][j];
+      }
+    }
+    __syncthreads();  // dS in place
+    // dq += dS . K, summed over the keys in order straight into acc
+    weights_v<HD>(acc, sVS, sK + st * G::kFloats, ra, cb);
+  }
+  // the block's sum added to the carried dq once (a 0 where no key tile
+  // was visited, as the SIMT kernel adds it)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ra + 16 * i;
+    if (row < Cq) {
+      add_cols<HD>(dq + (bh + row) * HD, acc[i], cb);
+    }
+  }
+}
+
+template <int HD>
+int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, const float* delta, float* dq, const Layout& lay,
+           int B, int Cq, int Ck, int H, const Pos& pos,
+           cudaStream_t stream) {
+  const int tiles = (Cq + kTile - 1) / kTile;
+  if ((long long)B * H > 0x7fffffffLL || tiles > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  constexpr int bytes = dq_smem_bytes<HD>();
+  static const int attr = (int)cudaFuncSetAttribute(
+      ring_fold_dq_f32_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (attr != 0) {
+    return attr;
+  }
+  ring_fold_dq_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes,
+                                stream>>>(q, k, v, dout, lse, delta, dq, lay,
+                                          Cq, Ck, H, pos);
+  return (int)cudaGetLastError();
+}
+
 // depth steps of dk/dv's score products unrolled: at hd 128 two would
 // spill (ptxas: 8 bytes at 255 registers)
 template <int HD>
@@ -481,6 +648,33 @@ extern "C" int trpc_ring_fold_fwd_f32(const void* q, const void* k,
     case 128:
       return fwd<128>(args[0], args[1], args[2], state[0], state[1],
                       state[2], lay, B, Cq, Ck, H, pos, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Called by trpc_ring_fold_bwd_dq (ring_fold.cu) for f32 at hd 16, 64 or
+// 128, with its arguments less the dtype; the shape already checked.
+extern "C" int trpc_ring_fold_bwd_dq_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int hd, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  const Layout lay = layout_of(strides, 4);
+  const Pos pos{q_off, k_off, causal, scale};
+  const float* args[6] = {(const float*)q,    (const float*)k,
+                          (const float*)v,    (const float*)dout,
+                          (const float*)lse, (const float*)delta};
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return bwd_dq<16>(args[0], args[1], args[2], args[3], args[4], args[5],
+                        (float*)dq, lay, B, Cq, Ck, H, pos, st);
+    case 64:
+      return bwd_dq<64>(args[0], args[1], args[2], args[3], args[4], args[5],
+                        (float*)dq, lay, B, Cq, Ck, H, pos, st);
+    case 128:
+      return bwd_dq<128>(args[0], args[1], args[2], args[3], args[4],
+                         args[5], (float*)dq, lay, B, Cq, Ck, H, pos, st);
   }
   return (int)cudaErrorInvalidValue;
 }

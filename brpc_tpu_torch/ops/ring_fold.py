@@ -1,7 +1,7 @@
 """The ring-attention fold: the hand-written CUDA kernels
 (``csrc/ring_fold_sm90.cu`` on the tensor cores, ``csrc/ring_fold_f32.cu``
-on the CUDA cores, ``csrc/ring_fold.cu`` SIMT) and the plain PyTorch
-version beside each.
+on the CUDA cores, ``csrc/ring_fold.cu`` SIMT at head dim 8) and the
+plain PyTorch version beside each.
 
 Function (brpc_tpu/parallel/ring_attention.py:56-71, one ring step's fold
 of the held K/V block, and its jax.grad; Ulysses' local attention
@@ -30,13 +30,12 @@ Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
 own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` every
 kernel takes its products of bf16 values on the tensor cores (dq all
 three of them) and p's f32 products (p . f32(v), P^T . f32(dO)) as f32
-FMAs on the CUDA cores.  In f32 at those head dims the forward (one
-pass) and dk/dv (transposed tiles) are kernels on the CUDA cores
-(register tiles, cp.async copies), and dq is the SIMT kernel; head dim
-8 runs the SIMT kernels in both dtypes.  TMA and cp.async copy 16 bytes
-at a time, so a view whose base or strides are not 16-byte multiples is
-copied first for the tensor-core kernels and the f32 forward and
-dk/dv.  ``split_bf16x3`` models the
+FMAs on the CUDA cores.  In f32 at those head dims every kernel runs on
+the CUDA cores (register tiles, cp.async copies): the forward and dq in
+one pass over the keys, dk/dv on transposed tiles.  Head dim 8 alone
+runs the SIMT kernels, in both dtypes.  TMA and cp.async copy 16 bytes
+at a time, so at ``SM90_HEAD_DIMS`` a view whose base or strides are
+not 16-byte multiples is copied first.  ``split_bf16x3`` models the
 three-part bf16 split of p that was tried for p's products on the tensor
 cores.  Bound and design: the kernel sources' notes.
 """
@@ -197,14 +196,12 @@ def _check(q, k, v, do, rows, cols) -> None:
                          f"{q.device}")
 
 
-def _kernel_views(*ts, cp_async=False):
+def _kernel_views(*ts):
     """The tensors as the kernels read them: a contiguous last dim (the
-    other dims through their strides), and at SM90_HEAD_DIMS, in bf16 (TMA)
-    and in f32 where the kernel copies with cp.async (``cp_async``: the
-    forward and dk/dv), what ``tma_ready`` takes; anything else is
-    copied."""
-    aligned = ts[0].shape[-1] in SM90_HEAD_DIMS and (
-        cp_async or ts[0].dtype == torch.bfloat16)
+    other dims through their strides), and at SM90_HEAD_DIMS, where every
+    kernel copies 16 bytes at a time (TMA in bf16, cp.async in f32), what
+    ``tma_ready`` takes; anything else is copied."""
+    aligned = ts[0].shape[-1] in SM90_HEAD_DIMS
     return [t if t.stride(-1) == 1 and (not aligned or tma_ready(t))
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
@@ -244,7 +241,7 @@ def ring_fold_forward(q, k, v, m, l, o, q_off: int, k_off: int,
     if q.device.type == "cpu":
         ring_fold_plain(q, k, v, m, l, o, q_off, k_off, causal, scale)
         return True
-    q, k, v = _kernel_views(q, k, v, cp_async=True)
+    q, k, v = _kernel_views(q, k, v)
     _launch(_kernels().trpc_ring_fold_fwd, "ring_fold_fwd",
             [t.data_ptr() for t in (q, k, v, m, l, o)], _strides((q, k, v)),
             q, k.shape[1], q_off, k_off, causal, scale)
@@ -288,7 +285,7 @@ def ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off: int,
         ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, dk, dv, q_off,
                                  k_off, causal, scale)
         return True
-    q, k, v, do = _kernel_views(q, k, v, do, cp_async=True)
+    q, k, v, do = _kernel_views(q, k, v, do)
     _launch(_kernels().trpc_ring_fold_bwd_dkdv, "ring_fold_bwd_dkdv",
             [t.data_ptr() for t in (q, k, v, do, lse, delta, dk, dv)],
             _strides((q, k, v, do)), q, k.shape[1], q_off, k_off, causal,

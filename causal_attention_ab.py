@@ -2,8 +2,8 @@
 r"""Other trees' causal_attention and ring-fold kernels beside the
 checkout's, on one NVIDIA GPU: the bf16 forward, dq and dk/dv kernels,
 their wrappers' host time, the f32 forward's time and accuracy, the
-times of the f32 dq and of the ring fold's f32 forward, and the f32
-dk/dv kernels' (causal and the fold's) times, bits and accuracy.
+time of the ring fold's f32 forward, and the f32 dq and dk/dv kernels'
+(causal and the fold's) times, bits and accuracy.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -31,7 +31,10 @@ reversed.  Each prints one JSON line:
   the largest |o - o64| of the kernel and of the plain version against
   o computed in f64 throughout, and the kernel's o against the plain
   version as a share of ATTN_TOL["f32"];
-* ``f32_dq``: the f32 dq's ``device_ms`` at ATTN_SHAPE;
+* ``f32_dq``: the f32 dq's ``device_ms`` at ATTN_SHAPE, and
+  ``f32_fold_dq`` the fold's f32 dq's at RING_SHAPE (lse and D of the
+  fold of that block; one causal diagonal block, a fresh state), each
+  beside ``sdpa_f32``'s backward;
 * ``f32_fold_fwd``: the ring fold's f32 forward's ``device_ms`` at
   chip_smoke.py's RING_SHAPE (one causal diagonal block, a fresh state,
   folded again at every call as chip_smoke.py times it);
@@ -49,15 +52,17 @@ reversed.  Each prints one JSON line:
   from the tree's own forward and dq), and ``f32_fold_dkdv`` the fold's
   f32 dk/dv's at RING_SHAPE (lse and D of the fold of that block); each
   beside ``sdpa_f32``'s backward (fwd_bwd less fwd);
-* ``dkdv_digest``: a sha256 of the bytes of dk and dv of those two
-  calls (two trees that print the same digest computed the same bits);
-* ``dkdv_f64_err``: at S = C = 1000 and 1024, head dims 16, 64 and 128,
-  unit scale and a wide range (q, k x 2, v x 8; B=2, H=3, numpy seed
-  23), of causal attention (lse and D from the plain softmax in f32)
-  and of the fold (a ring's first, diagonal block; lse and D of the
-  plain f32 fold): the largest |x - x64| over dk and over dv of the
-  kernel and of the plain version against the same in f64 throughout,
-  [kernel dk, plain dk, kernel dv, plain dv].
+* ``dq_digest`` and ``dkdv_digest``: a sha256 of the bytes of dq (the
+  causal kernel's with its D) and of dk and dv of those calls (two trees
+  that print the same digest computed the same bits);
+* ``dq_f64_err`` and ``dkdv_f64_err``: at S = C = 1000 and 1024, head
+  dims 16, 64 and 128, unit scale and a wide range (q, k x 2, v x 8;
+  B=2, H=3, numpy seed 23), of causal attention (lse from the plain
+  softmax in f32; dk/dv also its D) and of the fold (a ring's first,
+  diagonal block; lse and D of the plain f32 fold): the largest
+  |x - x64| of the kernel and of the plain version against the same in
+  f64 throughout, [kernel dq, plain dq] and [kernel dk, plain dk,
+  kernel dv, plain dv].
 
 Prints the card's nvidia-smi name and power limit first; exits non-zero
 if a tree's process failed.
@@ -186,8 +191,8 @@ def fold_f64_errors(rf, cs) -> dict:
     return out
 
 
-def _causal_f64_dkdv(q, k, v, do):
-    """dk, dv of causal attention in f64 throughout."""
+def _causal_f64_grads(q, k, v, do):
+    """dq, dk, dv of causal attention in f64 throughout."""
     import torch
     S, hd = q.shape[1], q.shape[-1]
     leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
@@ -195,11 +200,11 @@ def _causal_f64_dkdv(q, k, v, do):
     mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
     w = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
     o = torch.einsum("bhst,bthk->bshk", w, leaves[2])
-    return torch.autograd.grad(o, leaves[1:], do.double())
+    return torch.autograd.grad(o, leaves, do.double())
 
 
-def _fold_f64_dkdv(q, k, v, do, scale):
-    """dk, dv [B, H, C, hd] of a ring's first, diagonal fold in f64
+def _fold_f64_grads(q, k, v, do, scale):
+    """dq, dk, dv [B, H, C, hd] of a ring's first, diagonal fold in f64
     throughout (its lse and D from the f64 fold)."""
     import torch
     q, k, v, do = (t.double() for t in (q, k, v, do))
@@ -213,20 +218,22 @@ def _fold_f64_dkdv(q, k, v, do, scale):
     delta = (do.transpose(1, 2) * o).sum(-1)
     ds = p * (torch.einsum("bchk,bdhk->bhcd", do, v) - delta[..., None]) \
         * scale
-    return (torch.einsum("bhcd,bchk->bhdk", ds, q),
+    return (torch.einsum("bhcd,bdhk->bhck", ds, k),
+            torch.einsum("bhcd,bchk->bhdk", ds, q),
             torch.einsum("bhcd,bchk->bhdk", p, do))
 
 
-def dkdv_f64_errors(ca, rf, cs) -> dict:
-    """{case: [kernel dk, plain dk, kernel dv, plain dv]}: the largest
-    |x - x64| against the same function in f64 throughout."""
+def bwd_f64_errors(ca, rf, cs):
+    """({case: [kernel dq, plain dq]}, {case: [kernel dk, plain dk,
+    kernel dv, plain dv]}): the largest |x - x64| against the same
+    function in f64 throughout."""
     import numpy as np
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def err(a, b):
         return float((a.double() - b).abs().max())
-    out = {}
+    dq_out, out = {}, {}
     for S in (1000, 1024):
         for hd in (16, 64, 128):
             for name, scale, v_scale in (("unit", 1.0, 1.0),
@@ -243,15 +250,18 @@ def dkdv_f64_errors(ca, rf, cs) -> dict:
                 lse = torch.logsumexp(s.masked_fill(~mask, -1e30), -1)
                 p = torch.exp(s - lse[..., None]).tril()
                 delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
-                got = ca.causal_attention_backward_dkdv(q, k, v, do, lse,
-                                                        delta)
+                got = (ca.causal_attention_backward_dq(q, k, v, do, lse)[0],
+                       *ca.causal_attention_backward_dkdv(q, k, v, do, lse,
+                                                          delta))
                 leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
                 plain = torch.autograd.grad(ca.causal_attention_plain(
-                    *leaves), leaves[1:], do)
-                exact = _causal_f64_dkdv(q, k, v, do)
+                    *leaves), leaves, do)
+                exact = _causal_f64_grads(q, k, v, do)
+                dq_out[f"causal_S{S}_hd{hd}_{name}"] = [
+                    err(got[0], exact[0]), err(plain[0], exact[0])]
                 out[f"causal_S{S}_hd{hd}_{name}"] = [
-                    err(got[0], exact[0]), err(plain[0], exact[0]),
-                    err(got[1], exact[1]), err(plain[1], exact[1])]
+                    err(got[1], exact[1]), err(plain[1], exact[1]),
+                    err(got[2], exact[2]), err(plain[2], exact[2])]
                 # the fold: a ring's first, diagonal block
                 fscale = hd ** -0.5
                 m = torch.full((2, 3, S), -1e30, device="cuda")
@@ -259,17 +269,23 @@ def dkdv_f64_errors(ca, rf, cs) -> dict:
                 o = torch.zeros(2, 3, S, hd, device="cuda")
                 rf.ring_fold_plain(q, k, v, m, l, o, 0, 0, True, fscale)
                 flse, fdelta = cs._lse_delta(m, l, o, do)
-                kern = [torch.zeros_like(o) for _ in range(2)]
-                rf.ring_fold_backward_dkdv(q, k, v, do, flse, fdelta, *kern,
-                                           0, 0, True, fscale)
-                fplain = [torch.zeros_like(o) for _ in range(2)]
+                kern = [torch.zeros_like(o) for _ in range(3)]
+                rf.ring_fold_backward_dq(q, k, v, do, flse, fdelta, kern[0],
+                                         0, 0, True, fscale)
+                rf.ring_fold_backward_dkdv(q, k, v, do, flse, fdelta,
+                                           *kern[1:], 0, 0, True, fscale)
+                fplain = [torch.zeros_like(o) for _ in range(3)]
+                rf.ring_fold_bwd_dq_plain(q, k, v, do, flse, fdelta,
+                                          fplain[0], 0, 0, True, fscale)
                 rf.ring_fold_bwd_dkdv_plain(q, k, v, do, flse, fdelta,
-                                            *fplain, 0, 0, True, fscale)
-                fexact = _fold_f64_dkdv(q, k, v, do, fscale)
+                                            *fplain[1:], 0, 0, True, fscale)
+                fexact = _fold_f64_grads(q, k, v, do, fscale)
+                dq_out[f"fold_C{S}_hd{hd}_{name}"] = [
+                    err(kern[0], fexact[0]), err(fplain[0], fexact[0])]
                 out[f"fold_C{S}_hd{hd}_{name}"] = [
-                    err(kern[0], fexact[0]), err(fplain[0], fexact[0]),
-                    err(kern[1], fexact[1]), err(fplain[1], fexact[1])]
-    return out
+                    err(kern[1], fexact[1]), err(fplain[1], fexact[1]),
+                    err(kern[2], fexact[2]), err(fplain[2], fexact[2])]
+    return dq_out, out
 
 
 def _digest(*ts) -> str:
@@ -344,6 +360,8 @@ def measure(tree: str) -> None:
         "f64_err": f64_errors(ca, cs)}
     f32_dq = cs.device_ms(
         lambda: ca.causal_attention_backward_dq(q, k, v, do, lse), flush)
+    dq_digest = {"causal": _digest(*ca.causal_attention_backward_dq(
+        q, k, v, do, lse))}
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
 
     def sdpa(*a):
@@ -374,13 +392,22 @@ def measure(tree: str) -> None:
     digest["fold"] = _digest(*acc)
     fold_dkdv = cs.device_ms(lambda: rf.ring_fold_backward_dkdv(
         fq, fk, fv, fdo, flse, fdelta, *acc, 0, 0, True, scale), flush)
+    # the dq of the same fold
+    fdq = torch.zeros_like(state[2])
+    rf.ring_fold_backward_dq(fq, fk, fv, fdo, flse, fdelta, fdq, 0, 0, True,
+                             scale)
+    dq_digest["fold"] = _digest(fdq)
+    fold_dq = cs.device_ms(lambda: rf.ring_fold_backward_dq(
+        fq, fk, fv, fdo, flse, fdelta, fdq, 0, 0, True, scale), flush)
+    dq_err, dkdv_err = bwd_f64_errors(ca, rf, cs)
     print(json.dumps({"tree": tree, "device_ms": device,
                       "prefill_host_us": host, "f32_fwd": f32,
                       "f32_dq": f32_dq, "f32_fold_fwd": fold,
-                      "f32_dkdv": f32_dkdv, "f32_fold_dkdv": fold_dkdv,
+                      "f32_fold_dq": fold_dq, "f32_dkdv": f32_dkdv,
+                      "f32_fold_dkdv": fold_dkdv, "dq_digest": dq_digest,
                       "dkdv_digest": digest, "sdpa_f32": sdpa_f32,
                       "fold_f64_err": fold_f64_errors(rf, cs),
-                      "dkdv_f64_err": dkdv_f64_errors(ca, rf, cs)}),
+                      "dq_f64_err": dq_err, "dkdv_f64_err": dkdv_err}),
           flush=True)
 
 

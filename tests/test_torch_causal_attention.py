@@ -38,9 +38,14 @@ On the CPU:
   rowsum(dO * o) stand-in for D would stay inside CARD_TOL: at these
   shapes it moves dq and dk by about one bf16 step, as the kernels' own
   flips do; the kernels take D exactly all the same.)
-* The plain f32 dk and dv against the same function in f64, at unit
+* The plain f32 dq, dk and dv against the same function in f64, at unit
   scale and at a wide range (q, k x 2, v x 8), S = 1000 and 1024, hd 16,
-  64 and 128: what f32 itself leaves there.
+  64 and 128: what f32 itself leaves there.  The f32 dq kernel's
+  weights and D (p and sum_t p dW divided by l = sum_t p, summed in its
+  lanes with their rounding errors carried) as exact as the plain
+  version there, on the card leg's data and on causal_attention_ab.py's;
+  controls: the unnormalised p, and the lanes' plain sums, each leave
+  it.
 * Argument checks.
 
 The ``cuda``-marked legs run on the card: the
@@ -51,9 +56,10 @@ and an unaligned view in bf16; two dk/dv calls bit-equal; the one-pass
 f32 forward's o and lse at S = 1000 and 1024 (at a wider range against
 an f64 reference, as near to it as the plain version); an unaligned f32
 view copied for the f32 forward's, dq's and dk/dv's cp.async,
-bit-equal, and dq and dk/dv twice to the same bits; the f32 dk/dv
-kernel alone against the plain version at S = 65 to 1024, and against
-f64 at unit scale and a wide range, as exact as the plain version; and
+bit-equal, and dq and dk/dv twice to the same bits; the f32 dq and
+dk/dv kernels against f64 at unit scale and a wide range, as exact as
+the plain version, and the f32 dk/dv kernel alone against the plain
+version at S = 65 to 1024; and
 the dtype dispatch (bf16 on the tensor cores, f32 on the CUDA-core
 forward, dq and dk/dv) read from the device's kernel names.  They skip
 without a card and run there with
@@ -159,8 +165,10 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
     (m, l), the accumulator rescaled by exp(m_old - m) plus exp(s - m)
     times the V tile, divided by l at the end (T() is the identity in
     f32, so no weight is rounded).  dq: D = sum_t p dW taken per tile
-    and then over the tiles, from p recomputed from lse; dS rounded as
-    the registers feed it to dS . K.  dk/dv, per 64-key tile over query
+    and then over the tiles, from p recomputed from lse (in f32 p and D
+    divided by p's row sum, both sums in the kernel's order,
+    ``_f32_dq_weights``); dS rounded as the registers feed it to
+    dS . K.  dk/dv, per 64-key tile over query
     tiles kt.. (the causal skip rule: the tiles wholly before the key
     tile are never visited): the transposed tiles S^T = T(K.Q^T) /
     sqrt(hd) and dW^T, P^T and dS^T from lse and D per column (query), a
@@ -216,7 +224,10 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
     dw = rt(torch.einsum("bshk,bthk->bhst", dof, vf))
     delta = sum((p[..., a:b] * dw[..., a:b]).sum(-1, keepdim=True)
                 for a, b in tiles)
-    ds = rt(p * (dw - delta) / math.sqrt(hd))
+    pd = p
+    if dt == torch.float32:
+        pd, delta = _f32_dq_weights(p, dw)
+    ds = rt(pd * (dw - delta) / math.sqrt(hd))
     dq = rt(sum(torch.einsum("bhst,bthk->bshk", ds[..., a:b], kf[:, a:b])
                 for a, b in tiles))
     # dk/dv on the transposed tiles: rows keys t, columns queries s
@@ -242,6 +253,44 @@ def kernel_model(q, k, v, do, drop_diagonal=False, one_pass=None,
                                          qf[:, qa:qb])
         dk[:, ka:kb], dv[:, ka:kb] = rt(acc_k), rt(acc_v)
     return [o, dq, dk, dv]
+
+
+def _lane_sums(x, compensate=True):
+    """Row sums of x [..., S] [..., 1] in the f32 dq kernel's order: lane
+    c of a row's 8 sums keys c, c + 8, ... in turn (``compensate``: each
+    add's rounding error carried into the next term, Kahan), then the 8
+    lanes in three butterfly steps, their carried errors likewise and
+    taken off."""
+    S = x.shape[-1]
+    n = -(-S // 8)
+    terms = torch.nn.functional.pad(x, (0, 8 * n - S)).unflatten(-1, (n, 8))
+    acc = torch.zeros(terms[..., 0, :].shape)
+    err = torch.zeros_like(acc)
+    for t in range(n):
+        if compensate:
+            y = terms[..., t, :] - err
+            total = acc + y
+            err = (total - acc) - y
+            acc = total
+        else:
+            acc = acc + terms[..., t, :]
+
+    def butterfly(a):
+        for off in (1, 2, 4):
+            a = a + a[..., torch.arange(8) ^ off]
+        return a[..., :1]
+    return butterfly(acc) - butterfly(err)
+
+
+def _f32_dq_weights(p, dw, compensate=True, normalise=True):
+    """The f32 dq kernel's weights and D from p and dW [..., S]: w = p (1
+    / l) and D = sum_t p dW / l, l = sum_t p, the sums as `_lane_sums`
+    takes them; without ``normalise`` p and sum_t p dW as they are."""
+    D = _lane_sums(p * dw, compensate)
+    if not normalise:
+        return p, D
+    l = _lane_sums(p, compensate)
+    return p * (1.0 / l), D / l
 
 
 @pytest.mark.parametrize("S", [1, 13, 40])
@@ -436,6 +485,79 @@ def test_plain_f32_dkdv_against_f64(S, hd, wide):
         assert 1.0 < shares[0] <= 40.0 and shares[1] <= 2.5, shares
     else:
         assert max(shares) <= 0.5, shares
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_plain_f32_dq_against_f64(S, hd, wide):
+    """What f32 itself leaves in dq: the plain version's autograd
+    against the same function in f64, as a share of CARD_TOL (CPU
+    readings: unit 0.03-0.08; wide 5.2-18.2).  At the wide range the
+    plain dq leaves CARD_TOL of f64, so the card leg holds the kernel to
+    f64 at WIDE_ERR_RATIO times the plain version's error."""
+    arrays = _wide(20, 1, S, 2, hd, wide)
+    got = _torch_grads(causal_attention_plain, arrays, torch.float32)[1]
+    want = _f64_grads(*(torch.from_numpy(a) for a in arrays))[0]
+    share = _share64(got, want)
+    if wide:
+        assert 1.0 < share <= 40.0, share
+    else:
+        assert share <= 0.5, share
+
+
+def _dq_from_lse(arrays, **how):
+    """dq of the f32 dq kernel's formula from the plain softmax's f32
+    lse: p = exp(s - lse), then w and D as `_f32_dq_weights` takes them
+    (``how``: its options), dS = w (dW - D) / sqrt(hd)."""
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    S, hd = q.shape[1], q.shape[-1]
+    s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool))
+    p = torch.exp(s.masked_fill(~mask, float("-inf"))
+                  - _lse_plain(q, k)[..., None])
+    dw = torch.einsum("bshk,bthk->bhst", do, v)
+    w, delta = _f32_dq_weights(p, dw, **how)
+    return torch.einsum("bhst,bthk->bshk", w * (dw - delta) / math.sqrt(hd),
+                        k)
+
+
+def _dq_err_ratio(seed, S, hd, **how):
+    """dq's largest error against f64 of `_dq_from_lse` over the plain
+    version's, at the wide range (q, k x 2, v x 8)."""
+    arrays = _wide(seed, 2, S, 3, hd, True)
+    exact = _f64_grads(*(torch.from_numpy(a) for a in arrays))[0]
+    plain = _torch_grads(causal_attention_plain, arrays, torch.float32)[1]
+    got = _dq_from_lse(arrays, **how)
+    return float((got.double() - exact).abs().max()) / float(
+        (plain.double() - exact).abs().max())
+
+
+@pytest.mark.parametrize("seed", [23, 25])
+@pytest.mark.parametrize("S,hd", [(1000, 16), (1000, 64), (1000, 128),
+                                  (1024, 16), (1024, 64), (1024, 128)])
+def test_f32_dq_order_holds_f64_at_a_wide_range(S, hd, seed):
+    """The f32 dq kernel's weights and D at the wide range (q, k x 2, v
+    x 8): p and sum_t p dW divided by l = sum_t p, both summed in the
+    kernel's lanes with their rounding errors carried.  dq's largest
+    error against f64 stays within WIDE_ERR_RATIO of the plain
+    version's (CPU readings 0.45-1.02x), on the data of the card leg
+    (seed 25) and of causal_attention_ab.py (seed 23)."""
+    assert _dq_err_ratio(seed, S, hd) <= WIDE_ERR_RATIO
+
+
+@pytest.mark.parametrize("seed,S,hd,how", [
+    (25, 1000, 16, dict(normalise=False)),
+    (23, 1024, 16, dict(compensate=False))], ids=["unnormalised", "lanes"])
+def test_f32_dq_controls_leave_f64_at_a_wide_range(seed, S, hd, how):
+    """Controls of the f32 dq kernel's order.  p from a rounded f32 lse
+    sums to 1 only within lse's rounding (about 1e-6 at the wide range),
+    and D = sum_t p dW then enters every dS as -(l - 1) D p: unnormalised
+    dq leaves WIDE_ERR_RATIO (CPU 2.0x; the card's kernel read 2.5-2.7x
+    there before it normalised).  A lane's plain sum of S / 8 terms
+    rounds at D's magnitude each time: uncompensated sums leave it too
+    (CPU 1.9x; the card's kernel read 2.2x there)."""
+    assert _dq_err_ratio(seed, S, hd, **how) > WIDE_ERR_RATIO
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -742,6 +864,32 @@ def test_f32_dq_copies_an_unaligned_view_and_repeats_its_bits(hd):
     torch.testing.assert_close(got[0][0], want_dq, **CARD_TOL[torch.float32])
     torch.testing.assert_close(got[0][1], want_delta,
                                **CARD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_f32_dq_at_a_wide_range_is_as_exact_as_plain(S, hd, wide):
+    """dq of the f32 dq kernel against the function in f64 throughout,
+    at unit scale and at a wide range (q, k x 2, v x 8, where the plain
+    version's dq lies up to 18x CARD_TOL from f64; CPU leg
+    test_plain_f32_dq_against_f64): the kernel's largest error at most
+    WIDE_ERR_RATIO times the plain version's, the kernel from the plain
+    softmax's f32 lse (it takes D itself)."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _wide(25, 2, S, 3, hd, wide)
+    q, k, v, do = (torch.from_numpy(a).to("cuda") for a in arrays)
+    got, _ = causal_attention_backward_dq(q, k, v, do, _lse_plain(q, k))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain, = torch.autograd.grad(causal_attention_plain(*leaves), leaves[0],
+                                 do)
+    exact = _f64_grads(q, k, v, do)[0]
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= WIDE_ERR_RATIO * plain_err, (err, plain_err)
 
 
 def _dkdv_inputs(arrays):

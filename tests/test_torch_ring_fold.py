@@ -31,8 +31,10 @@ On the CPU:
   order (the block's sums per key tile, added to a carried dk, dv once)
   on the small blocks, and over 1024 queries (fresh, carried and
   off-diagonal) against the plain version and jax.vjp of the
-  reference's fold.  The plain f32 dk and dv against f64 at unit scale
-  and a wide range (q, k x 2, v x 8).  Control: the
+  reference's fold; the dq order (per query tile, summed over the keys
+  in order, added to a carried dq once) likewise over 1024 keys.  The
+  plain f32 dq, dk and dv against f64 at unit scale and a wide range
+  (q, k x 2, v x 8).  Control: the
   same model skipping masked tile pairs unconditionally leaves it on a
   block whose first rows have seen no key (the reference weighs their
   masked scores by 1), in either order.
@@ -50,14 +52,14 @@ The ``cuda``-marked legs run on the card: the three kernels against the
 plain version at head dims 8, 16, 64 and 128, bf16 and f32, ragged
 blocks, off-diagonal offsets, causal and not; strided q, k, v, dO bit-equal
 to contiguous ones; two runs bit-equal; an unaligned bf16 view copied
-for TMA, and an unaligned f32 view copied for the f32 forward's and
-dk/dv's cp.async, bit-equal; the wholly future block with no launch; no
+for TMA, and an unaligned f32 view copied for the f32 forward's, dq's
+and dk/dv's cp.async, bit-equal; the wholly future block with no launch; no
 fallback (a head dim the kernels lack raises); the route under
 torch.profiler (bf16 at hd 16, 64 and 128: the tensor-core forward, dq
-and dk/dv; f32 there: the CUDA-core forward and dk/dv, the SIMT dq; hd 8
-in both dtypes: the SIMT kernels); dq added into a carried dq; the f32
-dk/dv added into a carried dk, dv at C = 65 to 1024, and against f64 at
-unit scale and a wide range, as exact as the plain version; and
+and dk/dv; f32 there: the CUDA-core forward, dq and dk/dv; hd 8 in both
+dtypes: the SIMT kernels); dq added into a carried dq; the f32 dq and
+dk/dv added into a carried dq, dk, dv at C = 65 to 1024, and against
+f64 at unit scale and a wide range, as exact as the plain version; and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
@@ -589,18 +591,18 @@ def test_one_pass_f32_fold_holds_plain_and_jnp_over_1024_keys(case):
 
 
 def _jnp_fold_grads(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
-    """[dk, dv] ([B, H, Ck, hd]) of the reference: jax.vjp of the
+    """[dq, dk, dv] ([B, H, C, hd]) of the reference: jax.vjp of the
     normalised output o' / l' of one `fold` (ring_attention.py:57-69)
     from the state (m, l, o), held constant, with cotangent dO."""
     import jax
     import jax.numpy as jnp
 
-    def out(k, v):
-        _, l2, o2 = _jnp_fold(jnp.asarray(q.numpy()), k, v,
+    def out(q, k, v):
+        _, l2, o2 = _jnp_fold(q, k, v,
                               *(jnp.array(t.numpy()) for t in (m, l, o)),
                               q_off, k_off, causal, scale)
         return o2 / l2[..., None]
-    _, pull = jax.vjp(out, jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))
+    _, pull = jax.vjp(out, *(jnp.asarray(t.numpy()) for t in (q, k, v)))
     grads = pull(jnp.asarray(do.numpy().transpose(0, 2, 1, 3)))
     return [torch.from_numpy(np.array(g).transpose(0, 2, 1, 3))
             for g in grads]
@@ -638,12 +640,29 @@ def test_dkdv_model_holds_plain_and_jax_grad_over_1024_queries(case):
     got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, True, scale)[1:]
     _close(got, want[4:], torch.float32)
     _close(got, _jnp_fold_grads(q, k, v, do, *state, q_off, k_off, True,
-                                scale), torch.float32)
+                                scale)[1:], torch.float32)
 
 
-def _f64_dkdv(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
-    """[dk, dv] of one block in f64 throughout: the f64 fold's lse and
-    D, then the backward's formulas."""
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_dq_model_holds_plain_and_jax_grad_over_1024_keys(case):
+    """The f32 dq kernel's order of work (64-row query tiles over the key
+    tiles they see, dq summed over the keys in order, the skip rule, the
+    block's sum added once) at C = 1024, hd 64, from the lse and D of the
+    plain fold: dq within CARD_TOL of ring_fold_bwd_dq_plain and of
+    jax.vjp of the reference's fold, normalised."""
+    q, k, v, do, state, q_off, k_off = _c1024_case(case, 71)
+    scale = 1.0 / math.sqrt(64)
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, True, scale)[0]
+    _close([got], want[3:4], torch.float32)
+    _close([got], _jnp_fold_grads(q, k, v, do, *state, q_off, k_off, True,
+                                  scale)[:1], torch.float32)
+
+
+def _f64_bwd(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
+    """[dq, dk, dv] of one block in f64 throughout: the f64 fold's lse
+    and D, then the backward's formulas."""
     q, k, v, do = (t.double() for t in (q, k, v, do))
     m, l, o = _f64_fold(q, k, v, m, l, o, q_off, k_off, causal, scale)
     lse = m + torch.log(l)
@@ -656,7 +675,8 @@ def _f64_dkdv(q, k, v, do, m, l, o, q_off, k_off, causal, scale):
     p = torch.exp(s - lse[..., None])
     ds = p * (torch.einsum("bchk,bdhk->bhcd", do, v) - delta[..., None]) \
         * scale
-    return [torch.einsum("bhcd,bchk->bhdk", ds, q),
+    return [torch.einsum("bhcd,bdhk->bhck", ds, k),
+            torch.einsum("bhcd,bchk->bhdk", ds, q),
             torch.einsum("bhcd,bchk->bhdk", p, do)]
 
 
@@ -690,12 +710,33 @@ def test_plain_f32_dkdv_against_f64(C, hd, wide):
     q, k, v, do, m, l, o = _wide_block(61, 1, C, 2, hd, wide)
     scale = hd ** -0.5
     got = _plain_block(q, k, v, do, m, l, o, 0, 0, True, scale)[0][4:]
-    want = _f64_dkdv(q, k, v, do, m, l, o, 0, 0, True, scale)
+    want = _f64_bwd(q, k, v, do, m, l, o, 0, 0, True, scale)[1:]
     shares = [_share64(g, w) for g, w in zip(got, want)]
     if wide:
         assert 1.0 < shares[0] <= 40.0 and shares[1] <= 2.5, shares
     else:
         assert max(shares) <= 0.5, shares
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_plain_f32_dq_against_f64(C, hd, wide):
+    """What f32 itself leaves in the fold's dq: the plain fold and
+    backward (a ring's first, diagonal block) against the same in f64
+    throughout, as a share of CARD_TOL (CPU readings: unit 0.03-0.15;
+    wide 1.97-4.23).  At the wide range the plain dq leaves CARD_TOL of
+    f64, so the card leg holds the kernel to f64 at WIDE_ERR_RATIO times
+    the plain version's error."""
+    q, k, v, do, m, l, o = _wide_block(61, 1, C, 2, hd, wide)
+    scale = hd ** -0.5
+    got = _plain_block(q, k, v, do, m, l, o, 0, 0, True, scale)[0][3]
+    want = _f64_bwd(q, k, v, do, m, l, o, 0, 0, True, scale)[0]
+    share = _share64(got, want)
+    if wide:
+        assert 1.0 < share <= 40.0, share
+    else:
+        assert share <= 0.5, share
 
 
 # ---------------------------------------------------------------------------
@@ -987,9 +1028,10 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
 def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     """The route, read from the device's kernel names under
     torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
-    forward, dq and dk/dv; f32 there the CUDA-core forward and dk/dv
-    (ring_fold_fwd_f32_kernel, ring_fold_dkdv_f32_kernel) and the SIMT
-    dq; hd 8 in both dtypes the SIMT kernels."""
+    forward, dq and dk/dv; f32 there the CUDA-core forward, dq and dk/dv
+    (ring_fold_fwd_f32_kernel, ring_fold_dq_f32_kernel,
+    ring_fold_dkdv_f32_kernel); hd 8 in both dtypes the SIMT kernels,
+    the only route left to them."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -1018,7 +1060,7 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
             "ring_fold_fwd_sm90_kernel"]
     assert names["bf16"] == names["bf16_hd16"] == names["bf16_hd128"] == \
         sm90, names
-    f32 = ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_kernel",
+    f32 = ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_f32_kernel",
            "ring_fold_fwd_f32_kernel"]
     assert names["f32"] == names["f32_hd16"] == names["f32_hd128"] == f32, \
         names
@@ -1133,7 +1175,7 @@ def test_f32_dkdv_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
                                        scale)
     got = [torch.zeros_like(t) for t in plain[4:]]
     ring_fold_backward_dkdv(q, k, v, do, lse, delta, *got, 0, 0, True, scale)
-    exact = _f64_dkdv(q, k, v, do, m, l, o, 0, 0, True, scale)
+    exact = _f64_bwd(q, k, v, do, m, l, o, 0, 0, True, scale)[1:]
     torch.cuda.synchronize()
     for name, g, p, e in zip(("dk", "dv"), got, plain[4:], exact):
         err = float((g.double() - e).abs().max())
@@ -1173,6 +1215,90 @@ def test_f32_dkdv_copies_an_unaligned_view_and_repeats_its_bits(hd):
         torch.cuda.synchronize()
         for a, b, c in zip(*outs):
             assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [65, 200, 1000, 1024])
+def test_f32_dq_matches_plain_on_the_card(C, hd):
+    """The f32 dq kernel on a causal diagonal block of a carried state,
+    adding into a dq carried over earlier blocks: within CARD_TOL of
+    ring_fold_bwd_dq_plain from the same dq, one launch."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _block(73, 2, C, C, 3, hd, torch.float32, "cuda")
+    scale = 1.0 / math.sqrt(hd)
+    _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, C, C, True, scale)
+    g = torch.Generator(device="cuda").manual_seed(75)
+    carried = torch.randn(2, 3, C, hd, generator=g, device="cuda")
+    want = carried.clone()
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, want, C, C, True, scale)
+    got = carried.clone()
+    launches = ring_fold_backward_dq.launches
+    ring_fold_backward_dq(q, k, v, do, lse, delta, got, C, C, True, scale)
+    torch.cuda.synchronize()
+    assert ring_fold_backward_dq.launches == launches + 1
+    _close([got], [want], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_f32_dq_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
+    """dq of the f32 dq kernel (a ring's first, diagonal block) against
+    the fold and backward in f64 throughout, at unit scale and at a wide
+    range (q, k x 2, v x 8, where the plain dq lies up to 4.2x CARD_TOL
+    from f64; CPU leg test_plain_f32_dq_against_f64): the kernel's
+    largest error at most WIDE_ERR_RATIO times the plain version's, both
+    from the plain f32 fold's lse and D."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _wide_block(77, 2, C, 3, hd, wide, "cuda")
+    scale = hd ** -0.5
+    plain, (lse, delta) = _plain_block(q, k, v, do, m, l, o, 0, 0, True,
+                                       scale)
+    got = torch.zeros_like(plain[3])
+    ring_fold_backward_dq(q, k, v, do, lse, delta, got, 0, 0, True, scale)
+    exact = _f64_bwd(q, k, v, do, m, l, o, 0, 0, True, scale)[0]
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain[3].double() - exact).abs().max())
+    assert err <= WIDE_ERR_RATIO * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (16, 64, 128))
+def test_f32_dq_copies_an_unaligned_view_and_repeats_its_bits(hd):
+    """An f32 k and dO whose bases are off 16 bytes (the f32 dq's 16-byte
+    cp.async copies) are copied by the wrapper: dq, added to the same
+    carried dq, is the bits of contiguous ones, and a second run gives
+    the same bits; on a carried state and on a block whose first rows see
+    no key (every key tile visited)."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(81)
+    for q_off, k_off, fresh in ((130, 130, False), (0, 64, True)):
+        q, k, v, do, m, l, o = _block(79, 2, 130, 130, 3, hd, torch.float32,
+                                      "cuda")
+        if fresh:
+            m, l, o = _fresh(m, l, o)
+        scale = hd ** -0.5
+        _, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                       True, scale)
+        odd = []
+        for t in (k, do):
+            flat = torch.empty(t.numel() + 1, device="cuda")
+            odd.append(flat[1:].view(t.shape))       # base off by 4 bytes
+            odd[-1].copy_(t)
+        carried = torch.randn(2, 3, 130, hd, generator=g, device="cuda")
+        outs = []
+        for kk, dd in ((odd[0], odd[1]), (k, do), (k, do)):
+            dq = carried.clone()
+            ring_fold_backward_dq(q, kk, v, dd, lse, delta, dq, q_off, k_off,
+                                  True, scale)
+            outs.append(dq)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]) and torch.equal(outs[1], outs[2])
 
 
 def _fresh(m, l, o):
