@@ -1,7 +1,7 @@
 """models/ — the transformer LM (dense and MoE), its KV-cached decode,
 its training step and its checkpoints, on PyTorch (port of
 brpc_tpu/models/): on one device, or over a mesh with this rank's shards
-(``mesh=``; serving over a mesh is not ported yet)."""
+(``mesh=``: training and serving's prefill, decode step and cache)."""
 
 from brpc_tpu_torch.models.transformer import (  # noqa: F401
     ModelConfig,

@@ -12,23 +12,52 @@ Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
 cache's tensors and return the same dict.  Dense only, as the reference
 (decode.py:16-18): an MoE config raises ``ValueError``.
+
+Over a mesh (``mesh=``, the reference's dp/tp layout, decode.py:64-65)
+every function runs on this rank's shards, with the training forward's
+rule for the heads over tp (transformer.py ``_copy``/``_reduce``): the
+replicated activation enters the q/k/v and w1 products through
+``copy_to(tp)``, and the wo and w2 partial sums leave through
+``reduce_from(tp)``, so each kernel runs on ``H/tp`` heads.
+
+* The cache is this rank's shard ``[L, slots/dp, max_len, H/tp, hd]``
+  (spec ``CACHE_SPEC``) and ``pos`` its dp block ``[slots/dp]``.
+* ``prefill`` does not split its batch over dp (every dp group computes
+  it, as the reference does for a batch of one) and returns the GLOBAL
+  K/V, gathered over tp: the leader serialises it for the KV plane.
+* ``decode_step`` takes the global ``tokens``/``active`` [slots], runs
+  this rank's dp block of slots and returns its block of logits
+  ``[slots/dp, vocab]``, replicated over tp (the sharded ``apply``'s
+  convention).
+* ``install``/``reset_slot`` take the global slot (and the global K/V)
+  and act only on the dp group that owns the slot.
+
+Axes other than dp and tp replicate the computation (``prune_spec``).
+Without a mesh every function is the one-device version above; a mesh
+whose axes are all of size one runs no collective and gives its bits.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from brpc_tpu_torch.models.transformer import (
-    ModelConfig, TransformerLM, _causal_attention, _gelu, _layernorm,
-    logits_of, resolve_device)
+    ModelConfig, TransformerLM, _causal_attention, _copy, _gelu, _layernorm,
+    _reduce, logits_of, resolve_device)
 from brpc_tpu_torch.ops.decode_attention import decode_attention
+from brpc_tpu_torch.parallel import sharding
+from brpc_tpu_torch.parallel.mesh import Mesh
 
 # K/V serializes host-side as f32 (the wire the KV block plane moves);
 # the cache itself stays in cfg.dtype on the device.
 KV_WIRE_DTYPE = np.float32
+# the cache's layout over a mesh (the reference's P(None, "dp", None, "tp",
+# None)) and that of a sequence's K/V [L, S, H, hd] over tp
+CACHE_SPEC = (None, "dp", None, "tp", None)
+KV_SPEC = (None, None, "tp", None)
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
@@ -48,13 +77,26 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def init_cache(cfg: ModelConfig, slots: int, max_len: int,
-               device="cuda") -> Dict[str, torch.Tensor]:
+               device="cuda", mesh: Optional[Mesh] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Slot cache: k/v [L, slots, max_len, H, hd] in cfg.dtype and the
+    valid lengths ``pos`` [slots] int32; over a mesh this rank's shard
+    [L, slots/dp, max_len, H/tp, hd] and ``pos`` [slots/dp], allocated
+    at that size (each layer's rows stay contiguous for the kernel)."""
     _check_dense(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, slots, max_len, cfg.n_heads, cfg.head_dim)
+    if mesh is not None:
+        for axis, n, what in (("dp", slots, "slots"),
+                              ("tp", cfg.n_heads, "n_heads")):
+            parts = sharding.axis_size(mesh, axis)
+            if n % parts:
+                raise ValueError(f"{what} = {n} does not split over the "
+                                 f"mesh axis {axis!r} of {parts}")
+        shape = sharding.local_shape(shape, CACHE_SPEC, mesh)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.zeros((slots,), dtype=torch.int32, device=dev)}
+            "pos": torch.zeros(shape[1:2], dtype=torch.int32, device=dev)}
 
 
 def _tensor(x) -> torch.Tensor:
@@ -63,22 +105,44 @@ def _tensor(x) -> torch.Tensor:
     return torch.as_tensor(x)
 
 
-def install(cache: Dict, slot: int, k, v, length: int) -> Dict:
+def _local_row(cache: Dict, slot: int, mesh: Optional[Mesh]):
+    """The row of global `slot` in this rank's cache, or None when
+    another dp group owns it."""
+    if mesh is None:
+        return slot
+    rows = cache["pos"].shape[0]
+    if slot // rows != sharding.axis_index(mesh, "dp"):
+        return None
+    return slot % rows
+
+
+def install(cache: Dict, slot: int, k, v, length: int,
+            mesh: Optional[Mesh] = None) -> Dict:
     """Write a sequence's prefill K/V [L, S, H, hd] (tensors or numpy)
-    into `slot` at positions [0:S] and set the slot's valid length."""
+    into `slot` at positions [0:S] and set the slot's valid length.  Over
+    a mesh k/v are global and `slot` too: the owning dp group keeps its
+    heads, the others leave their shards alone."""
+    row = _local_row(cache, slot, mesh)
+    if row is None:
+        return cache
+    if mesh is not None:
+        k = sharding.local_slice(k, KV_SPEC, mesh)
+        v = sharding.local_slice(v, KV_SPEC, mesh)
     kk = _tensor(k).to(cache["k"].device, cache["k"].dtype)
     vv = _tensor(v).to(cache["v"].device, cache["v"].dtype)
     s = int(kk.shape[1])
-    cache["k"][:, slot, :s] = kk
-    cache["v"][:, slot, :s] = vv
-    cache["pos"][slot] = int(length)
+    cache["k"][:, row, :s] = kk
+    cache["v"][:, row, :s] = vv
+    cache["pos"][row] = int(length)
     return cache
 
 
-def reset_slot(cache: Dict, slot: int) -> Dict:
+def reset_slot(cache: Dict, slot: int, mesh: Optional[Mesh] = None) -> Dict:
     """Retire a slot: its row stops advancing; the stale K/V is dead
     weight the next install overwrites."""
-    cache["pos"][slot] = 0
+    row = _local_row(cache, slot, mesh)
+    if row is not None:
+        cache["pos"][row] = 0
     return cache
 
 
@@ -87,10 +151,14 @@ def reset_slot(cache: Dict, slot: int) -> Dict:
 
 
 @torch.no_grad()
-def prefill(model: TransformerLM, tokens, cfg: ModelConfig) -> Tuple:
+def prefill(model: TransformerLM, tokens, cfg: ModelConfig,
+            mesh: Optional[Mesh] = None) -> Tuple:
     """tokens [B, S] int -> (last-position logits [B, vocab] f32,
-    k [L, B, S, H, hd], v [L, B, S, H, hd]) in cfg.dtype."""
+    k [L, B, S, H, hd], v [L, B, S, H, hd]) in cfg.dtype.  Over a mesh
+    (default: the model's) each rank computes its H/tp heads of the whole
+    batch; the logits and the gathered K/V are global on every rank."""
     _check_dense(cfg)
+    mesh = model.mesh if mesh is None else mesh
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     S = tokens.shape[1]
@@ -99,18 +167,27 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig) -> Tuple:
     dt = cfg.dtype
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        hc = _layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt)
+        hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
+                   mesh, "tp")
         q = torch.einsum("bsd,dhk->bshk", hc, lp["wq"][i].to(dt))
         k = torch.einsum("bsd,dhk->bshk", hc, lp["wk"][i].to(dt))
         v = torch.einsum("bsd,dhk->bshk", hc, lp["wv"][i].to(dt))
         ks.append(k)
         vs.append(v)
         o = _causal_attention(q, k, v)
-        x = x + torch.einsum("bshk,hkd->bsd", o.to(dt), lp["wo"][i].to(dt))
-        h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
-        hf = _gelu(torch.einsum("bsd,df->bsf", h.to(dt), lp["w1"][i].to(dt)))
-        x = x + torch.einsum("bsf,fd->bsd", hf, lp["w2"][i].to(dt))
-    return logits_of(model, x[:, -1], cfg), torch.stack(ks), torch.stack(vs)
+        x = x + _reduce(torch.einsum("bshk,hkd->bsd", o.to(dt),
+                                     lp["wo"][i].to(dt)), mesh, "tp")
+        h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
+                  mesh, "tp")
+        hf = _gelu(torch.einsum("bsd,df->bsf", h, lp["w1"][i].to(dt)))
+        x = x + _reduce(torch.einsum("bsf,fd->bsd", hf, lp["w2"][i].to(dt)),
+                        mesh, "tp")
+    k, v = torch.stack(ks), torch.stack(vs)
+    if mesh is not None:
+        spec = (None, None) + KV_SPEC[1:]          # [L, B, S, H, hd]
+        k = sharding.gather_global(k, spec, mesh)
+        v = sharding.gather_global(v, spec, mesh)
+    return logits_of(model, x[:, -1], cfg), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -119,36 +196,46 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig) -> Tuple:
 
 @torch.no_grad()
 def decode_step(model: TransformerLM, cache: Dict, tokens, active,
-                cfg: ModelConfig) -> Tuple:
+                cfg: ModelConfig, mesh: Optional[Mesh] = None) -> Tuple:
     """One token for every slot: tokens [N] int (last emitted token per
     slot), active [N] bool -> (logits [N, vocab] f32, cache).
 
     Every slot flows through the math (the reference's static shapes):
     each writes its K/V at p = min(pos, S-1), inactive slots too — on a
     row the next install overwrites — and only active slots advance
-    `pos`.  The cache is updated in place."""
+    `pos`.  The cache is updated in place.  Over a mesh (default: the
+    model's) tokens and active stay global [N] and the logits are this
+    rank's dp block [N/dp, vocab]."""
     _check_dense(cfg)
+    mesh = model.mesh if mesh is None else mesh
     dev = model.embed.device
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
     S = k_cache.shape[2]
     tokens = torch.as_tensor(tokens, device=dev).long()
     active = torch.as_tensor(active, device=dev)
+    if mesh is not None:
+        tokens = sharding.local_slice(tokens, ("dp",), mesh)
+        active = sharding.local_slice(active, ("dp",), mesh)
     lp = model.blocks
     dt = cfg.dtype
     p = torch.clamp(pos, max=S - 1).to(torch.int32)   # write index per slot
     x = model.embed[tokens] + model.pos[p.long()]     # [N, D]
     for i in range(cfg.n_layers):
-        hc = _layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt)
+        hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
+                   mesh, "tp")
         q = torch.einsum("nd,dhk->nhk", hc, lp["wq"][i].to(dt)).contiguous()
         k_new = torch.einsum("nd,dhk->nhk", hc,
                              lp["wk"][i].to(dt)).contiguous()
         v_new = torch.einsum("nd,dhk->nhk", hc,
                              lp["wv"][i].to(dt)).contiguous()
         o = decode_attention(q, k_new, v_new, k_cache[i], v_cache[i], p)
-        x = x + torch.einsum("nhk,hkd->nd", o.to(dt), lp["wo"][i].to(dt))
-        h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
-        hf = _gelu(torch.einsum("nd,df->nf", h.to(dt), lp["w1"][i].to(dt)))
-        x = x + torch.einsum("nf,fd->nd", hf, lp["w2"][i].to(dt))
+        x = x + _reduce(torch.einsum("nhk,hkd->nd", o.to(dt),
+                                     lp["wo"][i].to(dt)), mesh, "tp")
+        h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
+                  mesh, "tp")
+        hf = _gelu(torch.einsum("nd,df->nf", h, lp["w1"][i].to(dt)))
+        x = x + _reduce(torch.einsum("nf,fd->nd", hf, lp["w2"][i].to(dt)),
+                        mesh, "tp")
     pos += active.to(torch.int32)
     return logits_of(model, x, cfg), cache
 

@@ -70,9 +70,14 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """Where this rank's tensors live."""
+        """Where this rank's tensors live: on cards, one process a card,
+        rank r's card is r modulo the cards the process sees (as
+        DeviceMesh assumes).  Not the calling thread's current device,
+        which other driver-API code on the thread (the device plane sets
+        a device's context current) can move."""
         if self.device_type == "cuda":
-            return torch.device("cuda", torch.cuda.current_device())
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            return torch.device("cuda", rank % torch.cuda.device_count())
         return torch.device(self.device_type)
 
     def device_mesh(self):

@@ -2,10 +2,22 @@
 the eviction paths that keep the KV accounting exact.  Port of
 brpc_tpu/serving/engine.py on PyTorch, eager (no jit, no torch.compile):
 the model runs on an explicit device (``cuda`` unless the caller asks
-for ``cpu``), and each decode step launches the hand-written
-``ops.decode_attention`` kernel once per layer.  The wire format, the
+for ``cpu``), each decode step launches the hand-written
+``ops.decode_attention`` kernel once per layer and each prefill the
+``ops.causal_attention`` forward once per layer.  The wire format, the
 KV route (f32 host bytes through DeviceBufPool blocks and back) and the
 block accounting are the reference's.
+
+Over a mesh (``mesh=``, the reference's dp/tp layout) one engine runs on
+every rank of the world, each on its shards of the model and of the
+decode cache, and the device operations go through
+:mod:`~brpc_tpu_torch.serving.lockstep`: rank 0 LEADS (the scheduler,
+the KV block plane, the handlers and ``tpu_plane`` live there alone, and
+its decode loop broadcasts each prefill, install, step and reset before
+it runs it), every other rank FOLLOWS (``start()`` runs a loop that
+replays them; ``stop()`` returns when the leader's ``stop()`` has
+drained).  The leader's accounting, ``stats()`` and wire are the
+one-device engine's.  Without a mesh the engine is one device's.
 
 Request wire format (method "LLM.Generate", payload JSON):
 
@@ -40,10 +52,12 @@ import torch
 from brpc_tpu_torch.models import decode as D
 from brpc_tpu_torch.models.transformer import ModelConfig
 from brpc_tpu_torch.models import transformer
+from brpc_tpu_torch.parallel.mesh import Mesh
 from brpc_tpu_torch.rpc import errors
 from brpc_tpu_torch.rpc.stream import StreamClosed, StreamReset, StreamTimeout
 from brpc_tpu_torch.serving import scheduler as S
 from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
+from brpc_tpu_torch.serving.lockstep import Lockstep
 from brpc_tpu_torch.utils import flags
 
 flags.define_int32(
@@ -62,42 +76,67 @@ TOKEN_FMT = "<I"  # one generated token = 4 LE bytes on the stream
 
 def tiny_config(**over) -> ModelConfig:
     """The serving acceptance model: small enough that the CPU prefills
-    + decodes in test time, big enough that K/V spans
-    multiple pool blocks per sequence."""
+    + decodes in test time, on one device or over a gloo world of 8 at
+    dp2 x tp4 (its 4 heads split 4 ways, its slots 2), big enough that
+    K/V spans multiple pool blocks per sequence."""
     kw = dict(vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128,
               max_seq=64, n_experts=0, dtype=torch.float32)
     kw.update(over)
     return ModelConfig(**kw)
 
 
+def _engine_device(device, mesh: Optional[Mesh]) -> torch.device:
+    """`device` (default cuda) without a mesh; the mesh's device with
+    one, which a `device` that names another contradicts."""
+    if mesh is None:
+        return transformer.resolve_device("cuda" if device is None
+                                          else device)
+    dev = mesh.device
+    if device is not None:
+        asked = torch.device(device)
+        if asked.type != dev.type or asked.index not in (None, dev.index):
+            raise ValueError(f"device={asked} conflicts with the mesh's "
+                             f"device {dev}")
+    return dev
+
+
 class ServingEngine:
     """Continuous-batching LLM server core.  One instance per process;
-    `register()` it on a Server, `start()` the decode loop."""
+    `register()` it on a Server, `start()` the decode loop.  Over a mesh
+    every rank builds one with the same arguments (a follower gets no
+    `kv`), only the leader's is registered on a Server."""
 
     def __init__(self, cfg: Optional[ModelConfig] = None,
                  params: Optional[transformer.TransformerLM] = None,
+                 mesh: Optional[Mesh] = None,
                  n_slots: Optional[int] = None,
                  max_len: Optional[int] = None,
                  kv: Optional[KvBlockPlane] = None,
                  max_waiting: Optional[int] = None, seed: int = 0,
-                 device="cuda"):
+                 device=None):
         self.cfg = cfg or tiny_config()
-        self.device = transformer.resolve_device(device)
+        self.mesh = mesh
+        self.device = _engine_device(device, mesh)
         if params is None:
             params = transformer.init(torch.Generator().manual_seed(seed),
-                                      self.cfg, self.device)
+                                      self.cfg, self.device, mesh)
         self.params = params.to(self.device)
         self.n_slots = n_slots or flags.get_flag("serving_slots")
         self.max_len = max_len or self.cfg.max_seq
-        self.kv = kv or KvBlockPlane()
-        self.sched = S.Scheduler(self.n_slots, self.kv,
-                                 D.kv_bytes_per_token(self.cfg),
-                                 max_waiting=max_waiting)
-        self.cache = D.init_cache(self.cfg, self.n_slots, self.max_len,
-                                  self.device)
+        self.dev = Lockstep(self.params, self.cfg, self.n_slots,
+                            self.max_len, self.device, mesh)
+        self.leader = self.dev.leader
+        if self.leader:
+            self.kv = kv or KvBlockPlane()
+            self.sched = S.Scheduler(self.n_slots, self.kv,
+                                     D.kv_bytes_per_token(self.cfg),
+                                     max_waiting=max_waiting)
+        elif kv is not None:
+            raise ValueError(self._follows("the KV block plane"))
         self._seq_ids = iter(range(1, 1 << 62))
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._failure: Optional[BaseException] = None
         self._lock = threading.Lock()
         # counters
         self.tokens_out = 0
@@ -105,6 +144,19 @@ class ServingEngine:
         self.steps = 0
         self.preemptions = 0
         self.rails = {"local": 0, "host": 0, "none": 0}
+
+    @property
+    def cache(self) -> Dict[str, torch.Tensor]:
+        """This rank's decode cache (its shard over a mesh)."""
+        return self.dev.cache
+
+    def _follows(self, what: str) -> str:
+        return (f"rank {self.dev.rank} follows: {what} lives on the leader "
+                f"(rank 0) alone")
+
+    def _leader_only(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(self._follows(what))
 
     # -- ingress (handler threads) ------------------------------------------
 
@@ -114,13 +166,16 @@ class ServingEngine:
         Generate method: what the scheduler could even hold.  The native
         cap sheds the rest with ELIMIT on the parse fiber — before the
         request ever reaches Python (the first gate)."""
+        self._leader_only("the scheduler")
         return self.n_slots + self.sched.max_waiting + 1
 
     def register(self, server, method: str = "LLM.Generate") -> None:
+        self._leader_only("the Generate handler")
         server.add_service(method, self.handle)
 
     def handle(self, cntl, req: bytes):
         """The Generate handler: parse, accept the stream, submit."""
+        self._leader_only("the Generate handler")
         try:
             body = json.loads(req.decode() or "{}")
             prompt = body.get("prompt")
@@ -158,17 +213,43 @@ class ServingEngine:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
-        self._thread = threading.Thread(target=self._loop,
+        """The leader's (or one device's) decode loop; on a follower the
+        loop that replays the leader's device operations."""
+        body = self._loop if self.leader else self.dev.follow
+        self._thread = threading.Thread(target=self._guard, args=(body,),
                                         name="serving-decode", daemon=True)
         self._thread.start()
 
+    def _guard(self, body) -> None:
+        try:
+            body()
+        except Exception as e:   # re-raised by stop()
+            self._failure = e
+
     def stop(self, drain_timeout_s: float = 10.0) -> None:
         """Stop the loop and drain: every live or queued sequence is
-        evicted and its blocks freed."""
+        evicted and its blocks freed; then the followers are released.
+        On a follower: wait for the leader's stop.  Raises when the loop
+        failed; on a world larger than one at once, with no drain and no
+        further broadcast, since the followers wait inside the failed
+        operation's collectives (the world's launcher stops them)."""
+        if not self.leader:
+            if self._thread is not None:
+                self._thread.join()
+            if self._failure is not None:
+                raise RuntimeError("the follower loop failed") \
+                    from self._failure
+            return
         self._stop.set()
         self.sched.work.set()
         if self._thread is not None:
             self._thread.join(drain_timeout_s)
+            if self._thread.is_alive() and self.dev.world > 1:
+                # its collectives would interleave with the drain's
+                raise RuntimeError("the decode loop did not stop within "
+                                   f"{drain_timeout_s} s")
+        if self._failure is not None and self.dev.world > 1:
+            raise RuntimeError("the decode loop failed") from self._failure
         for seq in self.sched.drain_waiting():
             self._end(seq, S.EVICTED, "server stopping",
                       rst_code=errors.ESTOP)
@@ -176,11 +257,16 @@ class ServingEngine:
             self._end(seq, S.EVICTED, "server stopping",
                       rst_code=errors.ESTOP)
         self.kv.free_all()
+        self.dev.stop()
+        if self._failure is not None:
+            raise RuntimeError("the decode loop failed") from self._failure
 
     def assert_drained(self) -> None:
+        self._leader_only("the KV block plane")
         self.kv.assert_balanced()
 
     def stats(self) -> Dict[str, int]:
+        self._leader_only("the scheduler")
         d = {
             "tokens_out": self.tokens_out,
             "prefills": self.prefills,
@@ -230,9 +316,7 @@ class ServingEngine:
             self._end(seq, S.CANCELED, "canceled before prefill")
             return
         plen = seq.prompt_len
-        toks = torch.tensor([seq.prompt], dtype=torch.long,
-                            device=self.device)
-        logits, k, v = D.prefill(self.params, toks, self.cfg)
+        logits, k, v = self.dev.prefill(seq.prompt)
         kvb = D.kv_to_bytes(k[:, 0], v[:, 0])
         try:
             self.kv.seq_alloc(seq.seq_id, kvb)
@@ -245,7 +329,7 @@ class ServingEngine:
         self.rails[rail] = self.rails.get(rail, 0) + 1
         k2, v2 = D.kv_from_bytes(self.kv.seq_fetch(seq.seq_id),
                                  self.cfg, plen)
-        D.install(self.cache, seq.slot, k2, v2, plen)
+        self.dev.install(seq.slot, k2, v2, plen)
         self.prefills += 1
         first = int(torch.argmax(logits[0]))
         if self._emit(seq, first) and seq.generated >= seq.max_new_tokens:
@@ -257,10 +341,8 @@ class ServingEngine:
         for s in batch:
             tokens[s.slot] = s.last_token
             active[s.slot] = True
-        logits, self.cache = D.decode_step(self.params, self.cache, tokens,
-                                           active, self.cfg)
+        nxt = self.dev.step(tokens, active)
         self.steps += 1
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for s in batch:
             if s.state != S.RUNNING:
                 continue  # evicted by a preemption earlier in this pass
@@ -323,7 +405,7 @@ class ServingEngine:
         once, stream closed (clean for FINISHED, RST otherwise)."""
         self.sched.release(seq, state, reason)
         if seq.slot >= 0:
-            D.reset_slot(self.cache, seq.slot)
+            self.dev.reset(seq.slot)
         self.kv.seq_free(seq.seq_id)
         try:
             if state == S.FINISHED:

@@ -1,0 +1,174 @@
+"""The device half of a ServingEngine over a mesh: one leader, followers
+in lockstep.
+
+The reference's engine is one controller over a global array
+(brpc_tpu/serving/engine.py:73-92: the jitted step and prefill take the
+mesh).  Here a rank is a process.  Rank 0 of the world is the LEADER: it
+alone runs the scheduler, the KV block plane, the server's handlers and
+``tpu_plane``.  Every other rank is a FOLLOWER that holds its shards of
+the model and of the decode cache (models/decode.py, ``mesh=``) and
+replays the leader's device operations in the same order, so that every
+rank reaches the same collectives.
+
+Each operation the leader's decode loop runs is first broadcast over
+the world: a fixed header of HEADER int64 values (op, slot, length,
+payload elements), then the payload in its op's dtype:
+
+    PREFILL  -, prompt length; the prompt tokens (int64)
+    INSTALL  slot, length; the fetched K/V, k then v [L, S, H, hd] in
+             the wire dtype (decode.KV_WIRE_DTYPE, f32)
+    STEP     -; tokens then the active mask of every slot (int64 [2N])
+    RESET    slot; -
+    STOP     -; -  (the followers' loops return)
+
+A STEP ends with an all-gather over dp of each dp group's greedy tokens:
+N ints a step, not N x vocab logits.  A world of one broadcasts nothing,
+and a mesh whose axes are all of size one runs no collective, so it
+runs the one-device engine's arithmetic.
+
+Only the leader's decode-loop thread (and, after it has joined, the
+thread that stops the engine) and each follower's loop thread call a
+collective; handler threads never do.  On NCCL that is one thread a
+process at a time, on its stream.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from brpc_tpu_torch.models import decode as D
+from brpc_tpu_torch.models.transformer import ModelConfig, TransformerLM
+from brpc_tpu_torch.parallel import collectives, sharding
+from brpc_tpu_torch.parallel.mesh import Mesh
+
+PREFILL, INSTALL, STEP, RESET, STOP = 1, 2, 3, 4, 5
+HEADER = 4
+_PAYLOAD_DTYPE = {PREFILL: torch.int64, INSTALL: torch.float32,
+                  STEP: torch.int64}
+
+
+def world_rank() -> Tuple[int, int]:
+    """(world size, this rank): (1, 0) without a process group."""
+    if not dist.is_initialized():
+        return 1, 0
+    return dist.get_world_size(), dist.get_rank()
+
+
+class Lockstep:
+    """The model and this rank's cache, and the four device operations
+    of serving.  On the leader each operation is broadcast and then run;
+    a follower runs them as :meth:`follow` receives them.  Without a mesh
+    it is the one-device engine's device half and broadcasts nothing."""
+
+    def __init__(self, params: TransformerLM, cfg: ModelConfig,
+                 n_slots: int, max_len: int, device: torch.device,
+                 mesh: Optional[Mesh] = None):
+        self.params, self.cfg, self.mesh = params, cfg, mesh
+        self.device = device
+        self.world, self.rank = world_rank() if mesh is not None else (1, 0)
+        self.cache = D.init_cache(cfg, n_slots, max_len, device, mesh)
+        self.ops: Dict[str, int] = {"prefill": 0, "install": 0, "step": 0,
+                                    "reset": 0}
+
+    @property
+    def leader(self) -> bool:
+        return self.rank == 0
+
+    # -- the wire -------------------------------------------------------
+
+    def _send(self, op: int, slot: int = 0, length: int = 0,
+              payload: Optional[torch.Tensor] = None) -> None:
+        if self.world == 1 or not self.leader:
+            return
+        n = 0 if payload is None else payload.numel()
+        header = torch.tensor([op, slot, length, n], dtype=torch.int64,
+                              device=self.device)
+        dist.broadcast(header, src=0)
+        if n:
+            dist.broadcast(payload.contiguous(), src=0)
+
+    def _recv(self) -> Tuple[int, int, int, Optional[torch.Tensor]]:
+        header = torch.empty(HEADER, dtype=torch.int64, device=self.device)
+        dist.broadcast(header, src=0)
+        op, slot, length, n = header.tolist()
+        payload = None
+        if n:
+            payload = torch.empty(n, dtype=_PAYLOAD_DTYPE[op],
+                                  device=self.device)
+            dist.broadcast(payload, src=0)
+        return op, slot, length, payload
+
+    # -- the operations (the leader calls these; follow() replays them) --
+
+    def prefill(self, prompt) -> Tuple:
+        """(last-position logits [1, vocab], global k, v [L, 1, S, H, hd])
+        of one prompt."""
+        toks = torch.as_tensor(prompt, dtype=torch.int64,
+                               device=self.device).reshape(-1)
+        self._send(PREFILL, length=toks.numel(), payload=toks)
+        self.ops["prefill"] += 1
+        return D.prefill(self.params, toks[None], self.cfg, self.mesh)
+
+    def install(self, slot: int, k, v, length: int) -> None:
+        """Install a sequence's global K/V [L, S, H, hd] (host arrays, as
+        the KV plane hands them back) into `slot`."""
+        if self.world > 1 and self.leader:
+            kv = torch.from_numpy(np.stack([np.asarray(x, np.float32)
+                                            for x in (k, v)]))
+            kv = kv.to(self.device)
+            self._send(INSTALL, slot, length, kv)
+            k, v = kv[0], kv[1]
+        self.ops["install"] += 1
+        D.install(self.cache, slot, k, v, length, self.mesh)
+
+    def step(self, tokens, active) -> np.ndarray:
+        """One decode step of every slot: the greedy next token of each
+        [N] (global; meaningful for the active slots)."""
+        both = torch.stack([torch.as_tensor(tokens, dtype=torch.int64),
+                            torch.as_tensor(active, dtype=torch.int64)]
+                           ).to(self.device)
+        self._send(STEP, payload=both)
+        self.ops["step"] += 1
+        logits, self.cache = D.decode_step(self.params, self.cache, both[0],
+                                           both[1].bool(), self.cfg,
+                                           self.mesh)
+        nxt = torch.argmax(logits, dim=-1)
+        if self.mesh is not None and sharding.axis_size(self.mesh, "dp") > 1:
+            nxt = collectives.all_gather(self.mesh, "dp", nxt)
+        return nxt.cpu().numpy()
+
+    def reset(self, slot: int) -> None:
+        self._send(RESET, slot)
+        self.ops["reset"] += 1
+        D.reset_slot(self.cache, slot, self.mesh)
+
+    def stop(self) -> None:
+        """The leader's last word: every follower's loop returns."""
+        self._send(STOP)
+
+    def follow(self) -> None:
+        """A follower's loop: replay the leader's operations until STOP."""
+        if self.leader:
+            raise RuntimeError("rank 0 leads; follow() is for the others")
+        while True:
+            op, slot, length, payload = self._recv()
+            if op == STOP:
+                return
+            if op == PREFILL:
+                self.prefill(payload)
+            elif op == INSTALL:
+                cfg = self.cfg
+                kv = payload.view(2, cfg.n_layers, -1, cfg.n_heads,
+                                  cfg.head_dim)
+                self.install(slot, kv[0], kv[1], length)
+            elif op == STEP:
+                self.step(payload[:payload.numel() // 2],
+                          payload[payload.numel() // 2:])
+            elif op == RESET:
+                self.reset(slot)
+            else:
+                raise RuntimeError(f"unknown lockstep op {op}")

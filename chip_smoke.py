@@ -97,12 +97,14 @@ printing one JSON line; any failure exits non-zero with no result line:
              ring_attention and ulysses_attention at B=8, S=1024, H=8,
              hd=64 in bf16, then in f32, forward and backward, against
              autograd of the plain `_dense_local` (the main path of the
-             fold: its launches are read over each); the three ring-fold
-             kernels
+             fold: its launches are read over each), and the same at hd 8
+             (B=8, S=1024, H=64: d_model 512 in heads of 8, the SIMT
+             kernels of csrc/ring_fold.cu); the three ring-fold kernels
              against their plain versions in f32 and bf16, one full-width
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
              (1, 3), causal and not, the wholly future (1, 3) block
-             skipped with no launch (RING_TOL, with the bf16 flip rule);
+             skipped with no launch, and at hd 8 the full-width block and
+             a C=256 (3, 1) block (RING_TOL, with the bf16 flip rule);
              exact scores (integer q and k): the bf16 forward and dk/dv
              hold m, l, o and dv within EXACT_TOL of the plain version,
              which p rounded once to bf16 leaves; each kernel timed in
@@ -113,7 +115,8 @@ printing one JSON line; any failure exits non-zero with no result line:
              dtype and host_call_ms; the f32 fold's device time a layer
              (forward, dq and dk/dv, cold); the kernel names under
              torch.profiler: bf16 the tensor-core forward, dq and dk/dv,
-             f32 the CUDA-core forward, dq and dk/dv
+             f32 the CUDA-core forward, dq and dk/dv, hd 8 the SIMT
+             forward, dq and dk/dv in both dtypes, each timed as above
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -121,14 +124,41 @@ printing one JSON line; any failure exits non-zero with no result line:
              of each; a checkpoint saved and restored through the mesh
              path and one more step on each, equal; then
              entry.dryrun_multichip(1) (one NCCL process)
+  mesh_serving
+             ServingEngine(mesh={"dp": 1, "tp": 1}) on the same world at
+             the serving phase's width and seed, beside the one-device
+             engine: the serving phase's prompts (32..256 tokens, 16 new)
+             one at a time stream the same tokens from both; then both
+             serve them concurrently with one cancel (the main path of
+             the mesh: decode_attention launched steps x n_layers times,
+             the causal forward prefills x n_layers), TTFT and
+             inter-token p50 of each; one decode step's logits through
+             the mesh path against the one-device path (bit-equal is
+             reported, STEP_LOGITS_ATOL held); decode_attention (N=4,
+             S=1024, both windows) and the causal forward (B=1,
+             S=PREFILL_LEN) at the 4, 2 and 1 heads a tp = 2, 4, 8 shard
+             holds, hd 64, f32 and bf16, against their plain versions
+             (KERNEL_TOL, cache rows bit-equal; ATTN_TOL)
 
 Before the last line it prints the kernels' JSON line (with the HGMMA
 count and ptxas registers and spills of each kernel's hd 64
-instantiation) and the card's ``nvidia-smi`` name and power limit; the
-last line is
+instantiation, hd 8 for the SIMT fold rows; the mesh_serving launches
+and tp-shard checks on the decode and causal forward rows) and the
+card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or outside the repository, it exits 1 and prints
 no result.
+
+    python3 chip_smoke.py --serving-world
+
+needs two or more cards of one host and runs only this: ServingEngine
+over a world of one NCCL rank a card (entry.launch_world) at
+ModelConfig()'s width, at each of WORLD_LAYOUTS the cards hold (tp 2,
+tp 4, dp 2 x tp 2), in bf16 and f32, in SERVE_TURNS with a one-device
+engine of the same seed on the leader's card: one serving_world line a
+world (each engine's TTFT and inter-token p50, the streams of the two
+engines compared and held equal in f32, every follower's device
+operations and kernel launches), then the same last two lines.
 """
 
 import json
@@ -428,12 +458,12 @@ KERNEL_SHAPE = (4, 1024, 8, 64)     # N, S, H, hd: ModelConfig(), 4 slots
 WINDOWS = ("mixed", "full")
 
 
-def kernel_inputs(g, dtype, window):
-    """q, k_new, v_new, k_cache, v_cache, p at KERNEL_SHAPE, drawn from the
-    CUDA generator g: p = [0, S-1, r1, r2] ("mixed") or [S-1] * N
-    ("full")."""
+def kernel_inputs(g, dtype, window, shape=KERNEL_SHAPE):
+    """q, k_new, v_new, k_cache, v_cache, p at `shape` (N, S, H, hd),
+    drawn from the CUDA generator g: p = [0, S-1, r1, r2] ("mixed") or
+    [S-1] * N ("full")."""
     import torch
-    N, S, H, hd = KERNEL_SHAPE
+    N, S, H, hd = shape
 
     def draw(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -446,9 +476,10 @@ def kernel_inputs(g, dtype, window):
             draw(N, S, H, hd), draw(N, S, H, hd), p)
 
 
-def check_kernel(fn, g, window):
+def check_kernel(fn, g, window, shape=KERNEL_SHAPE):
     """fn (the kernel's wrapper, or a call of another build of the kernel)
-    against the plain version on the same inputs, in f32 then bf16: the
+    against the plain version on the same inputs at `shape`, in f32 then
+    bf16: the
     appended cache rows must be bit-equal.  Returns the bf16 inputs after
     the call, {dtype: max abs error of o} and {dtype: the largest
     |o - plain| / (atol + rtol |plain|) under KERNEL_TOL}: o is within
@@ -458,7 +489,7 @@ def check_kernel(fn, g, window):
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain f32 einsums
     errs, shares = {}, {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        args = kernel_inputs(g, dtype, window)
+        args = kernel_inputs(g, dtype, window, shape)
         q, kn, vn, kc, vc, p = args
         kp, vp = kc.clone(), vc.clone()
         o = fn(*args).float()
@@ -1155,6 +1186,11 @@ def phase_parallel(smi):
 RING_SHAPE = (8, 1024, 8, 64)
 RING_SMALL = (2, 256, 8, 64)
 RING_BLOCKS = ((2, 2), (3, 1), (1, 3))
+# head dim 8, the reference tests' (csrc/ring_fold.cu's SIMT kernels, the
+# only hd they are built at): ModelConfig()'s d_model 512 as 64 heads of
+# 8, the full-width causal block and a C=256 block in the past, (3, 1)
+RING_HD8 = (8, 1024, 64, 8)
+RING_HD8_SMALL = (2, 256, 64, 8)
 # kernels against the plain version: f32 the same sums in another order;
 # bf16 the same roundings, but a sum in another order can flip one of
 # them, and a flipped dS moves a row of dq (or a column of dk) by one
@@ -1175,7 +1211,9 @@ RING_ROUTES = {"bf16": ["ring_fold_dkdv_sm90_kernel",
                         "ring_fold_dq_sm90_kernel",
                         "ring_fold_fwd_sm90_kernel"],
                "f32": ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_f32_kernel",
-                       "ring_fold_fwd_f32_kernel"]}
+                       "ring_fold_fwd_f32_kernel"],
+               "hd8": ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+                       "ring_fold_fwd_kernel"]}
 MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
 
 
@@ -1311,8 +1349,9 @@ def check_exact_scores(g, kernels, plains):
 
 def check_ring_fold(g):
     """The three fold kernels against their plain versions, f32 and bf16:
-    the full-width block and the RING_BLOCKS at C=256, causal and not;
-    then check_exact_scores.  Returns {case: {kernel: [max abs err, share
+    the full-width block and the RING_BLOCKS at C=256, causal and not, and
+    at hd 8 (the SIMT kernels) the RING_HD8 block and a RING_HD8_SMALL
+    (3, 1) block; then check_exact_scores.  Returns {case: {kernel: [max abs err, share
     of the tolerance]}} (the forward's error on the normalised output
     o / l, its share over the state m, l, o), the skip checks and the
     exact-scores results."""
@@ -1328,6 +1367,8 @@ def check_ring_fold(g):
         for causal in (True, False):
             cases.append((f"c256_{idx}_{src}_{'causal' if causal else 'full'}",
                           RING_SMALL, idx, src, causal, False))
+    cases += [("hd8_full_0_0_causal", RING_HD8, 0, 0, True, True),
+              ("hd8_c256_3_1_causal", RING_HD8_SMALL, 3, 1, True, False)]
     results, skipped = {}, {}
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for name, shape, idx, src, causal, fresh in cases:
@@ -1373,9 +1414,9 @@ def _dense_plain(q, k, v, scale):
     return torch.einsum("bhcd,bdhk->bchk", w, v.float()).to(q.dtype)
 
 
-def fold_rows(g, dtype, flush):
+def fold_rows(g, dtype, flush, shape=RING_SHAPE):
     """The three fold kernels timed at the full-width causal diagonal
-    block (RING_SHAPE, a fresh state) in `dtype` on the device alone,
+    block (`shape`, a fresh state) in `dtype` on the device alone,
     each beside its bound (fold_bounds at the dtype's width), the plain
     version (CUDA events), SDPA in the same dtype on the block (the
     backward rows: fwd+bwd less fwd) and host_call_ms: ({kernel: row},
@@ -1384,9 +1425,9 @@ def fold_rows(g, dtype, flush):
     import torch.nn.functional as F
 
     from brpc_tpu_torch.ops import ring_fold as rf
-    B, C, H, hd = RING_SHAPE
+    B, C, H, hd = shape
     scale = hd ** -0.5
-    (q, k, v, do), state = _fold_inputs(g, RING_SHAPE, dtype, True)
+    (q, k, v, do), state = _fold_inputs(g, shape, dtype, True)
     rf.ring_fold_forward(q, k, v, *state, 0, 0, True, scale)
     lse, delta = _lse_delta(*state, do)
     acc = [torch.zeros_like(state[2]) for _ in range(3)]
@@ -1429,8 +1470,8 @@ def fold_rows(g, dtype, flush):
     return rows, (q, k, v, do)
 
 
-def fold_paths(mesh, dtype, g):
-    """ring_attention and ulysses_attention over `mesh` at RING_SHAPE in
+def fold_paths(mesh, dtype, g, shape=RING_SHAPE):
+    """ring_attention and ulysses_attention over `mesh` at `shape` in
     `dtype`, forward and backward, against autograd of the plain
     `_dense_local`, with every fold wrapper's count set to 0 just before:
     ({path: {output: [max abs error, share of RING_TOL]}}, {wrapper:
@@ -1443,8 +1484,8 @@ def fold_paths(mesh, dtype, g):
     kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
                rf.ring_fold_backward_dkdv)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
-    scale = RING_SHAPE[3] ** -0.5
-    q, k, v, do = (torch.randn(RING_SHAPE, generator=g, device="cuda")
+    scale = shape[3] ** -0.5
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
     want = attention_grads(lambda *a: _dense_plain(*a, scale), q, k, v, do)
     for w in kernels:
@@ -1466,8 +1507,9 @@ def fold_paths(mesh, dtype, g):
 def phase_ring(smi):
     """ring_attention and ulysses_attention on the NCCL world of one (the
     main path of the fold: the launches are read over it), in bf16 and in
-    f32, the fold kernels against their plain versions, and their times
-    on the device at the full-width block in bf16 and in f32."""
+    f32, at hd 64 and at hd 8 (RING_HD8: the SIMT kernels); the fold
+    kernels against their plain versions, and their times on the device
+    at the full-width block in bf16 and in f32, at both head dims."""
     import torch
 
     from brpc_tpu_torch.parallel import make_mesh
@@ -1478,32 +1520,47 @@ def phase_ring(smi):
 
     # 1. the main path: ring and Ulysses attention, forward and backward,
     #    over the mesh of the NCCL world of one, against plain autograd,
-    #    in bf16 (the model's working type) and in f32
+    #    in bf16 (the model's working type) and in f32; then at hd 8
     mesh = make_mesh({"dp": 1, "sp": 1}, device_type="cuda")
     paths, launches, skips = fold_paths(mesh, torch.bfloat16, g)
     paths_f32, launches_f32, skips_f32 = fold_paths(mesh, torch.float32, g)
+    hd8 = {dt: fold_paths(mesh, dtype, g, RING_HD8) for dt, dtype in
+           (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     # 2. each kernel against its plain version
     checks, skipped, exact = check_ring_fold(g)
 
-    # 3. times of the full-width diagonal block in bf16 and in f32
+    # 3. times of the full-width diagonal block in bf16 and in f32, at
+    #    hd 64 and at hd 8
     flush_buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
     rows_f32, _ = fold_rows(g, torch.float32, flush_buf.sum)
     rows, qkvd = fold_rows(g, torch.bfloat16, flush_buf.sum)
+    rows_hd8 = {dt: fold_rows(g, dtype, flush_buf.sum, RING_HD8)[0]
+                for dt, dtype in (("bf16", torch.bfloat16),
+                                  ("f32", torch.float32))}
     del flush_buf
 
     # 4. the kernels one RingAttention forward and backward launched, in
-    #    bf16 and in f32
+    #    bf16 and in f32, and at hd 8 in each
     names = {dt: launched_kernels(
         lambda dtype=dtype: attention_grads(
             lambda *a: RingAttention.apply(*a, None, "sp", True, scale),
             *(t.to(dtype) for t in qkvd)),
         r"ring_fold_\w+_kernel", RING_ROUTES[dt])
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
+    small = [torch.randn(RING_HD8_SMALL, generator=g, device="cuda")
+             for _ in range(4)]
+    names_hd8 = {dt: launched_kernels(
+        lambda dtype=dtype: attention_grads(
+            lambda *a: RingAttention.apply(*a, None, "sp", True,
+                                           RING_HD8[3] ** -0.5),
+            *(t.to(dtype) for t in small)),
+        r"ring_fold_\w+_kernel", RING_ROUTES["hd8"])
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
-    def errs(dt):
+    def errs(dt, prefix="full"):
         return {kname: max(c[kname][0] for key, c in checks.items()
-                           if key.startswith(f"{dt}/full"))
+                           if key.startswith(f"{dt}/{prefix}"))
                 for kname in ("fwd", "bwd_dq", "bwd_dkdv")}
     line = {"phase": "ring", "device_name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi, "shape": dict(zip(("B", "C", "H", "hd"),
@@ -1521,6 +1578,13 @@ def phase_ring(smi):
                                           for r in rows_f32.values()),
             "max_abs_err": errs("bf16"), "max_abs_err_f32": errs("f32"),
             "kernel_names": names["bf16"], "kernel_names_f32": names["f32"],
+            "hd8": {"shape": dict(zip(("B", "C", "H", "hd"), RING_HD8)),
+                    "launches": {dt: hd8[dt][1] for dt in hd8},
+                    "paths_vs_plain_autograd": {dt: hd8[dt][0]
+                                                for dt in hd8},
+                    "kernels": rows_hd8,
+                    "max_abs_err": {dt: errs(dt, "hd8") for dt in hd8},
+                    "kernel_names": names_hd8},
             "library": "torch.nn.functional.scaled_dot_product_attention("
                        "is_causal=True) on the block, in the row's dtype; "
                        "it rounds its weights as it likes, not the fold's "
@@ -1533,12 +1597,17 @@ def phase_ring(smi):
            if (v[1] > 1) != o.startswith("control")}
     assert not bad, f"exact scores: outside EXACT_TOL or a control inside: " \
         f"{bad}"
-    bad = {f"{dt}/{p}": o for dt, ps in (("bf16", paths), ("f32", paths_f32))
+    bad = {f"{dt}/{p}": o for dt, ps in (("bf16", paths), ("f32", paths_f32),
+                                         ("hd8_bf16", hd8["bf16"][0]),
+                                         ("hd8_f32", hd8["f32"][0]))
            for p, res in ps.items() for o, v in res.items() if v[1] > 1}
     assert not bad, f"ring/ulysses differ from plain autograd: {bad}"
     assert all(n == 2 for n in launches.values()), launches
     assert all(n == 2 for n in launches_f32.values()), launches_f32
-    assert names == RING_ROUTES, names
+    assert all(n == 2 for dt in hd8 for n in hd8[dt][1].values()), hd8
+    assert names == {dt: RING_ROUTES[dt] for dt in names}, names
+    assert names_hd8 == {dt: RING_ROUTES["hd8"] for dt in names_hd8}, \
+        names_hd8
     assert len(skipped) == 2, skipped
     return line
 
@@ -1649,9 +1718,229 @@ def phase_mesh_train(smi):
     return line
 
 
+SERVE_MESH_AXES = {"dp": 1, "tp": 1}   # the serving mesh of one card
+SERVE_PLENS = (32, 64, 96, 128, 192, 256)   # the serving phase's prompts
+# the engines in turns, so that neither goes first alone
+SERVE_TURNS = ("one_device", "mesh", "mesh", "one_device")
+# the heads one rank holds at ModelConfig() (8 heads) over tp = 2, 4, 8
+TP_SHARD_HEADS = (4, 2, 1)
+
+
+def _serve(cfg, mesh, device="cuda"):
+    """A ServingEngine at the width of `cfg`, 4 slots, seeded like the
+    serving phase (on `mesh`, or on `device` without one), on a Server,
+    warmed by one short request: (engine, server, addr)."""
+    from brpc_tpu_torch.rpc.server import Server, ServerOptions
+    from brpc_tpu_torch.serving import ServingEngine
+    from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
+    where = {"mesh": mesh} if mesh is not None else {"device": device}
+    engine = ServingEngine(cfg=cfg, n_slots=4,
+                           kv=KvBlockPlane(block_bytes=1 << 20, n_blocks=64),
+                           **where)
+    server = Server(ServerOptions(
+        method_max_concurrency={"LLM.Generate": engine.method_cap}))
+    engine.register(server)
+    addr = f"127.0.0.1:{server.start('127.0.0.1:0')}"
+    engine.start()
+    _client(addr, 8, 2, 1000, 0, [], threading.Lock())
+    return engine, server, addr
+
+
+def _concurrent(engine, addr):
+    """The serving phase's clients: SERVE_PLENS at once, 16 new tokens
+    each, and one that cancels after three tokens (the main path: the
+    kernels' counts set to 0 just before and read once the KV plane has
+    drained).  Returns (results, {device operation or kernel wrapper:
+    count over the run}, wall s)."""
+    from brpc_tpu_torch.ops.causal_attention import causal_attention_forward
+    from brpc_tpu_torch.ops.decode_attention import decode_attention
+    results, lock = [], threading.Lock()
+    ops0 = dict(engine.dev.ops)
+    decode_attention.launches = 0      # the main path starts here
+    causal_attention_forward.launches = 0
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=_client,
+                                args=(addr, n, 16, i, 0, results, lock))
+               for i, n in enumerate(SERVE_PLENS)]
+    threads.append(threading.Thread(target=_client,
+                                    args=(addr, 48, 16, 99, 3, results,
+                                          lock)))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+        assert not t.is_alive(), "a client did not finish"
+    wall = time.monotonic() - t0
+    deadline = time.monotonic() + 60
+    while engine.stats()["kv_live_seqs"] > 0 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    ops = {k: v - ops0[k] for k, v in engine.dev.ops.items()}
+    ops["decode_attention"] = decode_attention.launches   # the path ends
+    ops["causal_attention_forward"] = causal_attention_forward.launches
+    return results, ops, wall
+
+
+def _serve_clients(engine, addr):
+    """SERVE_PLENS one at a time (each stream's tokens), then
+    _concurrent: (sequential token lists, results, ops, wall s)."""
+    sequential = []
+    for i, n in enumerate(SERVE_PLENS):
+        one = []
+        _client(addr, n, 16, i, 0, one, threading.Lock())
+        sequential.append(one[0]["tokens"])
+    return (sequential, *_concurrent(engine, addr))
+
+
+def _serve_turns(cfg, meshes, device="cuda"):
+    """The engines of `meshes` ({"one_device": None, "mesh": mesh}) in
+    SERVE_TURNS, each through _serve (the one-device engine on `device`)
+    and _serve_clients, stopped and drained: (turns, {engine: TTFT and
+    inter-token p50 over its turns}, {engine: its parameters})."""
+    turns, samples, params = [], {n: ([], []) for n in meshes}, {}
+    for name in SERVE_TURNS:
+        engine, server, addr = _serve(cfg, meshes[name], device)
+        sequential, results, ops, wall = _serve_clients(engine, addr)
+        stats = engine.stats()
+        engine.stop()
+        engine.assert_drained()
+        server.destroy()
+        full = [r for r in results if not r["cancel"]]
+        assert len(full) == len(SERVE_PLENS), results
+        assert all(len(r["tokens"]) == 16 and
+                   all(0 <= t < cfg.vocab for t in r["tokens"])
+                   for r in full), full
+        ttft = [r["stamps"][0] - r["t0"] for r in full]
+        gaps = [b - a for r in full for a, b in zip(r["stamps"],
+                                                   r["stamps"][1:])]
+        samples[name][0].extend(ttft)
+        samples[name][1].extend(gaps)
+        turns.append({"engine": name, "sequential": sequential, "ops": ops,
+                      "wall_s": wall, "ttft_p50_ms": _p50(ttft) * 1e3,
+                      "inter_token_p50_ms": _p50(gaps) * 1e3,
+                      "canceled": stats["canceled"],
+                      "rail_local": stats["rail_local"],
+                      "rail_host": stats["rail_host"],
+                      "ops_total": dict(engine.dev.ops)})
+        params[name] = engine.params
+        del engine
+    p50 = {n: {"ttft_p50_ms": _p50(t) * 1e3,
+               "inter_token_p50_ms": _p50(g) * 1e3}
+           for n, (t, g) in samples.items()}
+    return turns, p50, params
+
+
+def check_tp_shards(g):
+    """decode_attention and the causal forward at the head counts a tp
+    shard gives one rank at ModelConfig() (TP_SHARD_HEADS), against their
+    plain versions: decode at N=4, S=1024, hd 64 in both windows (cache
+    rows bit-equal, o within KERNEL_TOL), the causal forward at B=1,
+    S=PREFILL_LEN, hd 64 (o within ATTN_TOL); f32 and bf16.  Returns
+    {case: {dtype: share of the tolerance}}."""
+    import torch
+    from brpc_tpu_torch.ops.causal_attention import (causal_attention_forward,
+                                                     causal_attention_plain)
+    from brpc_tpu_torch.ops.decode_attention import decode_attention
+    N, S, _, hd = KERNEL_SHAPE
+    out = {}
+    for H in TP_SHARD_HEADS:
+        for window in WINDOWS:
+            _, errs, shares = check_kernel(decode_attention, g, window,
+                                           (N, S, H, hd))
+            out[f"decode_H{H}_{window}"] = {
+                dt: [errs[dt], shares[dt]] for dt in errs}
+        res = {}
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            q, k, v = (torch.randn(1, PREFILL_LEN, H, hd, generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            got = causal_attention_forward(q, k, v)[0].float()
+            want = causal_attention_plain(q, k, v).float()
+            tol = ATTN_TOL[dt]
+            diff = (got - want).abs()
+            res[dt] = [float(diff.max()), float(
+                (diff / (tol["atol"] + tol["rtol"] * want.abs())).max())]
+        out[f"causal_fwd_H{H}"] = res
+    return out
+
+
+def phase_mesh_serving(smi):
+    """ServingEngine(mesh=SERVE_MESH_AXES) on the NCCL world of one at
+    ModelConfig()'s width beside the one-device engine, both seeded like
+    the serving phase, in SERVE_TURNS: the SERVE_PLENS prompts served one
+    at a time give every turn the same tokens; then concurrent clients
+    with one cancel (the main path of the mesh: decode_attention and the
+    causal forward counted over it); TTFT and inter-token p50 of each
+    turn and of each engine's two turns together; one decode step's
+    logits through the mesh path against the one-device path on the same
+    cache; then check_tp_shards."""
+    import torch
+
+    from brpc_tpu_torch import tpu_plane
+    from brpc_tpu_torch.models import decode as D
+    from brpc_tpu_torch.models.transformer import ModelConfig
+    from brpc_tpu_torch.parallel import make_mesh
+
+    cfg = ModelConfig()
+    mesh = make_mesh(SERVE_MESH_AXES, device_type="cuda")
+    meshes = {"one_device": None, "mesh": mesh}
+    live0 = tpu_plane.stats()["live_buffers"]
+    turns, p50, params = _serve_turns(cfg, meshes)
+    live1 = tpu_plane.stats()["live_buffers"]
+    assert live1 == live0, (live0, live1)
+    mesh_ops = [t["ops"] for t in turns if t["engine"] == "mesh"]
+
+    # one decode step through the mesh path against the one-device path,
+    # from caches filled the same way (outside the counted window)
+    gen = torch.Generator().manual_seed(1)
+    caches = {n: D.init_cache(cfg, 4, 1024, "cuda", m)
+              for n, m in meshes.items()}
+    for slot, plen in enumerate((32, 100, 257, 1000)):
+        toks = torch.randint(0, cfg.vocab, (1, plen), generator=gen)
+        for n, m in meshes.items():
+            _, k, v = D.prefill(params[n], toks, cfg, m)
+            D.install(caches[n], slot, k[:, 0], v[:, 0], plen, m)
+    tokens = torch.randint(0, cfg.vocab, (4,), generator=gen)
+    active = torch.ones(4, dtype=torch.bool)
+    logits = {n: D.decode_step(params[n], caches[n], tokens, active, cfg,
+                               m)[0] for n, m in meshes.items()}
+    step_bit_equal = torch.equal(logits["mesh"], logits["one_device"])
+    step_err = float((logits["mesh"] - logits["one_device"]).abs().max())
+
+    shards = check_tp_shards(torch.Generator(device="cuda").manual_seed(7))
+    line = {"phase": "mesh_serving",
+            "device_name": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi, "mesh": mesh.shape,
+            "backend": torch.distributed.get_backend(),
+            "tokens_equal": all(t["sequential"] == turns[0]["sequential"]
+                                for t in turns),
+            "step_logits_bit_equal": step_bit_equal,
+            "step_logits_max_abs_err": step_err,
+            "decode_attention_launches": sum(o["decode_attention"]
+                                             for o in mesh_ops),
+            "causal_attention_fwd_launches": sum(
+                o["causal_attention_forward"] for o in mesh_ops),
+            "p50": p50, "turns": turns, "tp_shards": shards,
+            "tp_shard_heads": TP_SHARD_HEADS,
+            "kernel_tolerance": KERNEL_TOL, "attention_tolerance": ATTN_TOL}
+    emit(line)
+    assert line["tokens_equal"], turns
+    assert step_err <= STEP_LOGITS_ATOL, step_err
+    for ops in mesh_ops:
+        assert ops["decode_attention"] == ops["step"] * cfg.n_layers > 0, ops
+        assert ops["causal_attention_forward"] == \
+            ops["prefill"] * cfg.n_layers > 0, ops
+    assert all(t["canceled"] >= 1 for t in turns), turns
+    bad = {c: r for c, r in shards.items() for dt, v in r.items()
+           if v[1] > 1}
+    assert not bad, f"a kernel at a tp shard's heads differs from its " \
+        f"plain version: {bad}"
+    return line
+
+
 def phase_mesh(smi):
-    """The ring and mesh_train phases inside one NCCL process group of
-    one rank on the card (built as phase_parallel builds its own)."""
+    """The ring, mesh_train and mesh_serving phases inside one NCCL
+    process group of one rank on the card (built as phase_parallel
+    builds its own)."""
     import torch
     import torch.distributed as dist
     torch.cuda.set_device(0)
@@ -1664,11 +1953,163 @@ def phase_mesh(smi):
         ring = phase_ring(smi)
         t1 = time.monotonic()
         mesh = phase_mesh_train(smi)
+        t2 = time.monotonic()
+        serving = phase_mesh_serving(smi)
         emit({"phase": "mesh_phases_s", "ring": t1 - t0,
-              "mesh_train": time.monotonic() - t1})
-        return ring, mesh
+              "mesh_train": t2 - t1,
+              "mesh_serving": time.monotonic() - t2})
+        return ring, mesh, serving
     finally:
         dist.destroy_process_group()
+
+
+# python3 chip_smoke.py --serving-world: serving worlds across the cards
+# of one host, each layout that the cards hold
+WORLD_LAYOUTS = ({"dp": 1, "tp": 2}, {"dp": 1, "tp": 4}, {"dp": 2, "tp": 2})
+WORLD_DTYPES = ("bf16", "f32")
+
+
+def serving_world_rank(mesh):
+    """One rank of a serving world (entry.launch_world's target) at
+    ModelConfig()'s width, in each of WORLD_DTYPES.  The leader runs
+    _serve_turns: the mesh engine over the world, in turns with a
+    one-device engine of the same seed on the leader's card; a follower
+    follows each mesh turn and counts its device operations and its own
+    kernel launches."""
+    import torch
+    import torch.distributed as dist
+    from brpc_tpu_torch import tpu_plane
+    from brpc_tpu_torch.models.transformer import ModelConfig
+    from brpc_tpu_torch.ops.causal_attention import causal_attention_forward
+    from brpc_tpu_torch.ops.decode_attention import decode_attention
+    from brpc_tpu_torch.serving import ServingEngine
+    leader = dist.get_rank() == 0
+    if leader:
+        assert tpu_plane.init(), tpu_plane.error()
+    out = {}
+    for dt in WORLD_DTYPES:
+        cfg = ModelConfig(dtype=torch.float32 if dt == "f32"
+                          else torch.bfloat16)
+        if leader:
+            turns, p50, _ = _serve_turns(
+                cfg, {"one_device": None, "mesh": mesh}, mesh.device)
+            out[dt] = {"turns": turns, "p50": p50}
+            continue
+        out[dt] = []
+        for _ in range(SERVE_TURNS.count("mesh")):
+            decode_attention.launches = 0
+            causal_attention_forward.launches = 0
+            engine = ServingEngine(cfg=cfg, mesh=mesh, n_slots=4)
+            engine.start()
+            engine.stop()
+            out[dt].append({
+                **engine.dev.ops,
+                "decode_attention": decode_attention.launches,
+                "causal_attention_forward": causal_attention_forward.launches})
+    return out
+
+
+def world_line(axes, ranks, n_layers):
+    """The serving_world line of one world from its ranks' returns, with
+    what failed its checks under "failed": each engine streams the same tokens in both its turns;
+    in f32 the mesh streams the one-device engine's tokens (bf16 is
+    reported: the row-parallel partial sums are rounded to bf16 before
+    the tp all-reduce adds them, so a greedy near-tie may part the
+    streams); every follower replays the leader's device operations and
+    launches decode_attention steps x n_layers and the causal forward
+    prefills x n_layers times."""
+    line = {"phase": "serving_world", "axes": axes, "ranks": len(ranks),
+            "failed": []}
+    for dt in WORLD_DTYPES:
+        turns = ranks[0][dt]["turns"]
+        seqs = {n: [t["sequential"] for t in turns if t["engine"] == n]
+                for n in ("one_device", "mesh")}
+        mesh_seq, one_seq = seqs["mesh"][0], seqs["one_device"][0]
+        first_diff = [next((i for i, (a, b) in enumerate(zip(m, o))
+                            if a != b), None)
+                      for m, o in zip(mesh_seq, one_seq)]
+        leader_ops = [t["ops_total"] for t in turns if t["engine"] == "mesh"]
+        followers = [r[dt] for r in ranks[1:]]
+        line[dt] = {
+            "streams_equal": mesh_seq == one_seq,
+            "prompts_equal": sum(d is None for d in first_diff),
+            "first_diff": first_diff,
+            "turns_repeat": all(s == v[0] for v in seqs.values()
+                                for s in v),
+            "p50": ranks[0][dt]["p50"],
+            "turns": [{k: v for k, v in t.items() if k != "sequential"}
+                      for t in turns],
+            "follower_ops": followers[0] if followers else None}
+        if not line[dt]["turns_repeat"]:
+            line["failed"].append(f"{dt}: an engine's turns differ")
+        if dt == "f32" and not line[dt]["streams_equal"]:
+            line["failed"].append("f32: the mesh's streams differ from "
+                                  "the one-device engine's")
+        for r, f in enumerate(followers, 1):
+            if [{k: o[k] for k in lo} for o, lo in
+                    zip(f, leader_ops)] != leader_ops:
+                line["failed"].append(f"{dt}: rank {r} replayed other "
+                                      f"operations than the leader's")
+            if not all(o["decode_attention"] == o["step"] * n_layers > 0
+                       and o["causal_attention_forward"] ==
+                       o["prefill"] * n_layers > 0 for o in f):
+                line["failed"].append(f"{dt}: rank {r}'s launches are not "
+                                      f"steps/prefills x n_layers")
+    return line
+
+
+def serving_worlds() -> int:
+    """python3 chip_smoke.py --serving-world: ServingEngine(mesh=) at
+    ModelConfig()'s width over each of WORLD_LAYOUTS that the host's
+    cards hold, one entry.launch_world each (one NCCL rank a card, the
+    leader's KV plane on its card), beside a one-device engine of the
+    same seed: one serving_world line each (world_line's checks, the
+    f32 streams held equal), then the card's name and power limit and
+    the ok line."""
+    import math
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    try:
+        from brpc_tpu_torch import _native
+        from brpc_tpu_torch.entry import launch_world
+        from brpc_tpu_torch.models.transformer import ModelConfig
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 1
+    n = torch.cuda.device_count()
+    layouts = [a for a in WORLD_LAYOUTS if math.prod(a.values()) <= n]
+    if not layouts:
+        print(f"chip_smoke: --serving-world needs 2 cards, found {n}",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    with ThreadPoolExecutor(2) as ex:   # built once, before the ranks
+        for f in [ex.submit(_native.build_core),
+                  ex.submit(_native.build_kernels)]:
+            f.result()
+    lines = []
+    for axes in layouts:
+        t0 = time.monotonic()
+        ranks = launch_world(math.prod(axes.values()), axes,
+                             f"{os.path.abspath(__file__)}"
+                             ":serving_world_rank", device_type="cuda")
+        line = world_line(axes, ranks, ModelConfig().n_layers)
+        line.update(nvidia_smi=smi, wall_s=time.monotonic() - t0)
+        emit(line)
+        lines.append(line)
+    failed = [f for line in lines for f in line["failed"]]
+    assert not failed, failed
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": n}})
+    return 0
 
 
 def _client(addr, plen, max_new, seed, cancel_after, results, lock):
@@ -1721,57 +2162,24 @@ def phase_serving():
     from brpc_tpu_torch.models import decode as D
     from brpc_tpu_torch.models import transformer as T
     from brpc_tpu_torch.models.transformer import ModelConfig
-    from brpc_tpu_torch.ops.causal_attention import (causal_attention_forward,
-                                                     causal_attention_plain)
-    from brpc_tpu_torch.ops.decode_attention import (decode_attention,
-                                                     decode_attention_plain)
-    from brpc_tpu_torch.rpc.server import Server, ServerOptions
-    from brpc_tpu_torch.serving import ServingEngine
-    from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
+    from brpc_tpu_torch.ops.causal_attention import causal_attention_plain
+    from brpc_tpu_torch.ops.decode_attention import decode_attention_plain
 
     cfg = ModelConfig()
     live0 = tpu_plane.stats()["live_buffers"]
-    engine = ServingEngine(cfg=cfg, device="cuda", n_slots=4,
-                           kv=KvBlockPlane(block_bytes=1 << 20, n_blocks=64))
-    server = Server(ServerOptions(
-        method_max_concurrency={"LLM.Generate": engine.method_cap}))
-    engine.register(server)
-    addr = f"127.0.0.1:{server.start('127.0.0.1:0')}"
-    engine.start()
-    results, lock = [], threading.Lock()
-    # one short request first: lazy CUDA/cuBLAS set-up stays out of TTFT
-    _client(addr, 8, 2, 1000, 0, [], lock)
-    plens = [32, 64, 96, 128, 192, 256]
-    decode_attention.launches = 0      # the main path starts here
-    causal_attention_forward.launches = 0
-    steps0 = engine.steps
-    t0 = time.monotonic()
-    threads = [threading.Thread(target=_client,
-                                args=(addr, n, 16, i, 0, results, lock))
-               for i, n in enumerate(plens)]
-    threads.append(threading.Thread(target=_client,
-                                    args=(addr, 48, 16, 99, 3, results,
-                                          lock)))
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(600)
-        assert not t.is_alive(), "a client did not finish"
-    wall = time.monotonic() - t0
-    deadline = time.monotonic() + 60
-    while engine.stats()["kv_live_seqs"] > 0 and time.monotonic() < deadline:
-        time.sleep(0.02)
-    launches = decode_attention.launches   # the main path ends here
-    prefill_launches = causal_attention_forward.launches
-    steps = engine.steps - steps0
+    engine, server, addr = _serve(cfg, None)
+    results, ops, wall = _concurrent(engine, addr)
+    launches = ops["decode_attention"]
+    prefill_launches = ops["causal_attention_forward"]
+    steps = ops["step"]
     stats = engine.stats()
     _profile_decode(engine, addr)
     engine.stop()
     engine.assert_drained()
     server.destroy()
     full = [r for r in results if not r["cancel"]]
-    assert len(full) == len(plens) and len(results) == len(plens) + 1, \
-        results
+    assert len(full) == len(SERVE_PLENS) and \
+        len(results) == len(SERVE_PLENS) + 1, results
     for r in full:
         assert len(r["tokens"]) == 16, r
         assert all(0 <= t < cfg.vocab for t in r["tokens"]), r
@@ -1942,7 +2350,8 @@ def main() -> int:
     launches, prefill_launches = phase_serving()
     train_launches, f32_twin_launches = phase_train()
     par = phase_parallel(smi)
-    ring, _ = phase_mesh(smi)
+    ring, _, mesh_serving = phase_mesh(smi)
+    shards = mesh_serving["tp_shards"]
     kernels = [{
         "name": "decode_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/decode_attention.cu",
@@ -1953,7 +2362,10 @@ def main() -> int:
         "max_err": k["max_abs_err"], "kernel_ms": k["ms"],
         "cold_ms": k["cold_ms"], "library_cold_ms": k["library_cold_ms"],
         "launch_floor_ms": k["launch_floor_ms"],
-        "host_call_ms": k["host_call_ms"], "window": k["window"]}]
+        "host_call_ms": k["host_call_ms"], "window": k["window"],
+        "mesh_serving_launches": mesh_serving["decode_attention_launches"],
+        "tp_shards": {c: r for c, r in shards.items()
+                      if c.startswith("decode")}}]
 
     def compiled(kernel):   # the hd 64 instantiation the shapes here run
         return {"sass_hgmma": card["sass_hgmma"].get(kernel),
@@ -1975,7 +2387,11 @@ def main() -> int:
             "max_abs_err": max(err[o] for o in outs), **row,
             **compiled(f"causal_{name.replace('bwd_', '')}_sm90<64>"),
             "launches_in": "train phase, 5 steps x 4 layers",
-            **({"serving_prefill_launches": prefill_launches}
+            **({"serving_prefill_launches": prefill_launches,
+                "mesh_serving_prefill_launches":
+                    mesh_serving["causal_attention_fwd_launches"],
+                "tp_shards": {c: r for c, r in shards.items()
+                              if c.startswith("causal")}}
                if name == "fwd" else {})})
     err = attn["errs"]["f32_S1024"]
     for name, wrapper, outs, source, kernel in (
@@ -2040,6 +2456,29 @@ def main() -> int:
             "launches_in": "ring phase: ring_attention and "
                            "ulysses_attention in f32, forward and "
                            "backward, on the NCCL world of one"})
+    hd8 = ring["hd8"]
+    for dt in ("f32", "bf16"):
+        for name, wrapper, kernel in (
+                ("fwd", "ring_fold_forward", "ring_fold_fwd_kernel"),
+                ("bwd_dq", "ring_fold_backward_dq", "ring_fold_dq_kernel"),
+                ("bwd_dkdv", "ring_fold_backward_dkdv",
+                 "ring_fold_dkdv_kernel")):
+            ctype = "float" if dt == "f32" else "__nv_bfloat16"
+            kernels.append({
+                "name": f"ring_fold_{name}_hd8_{dt}", "route": "cuda",
+                "source": "brpc_tpu_torch/csrc/ring_fold.cu",
+                "replaces": "brpc_tpu/parallel/ring_attention.py:56"
+                            + ("" if name == "fwd" else " (its jax.grad)"),
+                "launches": hd8["launches"][dt][wrapper],
+                "max_abs_err": hd8["max_abs_err"][dt][name],
+                **hd8["kernels"][dt][name],
+                **compiled(f"{kernel}<{ctype}, 8>"),
+                "shape": hd8["shape"],
+                "launches_in": "ring phase: ring_attention and "
+                               f"ulysses_attention in {dt} at hd 8 (64 "
+                               "heads of 8), forward and backward, on the "
+                               "NCCL world of one; no path of "
+                               "ModelConfig() (hd 64) launches them"})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2050,7 +2489,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        rc = serving_worlds() if sys.argv[1:] == ["--serving-world"] \
+            else main()
     except Exception:  # a failed phase: report it, print no result
         traceback.print_exc()
         sys.stdout.flush()

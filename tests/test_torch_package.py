@@ -61,7 +61,7 @@ PORTED = [
     "parallel/__init__.py", "parallel/quantize.py", "parallel/mesh.py",
     "parallel/collectives.py", "parallel/sharding.py",
     "parallel/ring_attention.py",
-    "serving/__init__.py", "serving/engine.py",
+    "serving/__init__.py", "serving/engine.py", "serving/lockstep.py",
 ]
 
 
