@@ -9,8 +9,9 @@ compile unchanged and the C ABI below is the reference's ABI.
 
 Everything is built at first use into ``brpc_tpu_torch/_native/build/``
 (gitignored): the core with parallel g++, the fake libcuda the CPU tests
-bind (``csrc/cuda_fake.cc``), and, on a machine with ``nvcc``, the
-hand-written kernels (``csrc/*.cu``).  A build runs under an ``fcntl``
+bind (``csrc/cuda_fake.cc``), the plane's race harness with and
+without AddressSanitizer (``csrc/test_plane_races.cc``), and, on a
+machine with ``nvcc``, the hand-written kernels (``csrc/*.cu``).  A build runs under an ``fcntl``
 lock (test runners import this module from several processes at once)
 and installs by atomic rename, so a process that already mapped a
 library keeps its copy.  A content stamp of the inputs decides whether a
@@ -158,6 +159,50 @@ def build_fake_driver() -> str:
     flags = CXXFLAGS + ["-shared"]
     return _build(FAKE_NAME, [src], [cxx] + flags,
                   lambda out: _run([cxx, *flags, src, "-o", out]))
+
+
+RACES_NAME = "test_plane_races"
+ASAN_FLAGS = ["-std=gnu++17", "-O1", "-g", "-fno-omit-frame-pointer",
+              "-fsanitize=address", "-fPIC", "-pthread"]
+
+
+def build_plane_races(asan: bool = False) -> str:
+    """Build (if stale) and return the path of the plane's race harness
+    (``csrc/test_plane_races.cc``): linked against the core library, or,
+    with `asan`, one AddressSanitizer binary of the harness and the
+    core's sources compiled again.  Run it with ``TRPC_CUDA_DRIVER``
+    naming the fake driver (:func:`build_fake_driver`)."""
+    cxx = os.environ.get("CXX", "g++")
+    src = os.path.join(CSRC, "test_plane_races.cc")
+    include = ["-I" + os.path.join(CSRC, "compat"),
+               "-I" + os.path.join(NATIVE_SRC, "src")]
+    if not asan:
+        core = build_core()
+        flags = CXXFLAGS + include
+        link = ["-L" + BUILD_DIR, "-l:" + CORE_NAME,
+                "-Wl,-rpath,$ORIGIN", "-ldl"]
+        return _build(RACES_NAME, [src, core], [cxx] + flags + link,
+                      lambda out: _run([cxx, *flags, src, "-o", out,
+                                        *link]))
+    sources = _core_sources() + [src]
+    flags = ASAN_FLAGS + include
+
+    def make(out: str) -> None:
+        objdir = tempfile.mkdtemp(prefix="asan-", dir=BUILD_DIR)
+        try:
+            objs = [os.path.join(objdir, f"{i}.o")
+                    for i in range(len(sources))]
+            with ThreadPoolExecutor(os.cpu_count() or 4) as ex:
+                for fut in [ex.submit(_run, [cxx, *flags, "-c", s, "-o", o])
+                            for s, o in zip(sources, objs)]:
+                    fut.result()
+            _run([cxx, *flags, *objs, "-o", out, "-ldl"])
+        finally:
+            shutil.rmtree(objdir, ignore_errors=True)
+
+    inputs = sources + _headers() + [os.path.join(CSRC, "compat", "linux",
+                                                      "io_uring.h")]
+    return _build(RACES_NAME + "_asan", inputs, [cxx] + flags, make)
 
 
 def _nvcc() -> str:

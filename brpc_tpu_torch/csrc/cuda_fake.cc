@@ -1,6 +1,6 @@
 // cuda_fake.cc — a fake CUDA driver (libcuda) for the CPU tests of the
 // CUDA device plane (cuda_plane.cc), modelled on native/src/pjrt_fake.cc:
-// the plane calls about fifteen driver entry points, and this library
+// the plane calls about sixteen driver entry points, and this library
 // exports exactly those, by their versioned names, against host memory.
 // Copies and host functions run in stream order on one background
 // completion thread, so completions arrive on a foreign thread as they
@@ -249,6 +249,12 @@ CUresult cuDevicePrimaryCtxRetain(void** ctx, int dev) {
     return kInvalidValue;
   }
   *ctx = ctxs()[dev];
+  return kOk;
+}
+
+CUresult cuCtxGetCurrent(void** ctx) {
+  guard("cuCtxGetCurrent");
+  *ctx = tl_current;
   return kOk;
 }
 

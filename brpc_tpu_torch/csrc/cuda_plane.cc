@@ -26,8 +26,11 @@
 // Rules the design keeps:
 //   * The current context is per OS thread, and the plane is called from
 //     fiber workers, the usercode pool and Python threads: every driver
-//     call is preceded by making the device's primary context current
-//     (a fiber may resume on another thread after a butex wait).
+//     call runs inside a CtxScope, which makes the device's primary
+//     context current and gives the thread back its own context (null
+//     included) when it ends, on error paths too.  The plane moves none
+//     of its caller's CUDA state, as the PJRT plane moves none.  No scope
+//     spans a butex wait: a fiber may resume on another thread.
 //   * A host function may make no CUDA call.  Completion only releases
 //     the source, stores 1, wakes and unpins; a device free or a landing
 //     zone unregister that falls due inside it is deferred to the next
@@ -108,6 +111,7 @@ struct Driver {
   CUresult (*DeviceGetCount)(int*);
   CUresult (*DeviceGet)(CUdevice*, int);
   CUresult (*DevicePrimaryCtxRetain)(CUcontext*, CUdevice);
+  CUresult (*CtxGetCurrent)(CUcontext*);
   CUresult (*CtxSetCurrent)(CUcontext);
   CUresult (*StreamCreate)(CUstream*, unsigned);
   CUresult (*StreamQuery)(CUstream);
@@ -191,17 +195,41 @@ std::string cu_error(const char* what, CUresult rc) {
          ")";
 }
 
-// Make device `dev`'s primary context current on the calling thread.
-bool use_ctx(int dev) {
-  Plane& p = plane();
-  CUresult rc = p.d.CtxSetCurrent(p.devs[dev].ctx);
-  if (rc != CUDA_SUCCESS) {
-    p.errors.fetch_add(1, std::memory_order_relaxed);
-    set_plane_error(cu_error("cuCtxSetCurrent", rc));
-    return false;
+// Device `dev`'s primary context, current on the calling thread while
+// the scope lives; the thread's own context (or none) is current again
+// when it ends.  ok() is false (and counted) when the switch failed.
+class CtxScope {
+ public:
+  explicit CtxScope(int dev) {
+    Plane& p = plane();
+    CUcontext want = p.devs[dev].ctx;
+    const char* what = "cuCtxGetCurrent";
+    CUresult rc = p.d.CtxGetCurrent(&saved_);
+    if (rc == CUDA_SUCCESS && saved_ != want) {
+      what = "cuCtxSetCurrent";
+      rc = p.d.CtxSetCurrent(want);
+      switched_ = rc == CUDA_SUCCESS;
+    }
+    if (rc != CUDA_SUCCESS) {
+      p.errors.fetch_add(1, std::memory_order_relaxed);
+      set_plane_error(cu_error(what, rc));
+    }
+    ok_ = rc == CUDA_SUCCESS;
   }
-  return true;
-}
+  ~CtxScope() {
+    if (switched_) {
+      plane().d.CtxSetCurrent(saved_);
+    }
+  }
+  CtxScope(const CtxScope&) = delete;
+  CtxScope& operator=(const CtxScope&) = delete;
+  bool ok() const { return ok_; }
+
+ private:
+  CUcontext saved_ = nullptr;
+  bool switched_ = false;
+  bool ok_ = false;
+};
 
 // Set while a host function runs on the driver's thread.
 thread_local bool tl_in_host_fn = false;
@@ -223,7 +251,8 @@ void release_landing(void* mem, int dev, bool registered) {
       p.has_deferred.store(true, std::memory_order_release);
       return;
     }
-    if (use_ctx(dev)) {
+    CtxScope ctx(dev);
+    if (ctx.ok()) {
       plane().d.MemHostUnregister(mem);
     }
   }
@@ -238,7 +267,8 @@ void free_device_mem(int dev, CUdeviceptr dptr) {
     p.has_deferred.store(true, std::memory_order_release);
     return;
   }
-  if (use_ctx(dev)) {
+  CtxScope ctx(dev);
+  if (ctx.ok()) {
     p.d.MemFree(dptr);
   }
 }
@@ -366,7 +396,8 @@ void on_copy_done(void* user) {
 // here (the host function itself may not ask the driver).
 int check_stream(int dev, const char* what) {
   Plane& p = plane();
-  if (!use_ctx(dev)) {
+  CtxScope ctx(dev);
+  if (!ctx.ok()) {
     return -EIO;
   }
   CUresult rc = p.d.StreamQuery(p.devs[dev].stream);
@@ -448,6 +479,7 @@ int tpu_plane_init(const char* driver_path) {
       {"cuDeviceGetCount", (void**)&d.DeviceGetCount, true},
       {"cuDeviceGet", (void**)&d.DeviceGet, true},
       {"cuDevicePrimaryCtxRetain", (void**)&d.DevicePrimaryCtxRetain, true},
+      {"cuCtxGetCurrent", (void**)&d.CtxGetCurrent, true},
       {"cuCtxSetCurrent", (void**)&d.CtxSetCurrent, true},
       {"cuStreamCreate", (void**)&d.StreamCreate, true},
       {"cuStreamQuery", (void**)&d.StreamQuery, true},
@@ -494,22 +526,35 @@ int tpu_plane_init(const char* driver_path) {
     dlclose(dso);
     return -EIO;
   }
+  CUcontext caller = nullptr;
+  if ((rc = d.CtxGetCurrent(&caller)) != CUDA_SUCCESS) {
+    return fail("cuCtxGetCurrent", rc);
+  }
+  // each device's context is current in turn while its stream is made;
+  // the caller's (or none) is current again whatever happened
+  const char* what = nullptr;
   p.devs.assign(n, Dev{});
-  for (int i = 0; i < n; ++i) {
+  for (int i = 0; i < n && what == nullptr; ++i) {
     Dev& v = p.devs[i];
     if ((rc = d.DeviceGet(&v.dev, i)) != CUDA_SUCCESS) {
-      return fail("cuDeviceGet", rc);
+      what = "cuDeviceGet";
+    } else if ((rc = d.DevicePrimaryCtxRetain(&v.ctx, v.dev)) !=
+               CUDA_SUCCESS) {
+      what = "cuDevicePrimaryCtxRetain";
+    } else if ((rc = d.CtxSetCurrent(v.ctx)) != CUDA_SUCCESS) {
+      what = "cuCtxSetCurrent";
+    } else if ((rc = d.StreamCreate(&v.stream, CU_STREAM_NON_BLOCKING)) !=
+               CUDA_SUCCESS) {
+      what = "cuStreamCreate";
     }
-    if ((rc = d.DevicePrimaryCtxRetain(&v.ctx, v.dev)) != CUDA_SUCCESS) {
-      return fail("cuDevicePrimaryCtxRetain", rc);
-    }
-    if ((rc = d.CtxSetCurrent(v.ctx)) != CUDA_SUCCESS) {
-      return fail("cuCtxSetCurrent", rc);
-    }
-    if ((rc = d.StreamCreate(&v.stream, CU_STREAM_NON_BLOCKING)) !=
-        CUDA_SUCCESS) {
-      return fail("cuStreamCreate", rc);
-    }
+  }
+  CUresult back = d.CtxSetCurrent(caller);
+  if (what == nullptr && back != CUDA_SUCCESS) {
+    rc = back;
+    what = "cuCtxSetCurrent (the caller's context)";
+  }
+  if (what != nullptr) {
+    return fail(what, rc);
   }
   p.uid = ((uint64_t)getpid() << 32) ^ (uint64_t)monotonic_ns();
   if (p.uid == 0) {
@@ -565,8 +610,8 @@ TpuBufId tpu_h2d(const void* data, size_t len, int device_index,
   CUdeviceptr ptr = 0;
   CUresult rc = CUDA_SUCCESS;
   const char* what = "h2d: cuMemAlloc_v2";
-  bool ok = use_ctx(device_index) &&
-            (rc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
+  CtxScope ctx(device_index);
+  bool ok = ctx.ok() && (rc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
   if (ok) {
     what = "h2d: cuMemcpyHtoDAsync_v2";
     rc = p.d.MemcpyHtoDAsync(ptr, data, len, p.devs[device_index].stream);
@@ -658,8 +703,8 @@ TpuBufId tpu_d2d(TpuBufId src_id, int dst_device) {
   CUdeviceptr ptr = 0;
   CUresult crc = CUDA_SUCCESS;
   const char* what = "d2d: cuMemAlloc_v2";
-  bool ok = use_ctx(dst_device) &&
-            (crc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
+  CtxScope ctx(dst_device);
+  bool ok = ctx.ok() && (crc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
   if (ok) {
     if (src->dev == dst_device) {
       what = "d2d: cuMemcpyDtoDAsync_v2";
@@ -763,36 +808,41 @@ int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
   ctx->done = butex_create();
   ctx->mem = zc_host_alloc(len);
   ctx->dev = dev;
-  if (!use_ctx(dev)) {
-    ctx->refs.store(1, std::memory_order_relaxed);
-    D2hCtx::Drop(ctx);
-    unpin_buf(b);
-    return -EIO;
-  }
-  // page-locked, the copy is asynchronous and the fiber parks below;
-  // pageable (registration refused, e.g. a page shared with another
-  // registered zone), the driver copies before returning
-  ctx->registered =
-      p.d.MemHostRegister != nullptr &&
-      p.d.MemHostRegister(ctx->mem, len, CU_MEMHOSTREGISTER_PORTABLE) ==
-          CUDA_SUCCESS;
-  CUstream stream = p.devs[dev].stream;
-  CUresult crc = p.d.MemcpyDtoHAsync(ctx->mem, b->ptr, len, stream);
-  if (crc != CUDA_SUCCESS) {
-    p.errors.fetch_add(1, std::memory_order_relaxed);
-    set_plane_error(cu_error("d2h: cuMemcpyDtoHAsync_v2", crc));
-    ctx->refs.store(1, std::memory_order_relaxed);
-    D2hCtx::Drop(ctx);
-    unpin_buf(b);
-    return -EIO;
-  }
-  crc = p.d.LaunchHostFunc(stream, on_d2h_done, ctx);
-  if (crc != CUDA_SUCCESS) {
-    // the copy may still land: the context (and its zone) is left to it
-    p.errors.fetch_add(1, std::memory_order_relaxed);
-    set_plane_error(cu_error("d2h: cuLaunchHostFunc", crc));
-    unpin_buf(b);
-    return -EIO;
+  {
+    // the device's context for the enqueue alone: the wait below may
+    // resume this fiber on another thread
+    CtxScope cu(dev);
+    if (!cu.ok()) {
+      ctx->refs.store(1, std::memory_order_relaxed);
+      D2hCtx::Drop(ctx);
+      unpin_buf(b);
+      return -EIO;
+    }
+    // page-locked, the copy is asynchronous and the fiber parks below;
+    // pageable (registration refused, e.g. a page shared with another
+    // registered zone), the driver copies before returning
+    ctx->registered =
+        p.d.MemHostRegister != nullptr &&
+        p.d.MemHostRegister(ctx->mem, len, CU_MEMHOSTREGISTER_PORTABLE) ==
+            CUDA_SUCCESS;
+    CUstream stream = p.devs[dev].stream;
+    CUresult crc = p.d.MemcpyDtoHAsync(ctx->mem, b->ptr, len, stream);
+    if (crc != CUDA_SUCCESS) {
+      p.errors.fetch_add(1, std::memory_order_relaxed);
+      set_plane_error(cu_error("d2h: cuMemcpyDtoHAsync_v2", crc));
+      ctx->refs.store(1, std::memory_order_relaxed);
+      D2hCtx::Drop(ctx);
+      unpin_buf(b);
+      return -EIO;
+    }
+    crc = p.d.LaunchHostFunc(stream, on_d2h_done, ctx);
+    if (crc != CUDA_SUCCESS) {
+      // the copy may still land: the context (and its zone) is left to it
+      p.errors.fetch_add(1, std::memory_order_relaxed);
+      set_plane_error(cu_error("d2h: cuLaunchHostFunc", crc));
+      unpin_buf(b);
+      return -EIO;
+    }
   }
   // bounded: a completion that never arrives must not hold a usercode
   // thread or fiber forever (TRPC_TPU_D2H_TIMEOUT_US, read per call)
@@ -825,8 +875,11 @@ int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
   if (qrc != 0) {
     return -EIO;
   }
-  if (registered && use_ctx(dev)) {
-    p.d.MemHostUnregister(mem);
+  if (registered) {
+    CtxScope cu(dev);
+    if (cu.ok()) {
+      p.d.MemHostUnregister(mem);
+    }
   }
   p.d2h_transfers.fetch_add(1, std::memory_order_relaxed);
   p.d2h_bytes.fetch_add(len, std::memory_order_relaxed);

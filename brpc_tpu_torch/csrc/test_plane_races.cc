@@ -1,0 +1,205 @@
+// test_plane_races.cc — races of the CUDA device plane (cuda_plane.cc) on
+// the fake CUDA driver (cuda_fake.cc), the port of the reference's
+// tpu_plane_races scenario (native/src/test_stress.cc), which binds the
+// fake PJRT plugin and so cannot reach this plane.
+//
+// Six threads h2d onto both devices while the fake's completions fire on
+// its own thread after a delay.  Half the rounds hand the id to a thread
+// that frees it mid-flight while this thread waits on it and reads it
+// back (any return code is legal; a crash, a use after free or a free
+// under a pending copy is not), then free it again (idempotent).  The
+// other half round-trip the bytes, every other one through a d2d hop to
+// the other device.  Even threads hold device 0's primary context, odd
+// threads none: each must still hold its own after every round, as must
+// every freeing thread.  At the end every slot has drained.
+//
+// Built by brpc_tpu_torch._native.build_plane_races() against the core
+// library, or with -fsanitize=address from the core's sources; run with
+// TRPC_CUDA_DRIVER naming libcuda_fake.so:
+//
+//   TRPC_CUDA_DRIVER=.../libcuda_fake.so ./test_plane_races
+#include <dlfcn.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <unistd.h>
+
+#include <atomic>
+#include <string>
+#include <thread>
+#include <vector>
+
+#include "fiber.h"
+#include "iobuf.h"
+#include "tpu.h"
+
+using namespace trpc;
+
+namespace {
+
+int g_failures = 0;
+#define CHECK_TRUE(x)                                     \
+  do {                                                    \
+    if (!(x)) {                                           \
+      printf("FAIL %s:%d: %s\n", __FILE__, __LINE__, #x); \
+      ++g_failures;                                       \
+    }                                                     \
+  } while (0)
+
+typedef int (*CtxGetFn)(void**);
+typedef int (*CtxSetFn)(void*);
+typedef int (*InitFn)(unsigned);
+typedef int (*RetainFn)(void**, int);
+
+// The driver the plane binds, opened again: the same library, so the
+// same per-thread current context.
+struct Cu {
+  CtxGetFn get = nullptr;
+  CtxSetFn set = nullptr;
+  void* ctx0 = nullptr;  // device 0's primary context
+
+  void* current() const {
+    void* c = nullptr;
+    return get(&c) == 0 ? c : (void*)-1;
+  }
+};
+
+bool open_driver(Cu* cu) {
+  const char* path = getenv("TRPC_CUDA_DRIVER");
+  if (path == nullptr || path[0] == '\0') {
+    printf("TRPC_CUDA_DRIVER must name libcuda_fake.so\n");
+    return false;
+  }
+  void* dso = dlopen(path, RTLD_NOW | RTLD_LOCAL);
+  if (dso == nullptr) {
+    printf("dlopen %s: %s\n", path, dlerror());
+    return false;
+  }
+  cu->get = (CtxGetFn)dlsym(dso, "cuCtxGetCurrent");
+  cu->set = (CtxSetFn)dlsym(dso, "cuCtxSetCurrent");
+  InitFn init = (InitFn)dlsym(dso, "cuInit");
+  RetainFn retain = (RetainFn)dlsym(dso, "cuDevicePrimaryCtxRetain");
+  return cu->get != nullptr && cu->set != nullptr && init != nullptr &&
+         retain != nullptr && init(0) == 0 && retain(&cu->ctx0, 0) == 0;
+}
+
+void plane_races(const Cu& cu) {
+  CHECK_TRUE(tpu_plane_device_count() >= 2);
+  const int kThreads = 6;
+  const int kRounds = 120;
+  std::string payload(8192, '\x5a');
+  std::atomic<uint64_t> roundtrips{0}, freed_races{0}, hops{0};
+  std::atomic<int> bad{0}, moved{0};
+  std::vector<std::thread> ts;
+  for (int t = 0; t < kThreads; ++t) {
+    ts.emplace_back([&, t]() {
+      void* mine = t % 2 == 0 ? cu.ctx0 : nullptr;
+      cu.set(mine);
+      for (int i = 0; i < kRounds; ++i) {
+        IOBuf src;
+        src.append(payload.data(), payload.size());
+        TpuBufId id = tpu_h2d_from_iobuf(src, (t + i) % 2);
+        if (id == 0) {
+          bad.fetch_add(1);
+          continue;
+        }
+        if (i % 2 == 0) {
+          // a racing thread frees the buffer while the copy is in flight
+          std::thread killer([id, &cu, &moved]() {
+            tpu_buf_free(id);
+            if (cu.current() != nullptr) {
+              moved.fetch_add(1);
+            }
+          });
+          (void)tpu_buf_wait(id, 1000000);  // wait and d2h race the free
+          char* mem = nullptr;
+          size_t len = 0;
+          if (tpu_d2h_raw(id, &mem, &len) == 0) {
+            tpu_host_free(mem);
+          }
+          killer.join();
+          tpu_buf_free(id);  // double free: idempotent
+          freed_races.fetch_add(1);
+        } else {
+          if (tpu_buf_wait(id, 5000000) != 0) {
+            bad.fetch_add(1);
+          } else {
+            TpuBufId read_id = id;
+            TpuBufId hop = 0;
+            if (i % 4 == 1) {  // through the other device first
+              hop = tpu_d2d(id, (t + i + 1) % 2);
+              if (hop != 0) {
+                read_id = hop;
+                hops.fetch_add(1);
+              } else {
+                bad.fetch_add(1);
+              }
+            }
+            char* mem = nullptr;
+            size_t len = 0;
+            int rc = tpu_d2h_raw(read_id, &mem, &len);
+            if (rc != 0 || len != payload.size() ||
+                memcmp(mem, payload.data(), len) != 0) {
+              bad.fetch_add(1);
+            }
+            if (rc == 0) {
+              tpu_host_free(mem);
+            }
+            if (hop != 0) {
+              tpu_buf_free(hop);
+            }
+            roundtrips.fetch_add(1);
+          }
+          tpu_buf_free(id);
+        }
+        if (cu.current() != mine) {
+          moved.fetch_add(1);
+        }
+      }
+    });
+  }
+  for (auto& t : ts) {
+    t.join();
+  }
+  // the delayed completions run out, then every slot has drained
+  for (int spin = 0; spin < 200 && tpu_plane_stats().live_buffers != 0;
+       ++spin) {
+    usleep(10000);
+  }
+  TpuPlaneStats st = tpu_plane_stats();
+  CHECK_TRUE(bad.load() == 0);
+  CHECK_TRUE(moved.load() == 0);
+  CHECK_TRUE(st.live_buffers == 0);
+  CHECK_TRUE(roundtrips.load() == (uint64_t)kThreads * kRounds / 2);
+  printf("ok plane_races roundtrips=%llu freed_races=%llu hops=%llu "
+         "moved_contexts=%d errors=%llu\n",
+         (unsigned long long)roundtrips.load(),
+         (unsigned long long)freed_races.load(),
+         (unsigned long long)hops.load(), moved.load(),
+         (unsigned long long)st.errors);
+}
+
+}  // namespace
+
+int main() {
+  Cu cu;
+  if (!open_driver(&cu)) {
+    return 2;
+  }
+  if (getenv("TRPC_FAKE_CUDA_DELAY_US") == nullptr) {
+    setenv("TRPC_FAKE_CUDA_DELAY_US", "300", 1);
+  }
+  fiber_runtime_init(4);
+  if (tpu_plane_init(nullptr) != 0) {
+    printf("plane init: %s\n", tpu_plane_error());
+    return 2;
+  }
+  CHECK_TRUE(cu.current() == nullptr);  // init left the main thread as is
+  plane_races(cu);
+  if (g_failures == 0) {
+    printf("ALL PLANE RACES PASSED\n");
+    return 0;
+  }
+  printf("%d FAILURES\n", g_failures);
+  return 1;
+}

@@ -18,7 +18,10 @@ printing one JSON line; any failure exits non-zero with no result line:
              the fold's forward, dq and dk/dv; 18 instantiations) must
              spill nothing
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
-             256 KiB are byte-equal, live buffers and errors balance
+             256 KiB are byte-equal, live buffers and errors balance;
+             torch's current device and the thread's CUDA context are
+             the same after init and a round trip, and a thread with no
+             context still has none after one
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
              attachment zero-copy
   kernel     decode_attention against its plain PyTorch version at the
@@ -139,6 +142,20 @@ printing one JSON line; any failure exits non-zero with no result line:
              S=PREFILL_LEN) at the 4, 2 and 1 heads a tp = 2, 4, 8 shard
              holds, hd 64, f32 and bf16, against their plain versions
              (KERNEL_TOL, cache rows bit-equal; ATTN_TOL)
+  examples   EXAMPLE_RUNS, each a subprocess on the card: the port's
+             device examples (ici_performance_torch with --stream, a
+             plane that starts and every byte equal; mesh_collectives_torch
+             with its merges' values and shapes; param_server_allreduce_
+             torch with --codec none, equal to the dense sum, and int8,
+             off it by more than 0 and within the bound;
+             long_context_ring_torch, finite logits [2, 4096, 256];
+             memcache_client_torch) and bench_torch.py --serving-arm
+             auto,none --brief (streams completed, no error, balanced);
+             then the plane's h2d, d2h and same-card d2d of 8 MiB (host
+             clock to the completed wait) beside the bound (the PCIe
+             link nvidia-smi reports; 2 x bytes over HBM for d2d) and
+             torch's copy_ through a pinned host tensor and clone(); one
+             examples line with each run's seconds and numbers
 
 Before the last line it prints the kernels' JSON line (with the HGMMA
 count and ptxas registers and spills of each kernel's hd 64
@@ -390,13 +407,17 @@ def phase_card():
     return line
 
 
-def phase_plane():
+def _cu_current(cu):
+    """The calling thread's current CUDA context (None: none)."""
+    import ctypes
+    ctx = ctypes.c_void_p()
+    rc = cu.cuCtxGetCurrent(ctypes.byref(ctx))
+    assert rc == 0, f"cuCtxGetCurrent: CUresult {rc}"
+    return ctx.value
+
+
+def _plane_roundtrip(data):
     from brpc_tpu_torch import tpu_plane
-    assert tpu_plane.init(), tpu_plane.error()
-    assert tpu_plane.platform() == "cuda", tpu_plane.platform()
-    assert tpu_plane.device_count() >= 1
-    s0 = tpu_plane.stats()
-    data = bytes(bytearray(range(256)) * 1024)
     buf = tpu_plane.h2d(data, device=0)
     buf.wait()
     assert buf.to_host() == data, "h2d -> d2h round trip differs"
@@ -404,11 +425,48 @@ def phase_plane():
     assert copy.to_host() == data, "d2d copy differs"
     copy.free()
     buf.free()
+
+
+def phase_plane():
+    """The plane's round trips, and the caller's CUDA state left as it
+    was: torch's current device and this thread's context after init and
+    a round trip, and no context on a thread that had none."""
+    import ctypes
+
+    import torch
+    from brpc_tpu_torch import tpu_plane
+    torch.zeros(1, device="cuda")     # torch's context current here
+    cu = ctypes.CDLL("libcuda.so.1")  # the driver the plane binds
+    device, ctx = torch.cuda.current_device(), _cu_current(cu)
+    assert ctx is not None
+    assert tpu_plane.init(), tpu_plane.error()
+    assert tpu_plane.platform() == "cuda", tpu_plane.platform()
+    assert tpu_plane.device_count() >= 1
+    s0 = tpu_plane.stats()
+    data = bytes(bytearray(range(256)) * 1024)
+    _plane_roundtrip(data)
+    held = (torch.cuda.current_device(), _cu_current(cu))
+    assert held == (device, ctx), ("the plane moved the caller's CUDA "
+                                   f"state: {held} != {(device, ctx)}")
+    bare = []
+
+    def no_context():
+        bare.append(_cu_current(cu))
+        _plane_roundtrip(data)
+        bare.append(_cu_current(cu))
+
+    t = threading.Thread(target=no_context)
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and bare == [None, None], bare
     s1 = tpu_plane.stats()
     assert s1["live_buffers"] == s0["live_buffers"], (s0, s1)
     assert s1["errors"] == s0["errors"], (s0, s1)
     emit({"phase": "plane", "platform": tpu_plane.platform(),
-          "device_count": tpu_plane.device_count(), "stats": s1})
+          "device_count": tpu_plane.device_count(), "stats": s1,
+          "caller_state_held": {"current_device": device,
+                                "context": True,
+                                "bare_thread_context": None}})
 
 
 def phase_transport():
@@ -1963,6 +2021,229 @@ def phase_mesh(smi):
         dist.destroy_process_group()
 
 
+# the examples phase: the port's device examples and bench_torch.py's
+# serving arm, each in a subprocess on the card, and the plane's rates
+EXAMPLE_RUNS = (
+    ("ici_performance", ("examples/ici_performance_torch.py", "--stream",
+                         "--seconds", "2")),
+    ("mesh_collectives", ("examples/mesh_collectives_torch.py",)),
+    ("param_server_none", ("examples/param_server_allreduce_torch.py",
+                           "--codec", "none")),
+    ("param_server_int8", ("examples/param_server_allreduce_torch.py",
+                           "--codec", "int8")),
+    ("long_context_ring", ("examples/long_context_ring_torch.py",)),
+    ("memcache_client", ("examples/memcache_client_torch.py",)),
+    ("serving_arm", ("bench_torch.py", "--serving-arm", "auto,none",
+                     "--brief")),
+)
+EXAMPLE_TIMEOUT_S = 300
+PLANE_BYTES = 8 << 20         # the examples' default size
+PLANE_REPS = 20
+PCIE_GTS = {3: 8e9, 4: 16e9, 5: 32e9, 6: 64e9}   # transfers/s a lane
+
+
+def _example(args):
+    """(its last JSON line, its seconds); raises with its output's tail
+    when it exits non-zero."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, *args], cwd=root,
+                       capture_output=True, text=True,
+                       timeout=EXAMPLE_TIMEOUT_S)
+    seconds = time.monotonic() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"{' '.join(args)} exit {r.returncode}:\n"
+                           f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), seconds
+
+
+def _pcie_bytes_per_s():
+    """(bytes/s one way over the card's PCIe link after 128b/130b
+    encoding, where the link was read): nvidia-smi's maximum link
+    generation and width; where it reports [N/A] (a virtual machine
+    hides the link), the device's sysfs entry; failing that, the H100
+    SXM data sheet's host link, PCIe gen 5 x16."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max,"
+         "pci.bus_id", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    gen, width, bus = (x.strip() for x in q.splitlines()[0].split(","))
+    if gen.isdigit() and width.isdigit():
+        gen, width, src = int(gen), int(width), "nvidia-smi"
+    else:
+        sysfs = os.path.join("/sys/bus/pci/devices", bus.lower()[-12:])
+        try:
+            with open(os.path.join(sysfs, "max_link_speed")) as f:
+                gts = float(f.read().split()[0])
+            with open(os.path.join(sysfs, "max_link_width")) as f:
+                width = int(f.read())
+            gen = {8.0: 3, 16.0: 4, 32.0: 5, 64.0: 6}[gts]
+            src = f"sysfs {sysfs} (nvidia-smi: [N/A])"
+        except (OSError, ValueError, KeyError):
+            gen, width = 5, 16
+            src = "H100 SXM data sheet (nvidia-smi and sysfs: no link)"
+    return PCIE_GTS[gen] * width * 128 / 130 / 8, f"gen {gen} x{width}, {src}"
+
+
+def _median_ms(fn, reps=PLANE_REPS):
+    fn()
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _driver_ms(n):
+    """Median ms of the driver calls the plane makes per transfer of n
+    bytes, called alone on this thread's (torch's) context: the landing
+    zone's page-locking and its release (each d2h), and a device
+    allocation and its free (each h2d and d2d)."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuMemHostRegister_v2.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                                        ctypes.c_uint]
+    cu.cuMemHostUnregister.argtypes = [ctypes.c_void_p]
+    cu.cuMemAlloc_v2.argtypes = [ctypes.POINTER(ctypes.c_uint64),
+                                 ctypes.c_size_t]
+    cu.cuMemFree_v2.argtypes = [ctypes.c_uint64]
+    host = (ctypes.c_char * n).from_buffer(bytearray(n))
+    ptr = ctypes.addressof(host)
+    dptr = ctypes.c_uint64()
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        rc = fn()
+        out.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        assert rc == 0, f"{name}: CUresult {rc}"
+
+    for _ in range(PLANE_REPS):
+        timed("host_register", lambda: cu.cuMemHostRegister_v2(ptr, n, 1))
+        timed("host_unregister", lambda: cu.cuMemHostUnregister(ptr))
+        timed("mem_alloc", lambda: cu.cuMemAlloc_v2(ctypes.byref(dptr), n))
+        timed("mem_free", lambda: cu.cuMemFree_v2(dptr.value))
+    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
+
+
+def plane_rates():
+    """The plane's h2d, d2h and same-card d2d of PLANE_BYTES, host clock
+    to the completed wait (median of PLANE_REPS), beside the bound (PCIe
+    one way for h2d and d2h, read and write of HBM for d2d) and the
+    library call: torch copy_ from or into a pinned host tensor
+    (non_blocking, then a synchronize) and clone() on the device, timed
+    the same way and on the device alone (CUDA events)."""
+    import torch
+    from brpc_tpu_torch import tpu_plane
+    n = PLANE_BYTES
+    data = bytes(bytearray(range(256)) * (n // 256))
+    keep = []
+
+    def h2d():
+        b = tpu_plane.h2d(data, device=0)
+        b.wait()
+        keep.append(b)
+
+    src = tpu_plane.h2d(data, device=0)
+    src.wait()
+
+    def d2d():
+        b = tpu_plane.d2d(src, 0)
+        b.wait()
+        keep.append(b)
+
+    plane = {"h2d": _median_ms(h2d),
+             "d2h": _median_ms(lambda: src.to_host()),
+             "d2d": _median_ms(d2d)}
+    assert all(b.to_host() == data for b in keep[:2] + keep[-2:])
+    for b in keep + [src]:
+        b.free()
+    pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    calls = {"h2d": lambda: dev.copy_(pinned, non_blocking=True),
+             "d2h": lambda: pinned.copy_(dev, non_blocking=True),
+             "d2d": lambda: dev.clone()}
+
+    def synced(fn):
+        def call():
+            fn()
+            torch.cuda.synchronize()
+        return call
+
+    library = {k: _median_ms(synced(f)) for k, f in calls.items()}
+    driver = _driver_ms(n)
+    library_device = {k: cuda_ms(f, PLANE_REPS) for k, f in calls.items()}
+    link, link_name = _pcie_bytes_per_s()
+    bound = {"h2d": n / link * 1e3, "d2h": n / link * 1e3,
+             "d2d": 2 * n / HBM_BYTES_PER_S * 1e3}
+    return {"bytes": n, "ms": plane, "library_ms": library,
+            "library_device_ms": library_device, "bound_ms": bound,
+            "driver_ms": driver,
+            "gbps": {k: n / ms / 1e6 for k, ms in plane.items()},
+            "library_gbps": {k: n / ms / 1e6 for k, ms in library.items()},
+            "pcie": link_name}
+
+
+def phase_examples(smi):
+    """Every device example and the serving arm of bench_torch.py on the
+    card, each checked by its own numbers; the plane's rates."""
+    t0 = time.monotonic()
+    runs = {}
+    seconds = {}
+    for name, args in EXAMPLE_RUNS:
+        runs[name], seconds[name] = _example(args)
+        print(f"example {name} {seconds[name]:.1f} s: "
+              f"{json.dumps(runs[name])[:600]}", flush=True)
+    ici, col, ring = (runs["ici_performance"], runs["mesh_collectives"],
+                      runs["long_context_ring"])
+    assert ici["available"], ici
+    assert ici["raw"]["rounds"] > 0 and ici["rpc"]["transport"] == "device"
+    stream = ici.get("stream", {})
+    assert stream.get("bytes_equal", "skipped" in stream), stream
+    assert ici["live_buffers_end"] == 0, ici
+    tp = col["mesh"]["tp"]
+    assert col["allreduce_value"] == tp, col
+    assert col["gather_shape"] == [8, 8], col
+    assert col["reduce_scatter_shape"] == [16 // tp, 8], col
+    for codec in ("none", "int8"):
+        ps = runs[f"param_server_{codec}"]
+        assert ps["numeric_check"] == "ok" and ps["platform"] == "cuda", ps
+        assert ps["params"] == PS_PARAMS, ps
+    ps8 = runs["param_server_int8"]
+    assert 0.0 < ps8["codec_max_abs_err"] <= ps8["codec_err_bound"], ps8
+    assert ring["finite"] and ring["logits_shape"] == [2, 4096, 256], ring
+    assert sum(ring["launches_all_ranks"].values()) > 0, ring
+    assert runs["memcache_client"]["cas"] == "compare-and-swapped"
+    arm = runs["serving_arm"]
+    assert arm["completed"] > 0 and arm["errors"] == 0, arm
+    assert arm["balanced"] and arm["device"] == "cuda", arm
+    rates = plane_rates()
+    line = {
+        "phase": "examples", "nvidia_smi": smi, "seconds": seconds,
+        "ici_8MiB": {"h2d_gbps": ici["raw"]["h2d_gbps"],
+                     "roundtrip_gbps": ici["raw"]["roundtrip_gbps"],
+                     "hbm_echo_device_gbps": ici["rpc"]["device_gbps"],
+                     "stream": stream},
+        "mesh_collectives": {k: col[k] for k in (
+            "mesh", "allreduce_value", "gather_shape",
+            "reduce_scatter_shape", "busbw_gbps")},
+        "allreduce_algbw_gbps": {c: runs[f"param_server_{c}"][
+            "allreduce_algbw_gbps"] for c in ("none", "int8")},
+        "int8_err": [ps8["codec_max_abs_err"], ps8["codec_err_bound"]],
+        "long_context_ring": {k: ring[k] for k in (
+            "mesh", "logits_shape", "forward_s", "launches_all_ranks")},
+        "serving_arm": {k: arm[k] for k in (
+            "mesh", "completed", "tokens_per_s", "ttft_p50_us",
+            "gap_p50_us", "rail_local", "rail_host")},
+        "plane_8MiB": rates,
+        "phase_s": time.monotonic() - t0}
+    emit(line)
+    return line
+
+
 # python3 chip_smoke.py --serving-world: serving worlds across the cards
 # of one host, each layout that the cards hold
 WORLD_LAYOUTS = ({"dp": 1, "tp": 2}, {"dp": 1, "tp": 4}, {"dp": 2, "tp": 2})
@@ -2351,6 +2632,7 @@ def main() -> int:
     train_launches, f32_twin_launches = phase_train()
     par = phase_parallel(smi)
     ring, _, mesh_serving = phase_mesh(smi)
+    phase_examples(smi)
     shards = mesh_serving["tp_shards"]
     kernels = [{
         "name": "decode_attention", "route": "cuda",

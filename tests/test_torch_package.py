@@ -13,6 +13,7 @@
 """
 
 import ast
+import glob
 import os
 import re
 import subprocess
@@ -87,7 +88,9 @@ def _imported_roots(path):
 
 def test_no_module_imports_jax_or_the_reference():
     files = [os.path.join(PKG, m) for m in _port_modules()]
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                              "bench_torch.py")]
+    files += sorted(glob.glob(os.path.join(REPO, "examples", "*_torch.py")))
     bad = [f"{os.path.relpath(f, REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f)
            if root in ("jax", "jaxlib", "brpc_tpu")]

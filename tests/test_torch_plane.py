@@ -349,6 +349,151 @@ def test_fault_injection_on_fake_plane(fake_env):
     assert "FAULTS-OK" in r.stdout
 
 
+CONTEXT_CODE = r"""
+import ctypes, os, sys, threading
+from brpc_tpu_torch import tpu_plane
+
+# the driver the plane binds: dlopen of the same path is the same library,
+# so this handle reads the same per-thread current context
+cu = ctypes.CDLL(os.environ.get("TRPC_CUDA_DRIVER") or "libcuda.so.1")
+assert cu.cuInit(0) == 0
+
+def current():
+    c = ctypes.c_void_p()
+    assert cu.cuCtxGetCurrent(ctypes.byref(c)) == 0
+    return c.value
+
+def primary(dev):
+    d, c = ctypes.c_int(), ctypes.c_void_p()
+    assert cu.cuDeviceGet(ctypes.byref(d), dev) == 0
+    assert cu.cuDevicePrimaryCtxRetain(ctypes.byref(c), d) == 0
+    return c.value
+
+def hold(want, where):
+    got = current()
+    assert got == want, f"{where}: the thread's context {got} != {want}"
+
+def exercise(want):
+    data = bytes(bytearray(range(256)) * 64)
+    one = tpu_plane.h2d(data, device=1)
+    one.wait()
+    hold(want, "h2d to device 1")
+    zero = tpu_plane.h2d(data, device=0)
+    zero.wait()
+    hop = tpu_plane.d2d(zero, 1)
+    hop.wait()
+    hold(want, "d2d 0 -> 1")
+    assert hop.to_host() == data and one.to_host() == data
+    hold(want, "d2h from device 1")
+    for b in (one, zero, hop):
+        b.free()
+    hold(want, "free on device 1")
+
+def thread(fn):
+    err = []
+    def run():
+        try:
+            fn()
+        except BaseException as e:
+            err.append(e)
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(60)
+    assert not t.is_alive()
+    if err:
+        raise err[0]
+
+start = sys.argv[1]      # the context of the thread that starts the plane
+ctx0 = primary(0)
+assert primary(1) != ctx0
+if start == "device0":
+    assert cu.cuCtxSetCurrent(ctypes.c_void_p(ctx0)) == 0
+want = ctx0 if start == "device0" else None
+hold(want, "before init")
+assert tpu_plane.init(), tpu_plane.error()
+hold(want, "after init")
+exercise(want)
+thread(lambda: exercise(None))            # a thread with no context
+thread(lambda: (cu.cuCtxSetCurrent(ctypes.c_void_p(ctx0)),
+                exercise(ctx0)))          # one with device 0's
+if "torch_device" in sys.argv[2:]:        # the same, as torch reads it
+    import torch
+    torch.cuda.set_device(0)
+    exercise(current())
+    assert torch.cuda.current_device() == 0, torch.cuda.current_device()
+assert tpu_plane.stats()["live_buffers"] == 0
+print("CONTEXT-OK")
+"""
+
+
+@pytest.mark.parametrize("start", ["device0", "none"])
+def test_plane_restores_the_callers_context(fake_env, start):
+    """The plane moves none of its caller's CUDA state (ROADMAP queue 3):
+    a thread whose current context is device 0's primary context, or
+    none, still has it after tpu_plane.init() and after an h2d to device
+    1, a d2d 0 -> 1, a d2h and a free on device 1; so do a fresh thread
+    and one that made device 0's context current.  The fake driver's
+    current context is per thread, as the real driver's."""
+    code = CONTEXT_CODE.replace("sys.argv[1]", repr(start))
+    r = _run(code, env_extra=fake_env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "CONTEXT-OK" in r.stdout
+
+
+def _races(exe, fake_env, extra=None):
+    env = dict(os.environ)
+    env.update(fake_env)
+    env["TRPC_FAKE_CUDA_DELAY_US"] = "300"
+    env.update(extra or {})
+    return subprocess.run([exe], env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_plane_races_against_the_core(fake_env):
+    """csrc/test_plane_races.cc against the core library: a free racing
+    each transfer, wait and d2h racing the free, a double free,
+    round-trips and d2d hops on both devices from 6 threads, each
+    thread's current context (device 0's or none) unchanged after every
+    round, every slot drained."""
+    r = _races(_native.build_plane_races(), fake_env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "ALL PLANE RACES PASSED" in r.stdout, r.stdout
+    assert "moved_contexts=0" in r.stdout, r.stdout
+
+
+def test_plane_races_under_asan(fake_env, tmp_path):
+    """The same races in one AddressSanitizer binary of the harness and
+    the core's sources (the reference's test_cpp_stress_sanitized
+    [address] for this plane): no use after free, double free or
+    overflow, and the sanitizer writes no report.  Leak detection is
+    off: LeakSanitizer's stop-the-world tracer faults (signal 11) in a
+    container that restricts ptrace, and the plane keeps its singletons
+    for the process's life on purpose."""
+    log = tmp_path / "asan"
+    r = _races(_native.build_plane_races(asan=True), fake_env,
+               {"ASAN_OPTIONS": f"detect_leaks=0:log_path={log}"})
+    reports = "".join(p.read_text(errors="replace")
+                      for p in tmp_path.glob("asan*"))
+    assert r.returncode == 0, r.stdout + r.stderr + reports
+    assert "ALL PLANE RACES PASSED" in r.stdout, r.stdout
+    assert not reports, reports
+
+
+@pytest.mark.cuda
+def test_plane_restores_the_callers_device_across_cards():
+    """The context leg on the real driver, with torch's current device
+    read after the plane copied to and from device 1."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: the plane's copies to device 1 "
+                    "are what could leave another card current")
+    code = CONTEXT_CODE.replace("sys.argv[1]", repr("device0")).replace(
+        "sys.argv[2:]", "['torch_device']")
+    r = _run(code, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "CONTEXT-OK" in r.stdout
+
+
 @pytest.mark.cuda
 def test_device_roundtrip_on_real_plane():
     """The DEVICE leg on the real driver and card."""
