@@ -811,6 +811,13 @@ def _declare(L: ctypes.CDLL) -> None:
     L.trpc_tpu_d2d.argtypes = [c.c_uint64, c.c_int]
     L.trpc_tpu_d2d.restype = c.c_uint64
     L.trpc_tpu_plane_uid.restype = c.c_uint64
+    # the CUDA plane's own entries (csrc/cuda_plane.cc)
+    L.trpc_cuda_h2d_staged.argtypes = [c.c_char_p, c.c_size_t, c.c_int]
+    L.trpc_cuda_h2d_staged.restype = c.c_uint64
+    L.trpc_cuda_pool_stats.argtypes = [c.POINTER(c.c_uint64)]
+    L.trpc_cuda_pool_stats.restype = None
+    L.trpc_cuda_peer_access.argtypes = [c.POINTER(c.c_uint8), c.c_int]
+    L.trpc_cuda_peer_access.restype = c.c_int
     L.trpc_stream_write_device.argtypes = [c.c_uint64, c.c_uint64,
                                            c.c_int64]
     L.trpc_stream_write_device.restype = c.c_int

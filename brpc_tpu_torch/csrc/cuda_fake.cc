@@ -1,6 +1,6 @@
 // cuda_fake.cc — a fake CUDA driver (libcuda) for the CPU tests of the
 // CUDA device plane (cuda_plane.cc), modelled on native/src/pjrt_fake.cc:
-// the plane calls about sixteen driver entry points, and this library
+// the plane calls about twenty driver entry points, and this library
 // exports exactly those, by their versioned names, against host memory.
 // Copies and host functions run in stream order on one background
 // completion thread, so completions arrive on a foreign thread as they
@@ -17,11 +17,24 @@
 //                             the d2h copy (both read by cuStreamQuery)
 //   TRPC_FAKE_CUDA_DROP_D2H_EVENT=1   the next d2h copy never happens and
 //                             its host function never runs
+//   TRPC_FAKE_CUDA_NO_PEER=1  cuDeviceCanAccessPeer says no for every pair
 //
-// The fake also enforces two rules of the real driver that a CPU run
-// could otherwise not see: a host function may make no CUDA call (any
-// entry point called on the completion thread aborts the process), and
-// device memory must not be freed while a queued copy still uses it.
+// Besides, for the tests (through ctypes on the same library):
+//   trpc_fake_cuda_calls(name)          how often entry point `name` was
+//                                       called in this process
+//   trpc_fake_cuda_inject_oom(pool, n)  the next n cuMemAlloc_v2 (pool
+//                                       "device") or cuMemHostAlloc
+//                                       ("host") calls fail with
+//                                       CUDA_ERROR_OUT_OF_MEMORY
+//
+// The fake also enforces rules of the real driver that a CPU run could
+// otherwise not see, and aborts the process when one is broken: a host
+// function may make no CUDA call (any entry point called on the
+// completion thread); device memory or page-locked host memory must not
+// be freed while a queued copy still uses it; and a device block may not
+// be written, nor a page-locked host block used at all, by a new copy
+// while an earlier copy on it is still pending (a pool that hands a
+// block out again too early).
 //
 // Not a CUDA implementation: no kernels, no modules, no events.
 
@@ -38,6 +51,7 @@
 #include <functional>
 #include <map>
 #include <mutex>
+#include <string>
 #include <thread>
 #include <vector>
 
@@ -49,6 +63,8 @@ typedef void (*CUhostFn)(void*);
 
 constexpr CUresult kOk = 0;
 constexpr CUresult kInvalidValue = 1;
+constexpr CUresult kOutOfMemory = 2;
+constexpr CUresult kPeerAlreadyEnabled = 704;
 constexpr CUresult kInvalidContext = 201;
 constexpr CUresult kInjected = 999;
 
@@ -97,20 +113,53 @@ std::map<CUdeviceptr, Alloc>& allocs() {
   static std::map<CUdeviceptr, Alloc>* m = new std::map<CUdeviceptr, Alloc>();
   return *m;
 }
+// page-locked host blocks from cuMemHostAlloc, by address
+std::map<CUdeviceptr, Alloc>& host_allocs() {
+  static std::map<CUdeviceptr, Alloc>* m = new std::map<CUdeviceptr, Alloc>();
+  return *m;
+}
+// ordered (from, to) device pairs with peer access enabled
+std::map<std::pair<int, int>, bool>& peers() {
+  static auto* m = new std::map<std::pair<int, int>, bool>();
+  return *m;
+}
+
+std::mutex& calls_mu() {
+  static std::mutex* m = new std::mutex();
+  return *m;
+}
+std::map<std::string, unsigned long long>& calls() {
+  static auto* m = new std::map<std::string, unsigned long long>();
+  return *m;
+}
+
+std::atomic<int> g_oom_device{0}, g_oom_host{0};
 
 thread_local FakeCtx* tl_current = nullptr;
 thread_local bool tl_completion_thread = false;
 
+// Every entry point starts here: counted, and refused on the completion
+// thread.
 void guard(const char* fn) {
   if (tl_completion_thread) {
     fprintf(stderr, "fake CUDA driver: %s called from a host function\n", fn);
     abort();
   }
+  std::lock_guard<std::mutex> lk(calls_mu());
+  calls()[fn]++;
 }
 
-// An allocation that holds [p, p+n), or nullptr.  Caller holds mu().
-Alloc* find_alloc(CUdeviceptr p, size_t n) {
-  auto& m = allocs();
+// Take one injected failure off `budget`, if any is left.
+bool take_injected(std::atomic<int>& budget) {
+  int left = budget.load();
+  while (left > 0 && !budget.compare_exchange_weak(left, left - 1)) {
+  }
+  return left > 0;
+}
+
+// An allocation of `m` that holds [p, p+n), or nullptr.  Caller holds
+// mu().
+Alloc* find_in(std::map<CUdeviceptr, Alloc>& m, CUdeviceptr p, size_t n) {
   auto it = m.upper_bound(p);
   if (it == m.begin()) {
     return nullptr;
@@ -120,6 +169,13 @@ Alloc* find_alloc(CUdeviceptr p, size_t n) {
     return nullptr;
   }
   return &it->second;
+}
+
+Alloc* find_alloc(CUdeviceptr p, size_t n) { return find_in(allocs(), p, n); }
+
+[[noreturn]] void broken(const char* rule) {
+  fprintf(stderr, "fake CUDA driver: %s\n", rule);
+  abort();
 }
 
 // --- completion thread (FIFO over all streams: stream order holds) --------
@@ -182,25 +238,48 @@ void schedule(std::function<void()> fn) {
   jobs_cv().notify_one();
 }
 
-// Queue a copy of n bytes; `dev_ptrs` are the device allocations it
-// touches (held pending until it ran).
+// Queue a copy of n bytes from src to dst; `dev_ptrs` are the device
+// allocations it touches, the first of them written when `writes_dev`,
+// and `host` the host side (a page-locked block, or pageable memory,
+// which is not tracked).  Each is held pending until the copy ran.
 CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
-                    std::vector<CUdeviceptr> dev_ptrs, bool fail_async) {
+                    std::vector<CUdeviceptr> dev_ptrs, bool writes_dev,
+                    const void* host, bool fail_async) {
+  Alloc* pinned = nullptr;
   {
     std::lock_guard<std::mutex> lk(mu());
-    for (CUdeviceptr p : dev_ptrs) {
-      Alloc* a = find_alloc(p, n);
+    for (size_t i = 0; i < dev_ptrs.size(); ++i) {
+      Alloc* a = find_alloc(dev_ptrs[i], n);
       if (a == nullptr) {
         return kInvalidValue;
       }
-      a->pending++;
+      if (i == 0 && writes_dev && a->pending != 0) {
+        broken("a device block written while a copy on it is pending");
+      }
+    }
+    if (host != nullptr) {
+      pinned = find_in(host_allocs(), (CUdeviceptr)host, n);
+      if (pinned != nullptr && pinned->pending != 0) {
+        broken("a page-locked host block reused while a copy on it is "
+               "pending");
+      }
+    }
+    for (CUdeviceptr p : dev_ptrs) {
+      find_alloc(p, n)->pending++;
+    }
+    if (pinned != nullptr) {
+      pinned->pending++;
     }
   }
-  schedule([s, dst, src, n, dev_ptrs, fail_async]() {
+  bool tracked = pinned != nullptr;
+  schedule([s, dst, src, n, dev_ptrs, host, tracked, fail_async]() {
     memcpy(dst, src, n);
     std::lock_guard<std::mutex> lk(mu());
     for (CUdeviceptr p : dev_ptrs) {
       find_alloc(p, n)->pending--;
+    }
+    if (tracked) {
+      find_in(host_allocs(), (CUdeviceptr)host, n)->pending--;
     }
     if (fail_async) {
       s->async_err = kInjected;
@@ -242,6 +321,17 @@ CUresult cuDeviceGet(int* dev, int ordinal) {
   return kOk;
 }
 
+CUresult cuDeviceCanAccessPeer(int* can, int dev, int peer) {
+  guard("cuDeviceCanAccessPeer");
+  std::lock_guard<std::mutex> lk(mu());
+  int n = (int)ctxs().size();
+  if (dev < 0 || dev >= n || peer < 0 || peer >= n) {
+    return kInvalidValue;
+  }
+  *can = dev != peer && env_i64("TRPC_FAKE_CUDA_NO_PEER", 0) == 0;
+  return kOk;
+}
+
 CUresult cuDevicePrimaryCtxRetain(void** ctx, int dev) {
   guard("cuDevicePrimaryCtxRetain");
   std::lock_guard<std::mutex> lk(mu());
@@ -261,6 +351,20 @@ CUresult cuCtxGetCurrent(void** ctx) {
 CUresult cuCtxSetCurrent(void* ctx) {
   guard("cuCtxSetCurrent");
   tl_current = (FakeCtx*)ctx;
+  return kOk;
+}
+
+CUresult cuCtxEnablePeerAccess(void* peer, unsigned) {
+  guard("cuCtxEnablePeerAccess");
+  if (tl_current == nullptr || peer == nullptr) {
+    return kInvalidContext;
+  }
+  std::lock_guard<std::mutex> lk(mu());
+  bool& on = peers()[{tl_current->dev, ((FakeCtx*)peer)->dev}];
+  if (on) {
+    return kPeerAlreadyEnabled;
+  }
+  on = true;
   return kOk;
 }
 
@@ -287,6 +391,9 @@ CUresult cuMemAlloc_v2(CUdeviceptr* out, size_t n) {
   if (tl_current == nullptr) {
     return kInvalidContext;
   }
+  if (take_injected(g_oom_device)) {
+    return kOutOfMemory;
+  }
   void* p = malloc(n == 0 ? 1 : n);
   std::lock_guard<std::mutex> lk(mu());
   allocs()[(CUdeviceptr)p] = Alloc{n, 0};
@@ -305,11 +412,40 @@ CUresult cuMemFree_v2(CUdeviceptr p) {
     return kInvalidValue;
   }
   if (it->second.pending != 0) {
-    fprintf(stderr, "fake CUDA driver: cuMemFree_v2 under a pending copy\n");
-    abort();
+    broken("cuMemFree_v2 under a pending copy");
   }
   allocs().erase(it);
   free((void*)p);
+  return kOk;
+}
+
+CUresult cuMemHostAlloc(void** out, size_t n, unsigned) {
+  guard("cuMemHostAlloc");
+  if (tl_current == nullptr) {
+    return kInvalidContext;
+  }
+  if (take_injected(g_oom_host)) {
+    return kOutOfMemory;
+  }
+  void* p = malloc(n == 0 ? 1 : n);
+  std::lock_guard<std::mutex> lk(mu());
+  host_allocs()[(CUdeviceptr)p] = Alloc{n, 0};
+  *out = p;
+  return kOk;
+}
+
+CUresult cuMemFreeHost(void* p) {
+  guard("cuMemFreeHost");
+  std::lock_guard<std::mutex> lk(mu());
+  auto it = host_allocs().find((CUdeviceptr)p);
+  if (it == host_allocs().end()) {
+    return kInvalidValue;
+  }
+  if (it->second.pending != 0) {
+    broken("cuMemFreeHost under a pending copy");
+  }
+  host_allocs().erase(it);
+  free(p);
   return kOk;
 }
 
@@ -322,8 +458,8 @@ CUresult cuMemcpyHtoDAsync_v2(CUdeviceptr dst, const void* src, size_t n,
   if (fail_mode("h2d")) {
     return kInjected;
   }
-  return queue_copy((FakeStream*)stream, (void*)dst, src, n, {dst},
-                    fail_mode("ready"));
+  return queue_copy((FakeStream*)stream, (void*)dst, src, n, {dst}, true,
+                    src, fail_mode("ready"));
 }
 
 CUresult cuMemcpyDtoHAsync_v2(void* dst, CUdeviceptr src, size_t n,
@@ -338,7 +474,8 @@ CUresult cuMemcpyDtoHAsync_v2(void* dst, CUdeviceptr src, size_t n,
     s->drop_next_host_fn = true;  // a wedged copy: nothing ever lands
     return kOk;
   }
-  return queue_copy(s, dst, (const void*)src, n, {src}, fail_mode("d2h"));
+  return queue_copy(s, dst, (const void*)src, n, {src}, false, dst,
+                    fail_mode("d2h"));
 }
 
 CUresult cuMemcpyDtoDAsync_v2(CUdeviceptr dst, CUdeviceptr src, size_t n,
@@ -348,7 +485,7 @@ CUresult cuMemcpyDtoDAsync_v2(CUdeviceptr dst, CUdeviceptr src, size_t n,
     return kInvalidContext;
   }
   return queue_copy((FakeStream*)stream, (void*)dst, (const void*)src, n,
-                    {dst, src}, false);
+                    {dst, src}, true, nullptr, false);
 }
 
 CUresult cuMemcpyPeerAsync(CUdeviceptr dst, void* dst_ctx, CUdeviceptr src,
@@ -358,7 +495,7 @@ CUresult cuMemcpyPeerAsync(CUdeviceptr dst, void* dst_ctx, CUdeviceptr src,
     return kInvalidContext;
   }
   return queue_copy((FakeStream*)stream, (void*)dst, (const void*)src, n,
-                    {dst, src}, false);
+                    {dst, src}, true, nullptr, false);
 }
 
 CUresult cuMemHostRegister_v2(void*, size_t, unsigned) {
@@ -394,6 +531,12 @@ CUresult cuGetErrorString(CUresult rc, const char** out) {
     case kInvalidValue:
       *out = "invalid argument";
       break;
+    case kOutOfMemory:
+      *out = "out of memory";
+      break;
+    case kPeerAlreadyEnabled:
+      *out = "peer access is already enabled";
+      break;
     case kInvalidContext:
       *out = "invalid device context";
       break;
@@ -404,6 +547,16 @@ CUresult cuGetErrorString(CUresult rc, const char** out) {
       *out = "unknown error (fake CUDA driver)";
   }
   return kOk;
+}
+
+unsigned long long trpc_fake_cuda_calls(const char* name) {
+  std::lock_guard<std::mutex> lk(calls_mu());
+  auto it = calls().find(name);
+  return it == calls().end() ? 0 : it->second;
+}
+
+void trpc_fake_cuda_inject_oom(const char* pool, int n) {
+  (strcmp(pool, "host") == 0 ? g_oom_host : g_oom_device).store(n);
 }
 
 }  // extern "C"

@@ -10,34 +10,76 @@
 //
 // Mapping from the PJRT plane (tpu.cc):
 //   client + devices       -> each device's primary context (the one
-//                             PyTorch uses) + one non-blocking stream
-//   BufferFromHostBuffer   -> cuMemAlloc_v2 + cuMemcpyHtoDAsync_v2
+//                             PyTorch uses) + one non-blocking stream;
+//                             peer access enabled between every pair of
+//                             devices the driver allows
+//   BufferFromHostBuffer   -> a block of the device's buffer cache (a
+//                             cuMemAlloc_v2 only on a miss) +
+//                             cuMemcpyHtoDAsync_v2
 //   ready / done events    -> one cuLaunchHostFunc after the copy: the
 //                             source is released, 1 stored into the
 //                             butex, waiters woken, the pin dropped
-//   ToHostBuffer           -> cuMemcpyDtoHAsync_v2 into a landing zone,
-//                             page-locked with cuMemHostRegister_v2 when
-//                             the driver allows (else the driver copies
-//                             it synchronously; the wait is the same)
-//   CopyToDevice           -> cuMemcpyDtoDAsync_v2 on one device,
-//                             cuMemcpyPeerAsync across devices
-//   Buffer_Destroy         -> cuMemFree_v2 at the last pin
+//   ToHostBuffer           -> cuMemcpyDtoHAsync_v2 into a landing zone
+//                             from the page-locked pool (cuMemHostAlloc,
+//                             PORTABLE, only on a miss)
+//   CopyToDevice           -> cuMemcpyDtoDAsync_v2 on one device and
+//                             between peers, cuMemcpyPeerAsync across
+//                             devices the driver gives no peer access
+//   Buffer_Destroy         -> the block back to its device's cache at
+//                             its last use
+//
+// Pools.  In steady state a transfer makes no allocation, free,
+// page-locking or unregistering in the driver: only the copy, its host
+// function and the butex wake.
+//   * Device buffers: one cache per device, free lists by size class
+//     (powers of two from 4 KiB up to kExactAbove, exact sizes above it:
+//     a power of two above 32 MiB could waste more than a KV pool holds).
+//     At most kDevCacheBytes (256 MiB) of free blocks stay cached per
+//     device, a constant.  Only the plane's own CUDA_ERROR_OUT_OF_MEMORY
+//     releases them: the device's cached blocks go back to the driver and
+//     the allocation is tried once more.  An out-of-memory error inside
+//     PyTorch's caching allocator never reaches them, so up to that much
+//     stays held while PyTorch runs short.
+//   * Host landing zones and h2d staging blocks: one pool of page-locked
+//     blocks from cuMemHostAlloc(PORTABLE), by the same classes, at most
+//     kHostCacheBytes cached.  tpu_host_free hands a pool block back (the
+//     IOBuf deleter of tpu_d2h_into_iobuf and trpc_tpu_buf_release both
+//     end there), so a zone is reused once the socket sent it or Python
+//     copied it out.  PORTABLE is paid once per block, not once a d2h.
+//   Handing a block back is a push onto a list, not a CUDA call, so a
+//   host function does it directly.  A device block goes back once its
+//   owner freed it and every copy on it has completed (DeviceBuf::users:
+//   the copy that fills it drops its use in its host function, before
+//   the wake, so a caller that waited and freed finds the block cached);
+//   a staging block goes back in its copy's host function, a landing
+//   zone when its reader is done.  So a reused block is never under a
+//   pending copy; the one exception, a d2h whose completion never came,
+//   is safe because every copy that writes a device block runs on that
+//   block's device stream, behind the stalled read.
 //
 // Rules the design keeps:
 //   * The current context is per OS thread, and the plane is called from
 //     fiber workers, the usercode pool and Python threads: every driver
 //     call runs inside a CtxScope, which makes the device's primary
 //     context current and gives the thread back its own context (null
-//     included) when it ends, on error paths too.  The plane moves none
-//     of its caller's CUDA state, as the PJRT plane moves none.  No scope
-//     spans a butex wait: a fiber may resume on another thread.
+//     included) when it ends, on error paths too.  No scope spans a
+//     butex wait: a fiber may resume on another thread.
+//   * The plane moves none of its caller's CUDA state, with one piece of
+//     context-wide state set on purpose: init enables peer access from
+//     each device's primary context to every other device it may reach.
+//     That only widens what kernels and copies in those contexts may
+//     address; PyTorch enables the same access itself for its own peer
+//     copies (the driver's "already enabled" counts as success here), and
+//     nothing of PyTorch's depends on it being off.
 //   * A host function may make no CUDA call.  Completion only releases
-//     the source, stores 1, wakes and unpins; a device free or a landing
-//     zone unregister that falls due inside it is deferred to the next
-//     plane entry point (drain_deferred).
+//     the source, stores 1, wakes and unpins; a block handed back there
+//     goes onto its free list, and a list left above its limit is trimmed
+//     by the next plane call outside a host function.
 //   * Waits park the fiber on the butex; no worker thread ever calls a
 //     synchronizing driver function.  Asynchronous errors are read with
 //     cuStreamQuery by the waiter, after the wake.
+//   * No fallback hides the device: a pool miss allocates, and an
+//     allocation or copy that fails surfaces with its reason.
 #include "tpu.h"
 
 #include <dlfcn.h>
@@ -47,23 +89,21 @@
 #include <unistd.h>
 
 #include <atomic>
+#include <map>
+#include <memory>
 #include <mutex>
 #include <string>
+#include <unordered_map>
+#include <utility>
 #include <vector>
 
 #include "fiber.h"
 #include "heap_profiler.h"
 #include "object_pool.h"
-#include "uring.h"
 
 namespace trpc {
 
 namespace {
-char* zc_host_alloc(size_t len) {
-  void* p = uring_zc_alloc(len);
-  return p != nullptr ? (char*)p : (char*)hp_malloc(len);
-}
-
 int64_t env_wait_budget_us(const char* name) {
   int64_t budget_us = 30 * 1000 * 1000;
   const char* bv = getenv(name);
@@ -76,12 +116,6 @@ int64_t env_wait_budget_us(const char* name) {
   return budget_us;
 }
 }  // namespace
-
-void tpu_host_free(void* p) {
-  if (p != nullptr && !uring_zc_free(p)) {
-    hp_free(p);
-  }
-}
 
 int64_t tpu_d2d_timeout_us() {
   // parsed once per process (the d2h budget stays a per-call read, so a
@@ -102,28 +136,49 @@ typedef unsigned long long CUdeviceptr;
 typedef void (*CUhostFn)(void* user);
 
 constexpr CUresult CUDA_SUCCESS = 0;
+constexpr CUresult CUDA_ERROR_OUT_OF_MEMORY = 2;
 constexpr CUresult CUDA_ERROR_NOT_READY = 600;
+constexpr CUresult CUDA_ERROR_PEER_ACCESS_ALREADY_ENABLED = 704;
 constexpr unsigned CU_STREAM_NON_BLOCKING = 1;
-constexpr unsigned CU_MEMHOSTREGISTER_PORTABLE = 1;
+constexpr unsigned CU_MEMHOSTALLOC_PORTABLE = 1;
+
+// Size classes and the pools' limits (see the header comment).
+constexpr size_t kMinClass = 4096;
+constexpr size_t kExactAbove = 32u << 20;
+constexpr size_t kDevCacheBytes = 256u << 20;   // free blocks, per device
+constexpr size_t kHostCacheBytes = 256u << 20;  // free page-locked blocks
+
+size_t size_class(size_t len) {
+  if (len > kExactAbove) {
+    return len;
+  }
+  size_t c = kMinClass;
+  while (c < len) {
+    c <<= 1;
+  }
+  return c;
+}
 
 struct Driver {
   CUresult (*Init)(unsigned);
   CUresult (*DeviceGetCount)(int*);
   CUresult (*DeviceGet)(CUdevice*, int);
+  CUresult (*DeviceCanAccessPeer)(int*, CUdevice, CUdevice);
   CUresult (*DevicePrimaryCtxRetain)(CUcontext*, CUdevice);
   CUresult (*CtxGetCurrent)(CUcontext*);
   CUresult (*CtxSetCurrent)(CUcontext);
+  CUresult (*CtxEnablePeerAccess)(CUcontext, unsigned);
   CUresult (*StreamCreate)(CUstream*, unsigned);
   CUresult (*StreamQuery)(CUstream);
   CUresult (*MemAlloc)(CUdeviceptr*, size_t);
   CUresult (*MemFree)(CUdeviceptr);
+  CUresult (*MemHostAlloc)(void**, size_t, unsigned);
+  CUresult (*MemFreeHost)(void*);
   CUresult (*MemcpyHtoDAsync)(CUdeviceptr, const void*, size_t, CUstream);
   CUresult (*MemcpyDtoHAsync)(void*, CUdeviceptr, size_t, CUstream);
   CUresult (*MemcpyDtoDAsync)(CUdeviceptr, CUdeviceptr, size_t, CUstream);
   CUresult (*MemcpyPeerAsync)(CUdeviceptr, CUcontext, CUdeviceptr, CUcontext,
                               size_t, CUstream);
-  CUresult (*MemHostRegister)(void*, size_t, unsigned);
-  CUresult (*MemHostUnregister)(void*);
   CUresult (*LaunchHostFunc)(CUstream, CUhostFn, void*);
   CUresult (*GetErrorString)(CUresult, const char**);
 };
@@ -131,7 +186,6 @@ struct Driver {
 struct Sym {
   const char* name;
   void** slot;
-  bool required;
 };
 
 struct Dev {
@@ -140,27 +194,73 @@ struct Dev {
   CUstream stream = nullptr;
 };
 
-// A device free or landing-zone release that fell due inside a host
-// function, where no CUDA call may be made.
-struct Deferred {
-  int dev = 0;
-  CUdeviceptr dptr = 0;
-  void* host = nullptr;
-  bool registered = false;
+// Free blocks of one pool by size class.  take/put are pushes and pops
+// under a mutex, never a CUDA call; evict hands back the blocks above a
+// byte limit, for the caller to return to the driver.
+struct FreeList {
+  std::mutex mu;
+  std::map<size_t, std::vector<uint64_t>> by_class;
+  size_t cached = 0;
+  std::atomic<uint64_t> hits{0}, misses{0}, releases{0}, oom_retries{0};
+
+  bool take(size_t cls, uint64_t* out) {
+    std::lock_guard<std::mutex> lk(mu);
+    auto it = by_class.find(cls);
+    if (it == by_class.end() || it->second.empty()) {
+      misses.fetch_add(1, std::memory_order_relaxed);
+      return false;
+    }
+    *out = it->second.back();
+    it->second.pop_back();
+    cached -= cls;
+    hits.fetch_add(1, std::memory_order_relaxed);
+    return true;
+  }
+
+  // true when the list is now above `limit`
+  bool put(uint64_t block, size_t cls, size_t limit) {
+    std::lock_guard<std::mutex> lk(mu);
+    by_class[cls].push_back(block);
+    cached += cls;
+    return cached > limit;
+  }
+
+  // (block, class) pairs taken off the lists until at most `keep` bytes
+  // stay cached, the largest classes first
+  std::vector<std::pair<uint64_t, size_t>> evict(size_t keep) {
+    std::vector<std::pair<uint64_t, size_t>> out;
+    std::lock_guard<std::mutex> lk(mu);
+    for (auto it = by_class.rbegin(); it != by_class.rend() && cached > keep;
+         ++it) {
+      while (!it->second.empty() && cached > keep) {
+        out.emplace_back(it->second.back(), it->first);
+        it->second.pop_back();
+        cached -= it->first;
+      }
+    }
+    releases.fetch_add(out.size(), std::memory_order_relaxed);
+    return out;
+  }
+
+  bool over(size_t limit) {
+    std::lock_guard<std::mutex> lk(mu);
+    return cached > limit;
+  }
 };
 
 struct Plane {
   void* dso = nullptr;
   Driver d{};
   std::vector<Dev> devs;
+  std::vector<uint8_t> peer;  // [i * n + j]: device i's context reaches j
   std::string error;
   std::atomic<bool> up{false};
   std::mutex init_mu;
   uint64_t uid = 0;
 
-  std::mutex deferred_mu;
-  std::vector<Deferred> deferred;
-  std::atomic<bool> has_deferred{false};
+  std::vector<std::unique_ptr<FreeList>> dev_cache;  // one per device
+  FreeList host;
+  std::unordered_map<void*, size_t> host_blocks;  // every pool block, under host.mu
 
   std::atomic<uint64_t> h2d_transfers{0}, d2h_transfers{0};
   std::atomic<uint64_t> h2d_bytes{0}, d2h_bytes{0};
@@ -195,6 +295,11 @@ std::string cu_error(const char* what, CUresult rc) {
          ")";
 }
 
+void count_error(const char* what, CUresult rc) {
+  plane().errors.fetch_add(1, std::memory_order_relaxed);
+  set_plane_error(cu_error(what, rc));
+}
+
 // Device `dev`'s primary context, current on the calling thread while
 // the scope lives; the thread's own context (or none) is current again
 // when it ends.  ok() is false (and counted) when the switch failed.
@@ -211,8 +316,7 @@ class CtxScope {
       switched_ = rc == CUDA_SUCCESS;
     }
     if (rc != CUDA_SUCCESS) {
-      p.errors.fetch_add(1, std::memory_order_relaxed);
-      set_plane_error(cu_error(what, rc));
+      count_error(what, rc);
     }
     ok_ = rc == CUDA_SUCCESS;
   }
@@ -239,61 +343,125 @@ struct HostFnScope {
   ~HostFnScope() { tl_in_host_fn = false; }
 };
 
-void release_landing(void* mem, int dev, bool registered) {
-  if (mem == nullptr) {
-    return;
+// --- the device-buffer cache -------------------------------------------------
+
+// Return device `dev`'s cached blocks above `keep` bytes to the driver.
+// Device dev's context must be current; never inside a host function.
+void dev_evict(int dev, size_t keep) {
+  Plane& p = plane();
+  for (const auto& blk : p.dev_cache[dev]->evict(keep)) {
+    p.d.MemFree((CUdeviceptr)blk.first);
   }
-  if (registered) {
-    if (tl_in_host_fn) {
-      Plane& p = plane();
-      std::lock_guard<std::mutex> lk(p.deferred_mu);
-      p.deferred.push_back(Deferred{dev, 0, mem, true});
-      p.has_deferred.store(true, std::memory_order_release);
-      return;
-    }
+}
+
+// A block of class `cls` on device `dev` (its context current): from the
+// cache, else from the driver; on out-of-memory the device's cached
+// blocks go back to the driver and the allocation is tried once more.
+CUresult dev_alloc(int dev, size_t cls, CUdeviceptr* out) {
+  Plane& p = plane();
+  FreeList& f = *p.dev_cache[dev];
+  if (f.over(kDevCacheBytes)) {  // pushed past the limit in a host function
+    dev_evict(dev, kDevCacheBytes);
+  }
+  uint64_t block = 0;
+  if (f.take(cls, &block)) {
+    *out = (CUdeviceptr)block;
+    return CUDA_SUCCESS;
+  }
+  CUresult rc = p.d.MemAlloc(out, cls);
+  if (rc == CUDA_ERROR_OUT_OF_MEMORY) {
+    f.oom_retries.fetch_add(1, std::memory_order_relaxed);
+    dev_evict(dev, 0);
+    rc = p.d.MemAlloc(out, cls);
+  }
+  return rc;
+}
+
+// Hand a block back to its device's cache: a push, so a host function
+// may do it; above the limit, a caller outside one trims at once.
+void dev_release(int dev, CUdeviceptr ptr, size_t cls) {
+  Plane& p = plane();
+  if (p.dev_cache[dev]->put(ptr, cls, kDevCacheBytes) && !tl_in_host_fn) {
     CtxScope ctx(dev);
     if (ctx.ok()) {
-      plane().d.MemHostUnregister(mem);
+      dev_evict(dev, kDevCacheBytes);
     }
   }
-  tpu_host_free(mem);
 }
 
-void free_device_mem(int dev, CUdeviceptr dptr) {
-  Plane& p = plane();
-  if (tl_in_host_fn) {
-    std::lock_guard<std::mutex> lk(p.deferred_mu);
-    p.deferred.push_back(Deferred{dev, dptr, nullptr, false});
-    p.has_deferred.store(true, std::memory_order_release);
-    return;
-  }
-  CtxScope ctx(dev);
-  if (ctx.ok()) {
-    p.d.MemFree(dptr);
-  }
-}
+// --- the page-locked host pool -----------------------------------------------
 
-// Run the releases that fell due inside host functions.  Called at the
-// top of the entry points that allocate or free.
-void drain_deferred() {
+// Return the pool's cached blocks above `keep` bytes to the driver.
+// Never inside a host function.
+void host_evict(size_t keep) {
   Plane& p = plane();
-  if (!p.has_deferred.load(std::memory_order_acquire)) {
+  std::vector<std::pair<uint64_t, size_t>> out = p.host.evict(keep);
+  if (out.empty()) {
     return;
   }
-  std::vector<Deferred> todo;
   {
-    std::lock_guard<std::mutex> lk(p.deferred_mu);
-    todo.swap(p.deferred);
-    p.has_deferred.store(false, std::memory_order_release);
-  }
-  for (const Deferred& x : todo) {
-    if (x.dptr != 0) {
-      free_device_mem(x.dev, x.dptr);
-    }
-    if (x.host != nullptr) {
-      release_landing(x.host, x.dev, x.registered);
+    std::lock_guard<std::mutex> lk(p.host.mu);
+    for (const auto& blk : out) {
+      p.host_blocks.erase((void*)blk.first);
     }
   }
+  CtxScope ctx(0);  // PORTABLE blocks: any of the plane's contexts frees
+  if (ctx.ok()) {
+    for (const auto& blk : out) {
+      p.d.MemFreeHost((void*)blk.first);
+    }
+  }
+}
+
+// A page-locked block of at least `len` bytes into *out; a context of
+// the plane must be current.  0, or -EIO with the reason recorded.
+int host_alloc(size_t len, char** out, const char* what) {
+  Plane& p = plane();
+  if (p.host.over(kHostCacheBytes)) {
+    host_evict(kHostCacheBytes);
+  }
+  size_t cls = size_class(len);
+  uint64_t block = 0;
+  if (p.host.take(cls, &block)) {
+    *out = (char*)block;
+    return 0;
+  }
+  void* mem = nullptr;
+  CUresult rc = p.d.MemHostAlloc(&mem, cls, CU_MEMHOSTALLOC_PORTABLE);
+  if (rc == CUDA_ERROR_OUT_OF_MEMORY) {
+    p.host.oom_retries.fetch_add(1, std::memory_order_relaxed);
+    host_evict(0);
+    rc = p.d.MemHostAlloc(&mem, cls, CU_MEMHOSTALLOC_PORTABLE);
+  }
+  if (rc != CUDA_SUCCESS) {
+    count_error(what, rc);
+    return -EIO;
+  }
+  {
+    std::lock_guard<std::mutex> lk(p.host.mu);
+    p.host_blocks[mem] = cls;
+  }
+  *out = (char*)mem;
+  return 0;
+}
+
+// A pool block goes back onto its list (true); anything else is not
+// the pool's (false).  A push: a host function may call it.
+bool host_release(void* mem) {
+  Plane& p = plane();
+  size_t cls = 0;
+  {
+    std::lock_guard<std::mutex> lk(p.host.mu);
+    auto it = p.host_blocks.find(mem);
+    if (it == p.host_blocks.end()) {
+      return false;
+    }
+    cls = it->second;
+  }
+  if (p.host.put((uint64_t)mem, cls, kHostCacheBytes) && !tl_in_host_fn) {
+    host_evict(kHostCacheBytes);
+  }
+  return true;
 }
 
 // --- device buffers ----------------------------------------------------------
@@ -302,13 +470,19 @@ struct DeviceBuf {
   CUdeviceptr ptr = 0;
   int dev = 0;
   size_t len = 0;
+  size_t cls = 0;  // the cache block's size class
   uint32_t slot = 0;
   std::atomic<uint32_t> version{1};
   Butex* ready = nullptr;  // 1 = resident on the device (or errored)
   std::atomic<int32_t> error{0};
   // 1 (owned by tpu_buf_free) + 1 per pending host function + 1 per
-  // reader; the memory is freed and the slot recycled when it drains
+  // reader; the slot is recycled when it drains
   std::atomic<int32_t> pins{0};
+  // uses of the device block: 1 (the owner) + 1 (the copy that fills it,
+  // until its host function) + 1 per reading copy (d2h, a d2d's source)
+  // until it completed; the block goes back to the cache at 0.  Each use
+  // is held under a pin, so the slot outlives it.
+  std::atomic<int32_t> users{0};
   void (*release)(void*, void*) = nullptr;  // h2d source release hook
   void* release_arg = nullptr;
   void* release_data = nullptr;
@@ -321,12 +495,30 @@ struct DeviceBuf {
 
 void unpin_buf(DeviceBuf* b) {
   if (b->pins.fetch_sub(1, std::memory_order_acq_rel) == 1) {
-    if (b->ptr != 0) {
-      free_device_mem(b->dev, b->ptr);
-      b->ptr = 0;
-      plane().live_buffers.fetch_sub(1, std::memory_order_relaxed);
-    }
     ResourcePool<DeviceBuf>::Return(b->slot);
+  }
+}
+
+// One more use of a pinned buffer's block; false when the block is gone
+// (its owner freed it and every use ended).
+bool use_buf(DeviceBuf* b) {
+  int32_t cur = b->users.load(std::memory_order_acquire);
+  do {
+    if (cur <= 0) {
+      return false;
+    }
+  } while (!b->users.compare_exchange_weak(cur, cur + 1,
+                                           std::memory_order_acq_rel));
+  return true;
+}
+
+// The last use hands the block back to its device's cache (a push: a
+// host function may end a use).
+void unuse_buf(DeviceBuf* b) {
+  if (b->users.fetch_sub(1, std::memory_order_acq_rel) == 1) {
+    dev_release(b->dev, b->ptr, b->cls);
+    b->ptr = 0;
+    plane().live_buffers.fetch_sub(1, std::memory_order_relaxed);
   }
 }
 
@@ -349,9 +541,9 @@ DeviceBuf* pin_buf(TpuBufId id) {
   return b;
 }
 
-// A fresh slot, armed (not ready) with the free's pin and the host
-// function's pin.
-DeviceBuf* arm_buf(CUdeviceptr ptr, int dev, size_t len) {
+// A fresh slot, armed (not ready) with the free's pin and use and the
+// host function's pin and use.
+DeviceBuf* arm_buf(CUdeviceptr ptr, int dev, size_t len, size_t cls) {
   DeviceBuf* b = nullptr;
   uint32_t slot = ResourcePool<DeviceBuf>::Get(&b);
   b->slot = slot;
@@ -361,9 +553,11 @@ DeviceBuf* arm_buf(CUdeviceptr ptr, int dev, size_t len) {
   butex_value(b->ready).store(0, std::memory_order_release);
   b->error.store(0, std::memory_order_relaxed);
   b->pins.store(2, std::memory_order_relaxed);
+  b->users.store(2, std::memory_order_relaxed);
   b->ptr = ptr;
   b->dev = dev;
   b->len = len;
+  b->cls = cls;
   b->release = nullptr;
   b->release_arg = nullptr;
   b->release_data = nullptr;
@@ -372,7 +566,8 @@ DeviceBuf* arm_buf(CUdeviceptr ptr, int dev, size_t len) {
 }
 
 // Completion of an h2d or d2d copy, on the driver's thread: release the
-// source, store 1, wake, drop the pin.  No CUDA call.
+// source, end the copy's use of the block, store 1, wake, drop the pin.
+// No CUDA call.
 void on_copy_done(void* user) {
   HostFnScope scope;
   DeviceBuf* b = (DeviceBuf*)user;
@@ -385,8 +580,10 @@ void on_copy_done(void* user) {
   if (b->src_pin != nullptr) {
     DeviceBuf* s = b->src_pin;
     b->src_pin = nullptr;
+    unuse_buf(s);
     unpin_buf(s);
   }
+  unuse_buf(b);
   butex_value(b->ready).store(1, std::memory_order_release);
   butex_wake_all(b->ready);
   unpin_buf(b);
@@ -404,8 +601,7 @@ int check_stream(int dev, const char* what) {
   if (rc == CUDA_SUCCESS || rc == CUDA_ERROR_NOT_READY) {
     return 0;
   }
-  p.errors.fetch_add(1, std::memory_order_relaxed);
-  set_plane_error(cu_error(what, rc));
+  count_error(what, rc);
   return -EIO;
 }
 
@@ -425,15 +621,16 @@ int wait_ready_pinned(DeviceBuf* b, int64_t timeout_us) {
   return b->error.load(std::memory_order_acquire) == 0 ? 0 : -EIO;
 }
 
-// The copy is enqueued but its completion could not be: the source may
-// still be read at an unknown time, so it is never released (a leak, not
-// a use-after-free) and the buffer is failed.  The driver refuses a host
+// The copy is enqueued but its completion could not be: the source and
+// both blocks may still be read or written at an unknown time, so none
+// is ever released or reused (the copy's uses are kept: a leak, not a
+// use-after-free) and the buffer is failed.  The driver refuses a host
 // function only when its context is already lost.
 void fail_unarmed(DeviceBuf* b, CUresult rc) {
   Plane& p = plane();
-  p.errors.fetch_add(1, std::memory_order_relaxed);
-  set_plane_error(cu_error("cuLaunchHostFunc", rc));
+  count_error("cuLaunchHostFunc", rc);
   b->release = nullptr;
+  p.live_buffers.fetch_sub(1, std::memory_order_relaxed);
   b->error.store(EIO, std::memory_order_release);
   butex_value(b->ready).store(1, std::memory_order_release);
   butex_wake_all(b->ready);
@@ -446,6 +643,12 @@ void fail_unarmed(DeviceBuf* b, CUresult rc) {
 }
 
 }  // namespace
+
+void tpu_host_free(void* p) {
+  if (p != nullptr && !host_release(p)) {
+    hp_free(p);
+  }
+}
 
 // --- lifecycle ---------------------------------------------------------------
 
@@ -475,35 +678,34 @@ int tpu_plane_init(const char* driver_path) {
   }
   Driver d{};
   const Sym syms[] = {
-      {"cuInit", (void**)&d.Init, true},
-      {"cuDeviceGetCount", (void**)&d.DeviceGetCount, true},
-      {"cuDeviceGet", (void**)&d.DeviceGet, true},
-      {"cuDevicePrimaryCtxRetain", (void**)&d.DevicePrimaryCtxRetain, true},
-      {"cuCtxGetCurrent", (void**)&d.CtxGetCurrent, true},
-      {"cuCtxSetCurrent", (void**)&d.CtxSetCurrent, true},
-      {"cuStreamCreate", (void**)&d.StreamCreate, true},
-      {"cuStreamQuery", (void**)&d.StreamQuery, true},
-      {"cuMemAlloc_v2", (void**)&d.MemAlloc, true},
-      {"cuMemFree_v2", (void**)&d.MemFree, true},
-      {"cuMemcpyHtoDAsync_v2", (void**)&d.MemcpyHtoDAsync, true},
-      {"cuMemcpyDtoHAsync_v2", (void**)&d.MemcpyDtoHAsync, true},
-      {"cuMemcpyDtoDAsync_v2", (void**)&d.MemcpyDtoDAsync, true},
-      {"cuMemcpyPeerAsync", (void**)&d.MemcpyPeerAsync, true},
-      {"cuMemHostRegister_v2", (void**)&d.MemHostRegister, false},
-      {"cuMemHostUnregister", (void**)&d.MemHostUnregister, false},
-      {"cuLaunchHostFunc", (void**)&d.LaunchHostFunc, true},
-      {"cuGetErrorString", (void**)&d.GetErrorString, true},
+      {"cuInit", (void**)&d.Init},
+      {"cuDeviceGetCount", (void**)&d.DeviceGetCount},
+      {"cuDeviceGet", (void**)&d.DeviceGet},
+      {"cuDeviceCanAccessPeer", (void**)&d.DeviceCanAccessPeer},
+      {"cuDevicePrimaryCtxRetain", (void**)&d.DevicePrimaryCtxRetain},
+      {"cuCtxGetCurrent", (void**)&d.CtxGetCurrent},
+      {"cuCtxSetCurrent", (void**)&d.CtxSetCurrent},
+      {"cuCtxEnablePeerAccess", (void**)&d.CtxEnablePeerAccess},
+      {"cuStreamCreate", (void**)&d.StreamCreate},
+      {"cuStreamQuery", (void**)&d.StreamQuery},
+      {"cuMemAlloc_v2", (void**)&d.MemAlloc},
+      {"cuMemFree_v2", (void**)&d.MemFree},
+      {"cuMemHostAlloc", (void**)&d.MemHostAlloc},
+      {"cuMemFreeHost", (void**)&d.MemFreeHost},
+      {"cuMemcpyHtoDAsync_v2", (void**)&d.MemcpyHtoDAsync},
+      {"cuMemcpyDtoHAsync_v2", (void**)&d.MemcpyDtoHAsync},
+      {"cuMemcpyDtoDAsync_v2", (void**)&d.MemcpyDtoDAsync},
+      {"cuMemcpyPeerAsync", (void**)&d.MemcpyPeerAsync},
+      {"cuLaunchHostFunc", (void**)&d.LaunchHostFunc},
+      {"cuGetErrorString", (void**)&d.GetErrorString},
   };
   for (const Sym& s : syms) {
     *s.slot = dlsym(dso, s.name);
-    if (*s.slot == nullptr && s.required) {
+    if (*s.slot == nullptr) {
       set_plane_error(std::string("CUDA driver lacks ") + s.name);
       dlclose(dso);
       return -EIO;
     }
-  }
-  if (d.MemHostRegister == nullptr || d.MemHostUnregister == nullptr) {
-    d.MemHostRegister = nullptr;  // landing zones stay pageable
   }
   p.d = d;
   auto fail = [&](const char* what, CUresult rc) {
@@ -530,8 +732,9 @@ int tpu_plane_init(const char* driver_path) {
   if ((rc = d.CtxGetCurrent(&caller)) != CUDA_SUCCESS) {
     return fail("cuCtxGetCurrent", rc);
   }
-  // each device's context is current in turn while its stream is made;
-  // the caller's (or none) is current again whatever happened
+  // each device's context is current in turn while its stream is made
+  // and its peer access enabled; the caller's (or none) is current again
+  // whatever happened
   const char* what = nullptr;
   p.devs.assign(n, Dev{});
   for (int i = 0; i < n && what == nullptr; ++i) {
@@ -548,6 +751,27 @@ int tpu_plane_init(const char* driver_path) {
       what = "cuStreamCreate";
     }
   }
+  // peer access: a pair the driver refuses keeps cuMemcpyPeerAsync
+  p.peer.assign((size_t)n * n, 0);
+  for (int i = 0; i < n && what == nullptr; ++i) {
+    for (int j = 0; j < n && what == nullptr; ++j) {
+      int can = 0;
+      if (i == j) {
+        continue;
+      }
+      if ((rc = d.DeviceCanAccessPeer(&can, p.devs[i].dev, p.devs[j].dev)) !=
+          CUDA_SUCCESS) {
+        what = "cuDeviceCanAccessPeer";
+      } else if (can != 0 &&
+                 (rc = d.CtxSetCurrent(p.devs[i].ctx)) != CUDA_SUCCESS) {
+        what = "cuCtxSetCurrent";
+      } else if (can != 0) {
+        rc = d.CtxEnablePeerAccess(p.devs[j].ctx, 0);
+        p.peer[(size_t)i * n + j] =
+            rc == CUDA_SUCCESS || rc == CUDA_ERROR_PEER_ACCESS_ALREADY_ENABLED;
+      }
+    }
+  }
   CUresult back = d.CtxSetCurrent(caller);
   if (what == nullptr && back != CUDA_SUCCESS) {
     rc = back;
@@ -555,6 +779,10 @@ int tpu_plane_init(const char* driver_path) {
   }
   if (what != nullptr) {
     return fail(what, rc);
+  }
+  p.dev_cache.clear();
+  for (int i = 0; i < n; ++i) {
+    p.dev_cache.emplace_back(new FreeList());
   }
   p.uid = ((uint64_t)getpid() << 32) ^ (uint64_t)monotonic_ns();
   if (p.uid == 0) {
@@ -606,12 +834,13 @@ TpuBufId tpu_h2d(const void* data, size_t len, int device_index,
     }
     return 0;
   }
-  drain_deferred();
   CUdeviceptr ptr = 0;
   CUresult rc = CUDA_SUCCESS;
   const char* what = "h2d: cuMemAlloc_v2";
+  size_t cls = size_class(len);
   CtxScope ctx(device_index);
-  bool ok = ctx.ok() && (rc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
+  bool ok = ctx.ok() && (rc = dev_alloc(device_index, cls, &ptr)) ==
+                            CUDA_SUCCESS;
   if (ok) {
     what = "h2d: cuMemcpyHtoDAsync_v2";
     rc = p.d.MemcpyHtoDAsync(ptr, data, len, p.devs[device_index].stream);
@@ -619,18 +848,17 @@ TpuBufId tpu_h2d(const void* data, size_t len, int device_index,
   }
   if (!ok) {
     if (rc != CUDA_SUCCESS) {  // (a context failure counted itself)
-      p.errors.fetch_add(1, std::memory_order_relaxed);
-      set_plane_error(cu_error(what, rc));
+      count_error(what, rc);
     }
     if (ptr != 0) {
-      p.d.MemFree(ptr);
+      dev_release(device_index, ptr, cls);
     }
     if (release != nullptr) {
       release((void*)data, release_arg);
     }
     return 0;
   }
-  DeviceBuf* b = arm_buf(ptr, device_index, len);
+  DeviceBuf* b = arm_buf(ptr, device_index, len, cls);
   b->release = release;
   b->release_arg = release_arg;
   b->release_data = (void*)data;
@@ -650,9 +878,31 @@ void release_block_ref(void* data, void* arg) {
   (void)data;
   ((IOBlock*)arg)->Unref();
 }
-void release_free(void* data, void* arg) {
+void release_staging(void* data, void* arg) {
   (void)arg;
-  hp_free(data);
+  host_release(data);
+}
+
+// `len` bytes at `data` copied into a page-locked staging block and sent
+// to device `device` from there; the block goes back to the pool when
+// the copy's host function runs.
+TpuBufId h2d_staged(size_t len, int device,
+                    void (*fill)(char*, size_t, const void*),
+                    const void* src) {
+  Plane& p = plane();
+  if (!p.up.load(std::memory_order_acquire) || device < 0 ||
+      device >= (int)p.devs.size() || len == 0) {
+    return 0;
+  }
+  char* block = nullptr;
+  {
+    CtxScope ctx(device);  // a pool miss allocates page-locked memory
+    if (!ctx.ok() || host_alloc(len, &block, "h2d: cuMemHostAlloc") != 0) {
+      return 0;
+    }
+  }
+  fill(block, len, src);
+  return tpu_h2d(block, len, device, release_staging, nullptr);
 }
 }  // namespace
 
@@ -673,10 +923,13 @@ TpuBufId tpu_h2d_from_iobuf(const IOBuf& buf, int device_index) {
     }
     return id;
   }
-  char* staging = (char*)hp_malloc(buf.size());
-  buf.copy_to(staging, buf.size());
   p.gather_copies.fetch_add(1, std::memory_order_relaxed);
-  return tpu_h2d(staging, buf.size(), device_index, release_free, nullptr);
+  return h2d_staged(
+      buf.size(), device_index,
+      [](char* dst, size_t n, const void* src) {
+        ((const IOBuf*)src)->copy_to(dst, n);
+      },
+      &buf);
 }
 
 TpuBufId tpu_d2d(TpuBufId src_id, int dst_device) {
@@ -685,13 +938,12 @@ TpuBufId tpu_d2d(TpuBufId src_id, int dst_device) {
       dst_device >= (int)p.devs.size()) {
     return 0;
   }
-  drain_deferred();
   DeviceBuf* src = pin_buf(src_id);
   if (src == nullptr) {
     return 0;
   }
   int rc = wait_ready_pinned(src, tpu_d2d_timeout_us());
-  if (rc != 0 || src->ptr == 0) {
+  if (rc != 0 || !use_buf(src)) {
     set_plane_error(rc == -ETIMEDOUT
                         ? "d2d: source never became resident"
                         : "d2d: source transfer failed or buffer gone");
@@ -699,14 +951,19 @@ TpuBufId tpu_d2d(TpuBufId src_id, int dst_device) {
     return 0;
   }
   size_t len = src->len;
+  size_t cls = size_class(len);
+  size_t n = p.devs.size();
   CUstream stream = p.devs[dst_device].stream;
   CUdeviceptr ptr = 0;
   CUresult crc = CUDA_SUCCESS;
   const char* what = "d2d: cuMemAlloc_v2";
   CtxScope ctx(dst_device);
-  bool ok = ctx.ok() && (crc = p.d.MemAlloc(&ptr, len)) == CUDA_SUCCESS;
+  bool ok = ctx.ok() && (crc = dev_alloc(dst_device, cls, &ptr)) ==
+                            CUDA_SUCCESS;
   if (ok) {
-    if (src->dev == dst_device) {
+    if (src->dev == dst_device ||
+        p.peer[(size_t)dst_device * n + (size_t)src->dev] != 0) {
+      // one device, or a peer the destination's context reaches directly
       what = "d2d: cuMemcpyDtoDAsync_v2";
       crc = p.d.MemcpyDtoDAsync(ptr, src->ptr, len, stream);
     } else {
@@ -718,17 +975,17 @@ TpuBufId tpu_d2d(TpuBufId src_id, int dst_device) {
   }
   if (!ok) {
     if (crc != CUDA_SUCCESS) {  // (a context failure counted itself)
-      p.errors.fetch_add(1, std::memory_order_relaxed);
-      set_plane_error(cu_error(what, crc));
+      count_error(what, crc);
     }
     if (ptr != 0) {
-      p.d.MemFree(ptr);
+      dev_release(dst_device, ptr, cls);
     }
+    unuse_buf(src);
     unpin_buf(src);
     return 0;
   }
-  DeviceBuf* b = arm_buf(ptr, dst_device, len);
-  b->src_pin = src;  // our reader pin now lasts until the copy completes
+  DeviceBuf* b = arm_buf(ptr, dst_device, len, cls);
+  b->src_pin = src;  // our reader pin and use last until the copy completes
   TpuBufId id = b->id();
   p.d2d_transfers.fetch_add(1, std::memory_order_relaxed);
   p.d2d_bytes.fetch_add(len, std::memory_order_relaxed);
@@ -764,17 +1021,17 @@ namespace {
 
 // One d2h: the landing zone is owned by this context until the caller
 // claims it, so a caller that timed out walks away while a late copy
-// still writes valid memory; the last reference out releases it.
+// still writes valid memory; the last reference out hands it back.
 struct D2hCtx {
   Butex* done = nullptr;
   std::atomic<int32_t> refs{2};  // caller + host function
   char* mem = nullptr;
-  int dev = 0;
-  bool registered = false;
 
   static void Drop(D2hCtx* c) {
     if (c->refs.fetch_sub(1, std::memory_order_acq_rel) == 1) {
-      release_landing(c->mem, c->dev, c->registered);
+      if (c->mem != nullptr) {
+        host_release(c->mem);
+      }
       butex_destroy(c->done);
       delete c;
     }
@@ -792,13 +1049,12 @@ void on_d2h_done(void* user) {
 
 int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
   Plane& p = plane();
-  drain_deferred();
   DeviceBuf* b = pin_buf(id);
   if (b == nullptr) {
     return -EINVAL;
   }
   int rc = wait_ready_pinned(b, 30 * 1000 * 1000);
-  if (rc != 0 || b->ptr == 0) {
+  if (rc != 0 || !use_buf(b)) {
     unpin_buf(b);
     return rc != 0 ? rc : -EINVAL;
   }
@@ -806,40 +1062,32 @@ int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
   int dev = b->dev;
   D2hCtx* ctx = new D2hCtx();
   ctx->done = butex_create();
-  ctx->mem = zc_host_alloc(len);
-  ctx->dev = dev;
   {
     // the device's context for the enqueue alone: the wait below may
     // resume this fiber on another thread
     CtxScope cu(dev);
-    if (!cu.ok()) {
+    if (!cu.ok() || host_alloc(len, &ctx->mem, "d2h: cuMemHostAlloc") != 0) {
       ctx->refs.store(1, std::memory_order_relaxed);
       D2hCtx::Drop(ctx);
+      unuse_buf(b);
       unpin_buf(b);
       return -EIO;
     }
-    // page-locked, the copy is asynchronous and the fiber parks below;
-    // pageable (registration refused, e.g. a page shared with another
-    // registered zone), the driver copies before returning
-    ctx->registered =
-        p.d.MemHostRegister != nullptr &&
-        p.d.MemHostRegister(ctx->mem, len, CU_MEMHOSTREGISTER_PORTABLE) ==
-            CUDA_SUCCESS;
     CUstream stream = p.devs[dev].stream;
     CUresult crc = p.d.MemcpyDtoHAsync(ctx->mem, b->ptr, len, stream);
     if (crc != CUDA_SUCCESS) {
-      p.errors.fetch_add(1, std::memory_order_relaxed);
-      set_plane_error(cu_error("d2h: cuMemcpyDtoHAsync_v2", crc));
+      count_error("d2h: cuMemcpyDtoHAsync_v2", crc);
       ctx->refs.store(1, std::memory_order_relaxed);
       D2hCtx::Drop(ctx);
+      unuse_buf(b);
       unpin_buf(b);
       return -EIO;
     }
     crc = p.d.LaunchHostFunc(stream, on_d2h_done, ctx);
     if (crc != CUDA_SUCCESS) {
-      // the copy may still land: the context (and its zone) is left to it
-      p.errors.fetch_add(1, std::memory_order_relaxed);
-      set_plane_error(cu_error("d2h: cuLaunchHostFunc", crc));
+      // the copy may still land: the context (and its zone) is left to
+      // it, and so is the block (its use is kept)
+      count_error("d2h: cuLaunchHostFunc", crc);
       unpin_buf(b);
       return -EIO;
     }
@@ -860,26 +1108,21 @@ int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
     p.errors.fetch_add(1, std::memory_order_relaxed);
     set_plane_error("d2h: copy never completed (completion dropped)");
     D2hCtx::Drop(ctx);
+    unuse_buf(b);  // a later writer of the block queues behind the read
     unpin_buf(b);
     return -ETIMEDOUT;
   }
   int qrc = check_stream(dev, "d2h");
   char* mem = nullptr;
-  bool registered = ctx->registered;
   if (qrc == 0) {
-    mem = ctx->mem;  // claimed: the last context ref must not free it
+    mem = ctx->mem;  // claimed: the last context ref must not release it
     ctx->mem = nullptr;
   }
   D2hCtx::Drop(ctx);
+  unuse_buf(b);
   unpin_buf(b);
   if (qrc != 0) {
     return -EIO;
-  }
-  if (registered) {
-    CtxScope cu(dev);
-    if (cu.ok()) {
-      p.d.MemHostUnregister(mem);
-    }
   }
   p.d2h_transfers.fetch_add(1, std::memory_order_relaxed);
   p.d2h_bytes.fetch_add(len, std::memory_order_relaxed);
@@ -907,20 +1150,19 @@ int tpu_d2h_raw(TpuBufId id, char** mem_out, size_t* len_out) {
 }
 
 void tpu_buf_free(TpuBufId id) {
-  drain_deferred();
   DeviceBuf* b = ResourcePool<DeviceBuf>::Address((uint32_t)id);
   if (b == nullptr) {
     return;
   }
-  // one freer wins the version bump; the memory goes at the last pin
-  // (usually right here; after a pending copy, at its host function,
-  // deferred to the next entry point)
+  // one freer wins the version bump; the block goes back to the cache at
+  // its last use (usually right here; after a pending copy, at its end)
   uint32_t ver = (uint32_t)(id >> 32);
   uint32_t expected = ver;
   if (!b->version.compare_exchange_strong(expected, ver + 1,
                                           std::memory_order_acq_rel)) {
     return;
   }
+  unuse_buf(b);
   unpin_buf(b);
 }
 
@@ -942,3 +1184,65 @@ TpuPlaneStats tpu_plane_stats() {
 }
 
 }  // namespace trpc
+
+// --- the port's own C entries (beside capi.cc's, which stay as they are) -----
+
+extern "C" {
+
+// h2d from caller memory through a page-locked staging block: the bytes
+// are copied once, into the block, and the DMA reads them from there
+// asynchronously; the block goes back to the pool when the copy's host
+// function runs.  (capi.cc's trpc_tpu_h2d copies into fresh pageable
+// memory, which the driver then copies again before it returns.)  0 on
+// failure, with the reason in trpc_tpu_plane_error.
+uint64_t trpc_cuda_h2d_staged(const uint8_t* data, size_t len, int device) {
+  return trpc::h2d_staged(
+      len, device,
+      [](char* dst, size_t n, const void* src) { memcpy(dst, src, n); },
+      data);
+}
+
+// The pools' counters: out[0..4] the device-buffer caches summed over
+// devices, out[5..9] the page-locked host pool, each as hits, misses,
+// bytes cached, releases (blocks handed back to the driver) and
+// out-of-memory retries.
+void trpc_cuda_pool_stats(uint64_t out[10]) {
+  using trpc::FreeList;
+  trpc::Plane& p = trpc::plane();
+  for (int i = 0; i < 10; ++i) {
+    out[i] = 0;
+  }
+  auto add = [](uint64_t* o, FreeList& f) {
+    o[0] += f.hits.load(std::memory_order_relaxed);
+    o[1] += f.misses.load(std::memory_order_relaxed);
+    {
+      std::lock_guard<std::mutex> lk(f.mu);
+      o[2] += f.cached;
+    }
+    o[3] += f.releases.load(std::memory_order_relaxed);
+    o[4] += f.oom_retries.load(std::memory_order_relaxed);
+  };
+  if (!p.up.load(std::memory_order_acquire)) {
+    return;
+  }
+  for (auto& f : p.dev_cache) {
+    add(out, *f);
+  }
+  add(out + 5, p.host);
+}
+
+// Which ordered device pairs have peer access: out[i * n + j] is 1 when
+// device i's context reaches device j's memory.  Returns n (0 when the
+// plane is down); fills at most `cap` entries.
+int trpc_cuda_peer_access(uint8_t* out, int cap) {
+  trpc::Plane& p = trpc::plane();
+  if (!p.up.load(std::memory_order_acquire)) {
+    return 0;
+  }
+  for (size_t i = 0; i < p.peer.size() && (int)i < cap; ++i) {
+    out[i] = p.peer[i];
+  }
+  return (int)p.devs.size();
+}
+
+}  // extern "C"

@@ -13,6 +13,16 @@
 // threads none: each must still hold its own after every round, as must
 // every freeing thread.  At the end every slot has drained.
 //
+// Then the pools: the same six threads send sizes that share size
+// classes (6000 and 8192 bytes both take an 8 KiB block) through the
+// staged h2d entry and through multi-block IOBufs (the gather, staged
+// too), so every transfer reuses blocks that other threads just handed
+// back.  Frees race the transfers as above, every landing zone is
+// released on another thread than the one that read it, and half the
+// reads hop through the other device first.  The fake aborts if a block
+// is handed out while a copy on it is pending; at the end both pools
+// have served hits and every slot has drained.
+//
 // Built by brpc_tpu_torch._native.build_plane_races() against the core
 // library, or with -fsanitize=address from the core's sources; run with
 // TRPC_CUDA_DRIVER naming libcuda_fake.so:
@@ -34,6 +44,10 @@
 #include "tpu.h"
 
 using namespace trpc;
+
+extern "C" uint64_t trpc_cuda_h2d_staged(const uint8_t* data, size_t len,
+                                         int device);
+extern "C" void trpc_cuda_pool_stats(uint64_t out[10]);
 
 namespace {
 
@@ -179,6 +193,115 @@ void plane_races(const Cu& cu) {
          (unsigned long long)st.errors);
 }
 
+void pool_races(const Cu& cu) {
+  const int kThreads = 6;
+  const int kRounds = 120;
+  const size_t kSizes[] = {4096, 6000, 8192, 65536};
+  uint64_t before[10];
+  trpc_cuda_pool_stats(before);
+  uint64_t gathers = tpu_plane_stats().gather_copies;
+  std::atomic<uint64_t> roundtrips{0}, freed_races{0};
+  std::atomic<int> bad{0}, moved{0};
+  std::vector<std::thread> ts;
+  for (int t = 0; t < kThreads; ++t) {
+    ts.emplace_back([&, t]() {
+      void* mine = t % 2 == 0 ? cu.ctx0 : nullptr;
+      cu.set(mine);
+      for (int i = 0; i < kRounds; ++i) {
+        size_t len = kSizes[(t + i) % 4];
+        std::string payload(len, (char)('a' + (t + i) % 26));
+        int dev = (t + i) % 2;
+        TpuBufId id = 0;
+        if (i % 3 == 2) {  // the gather: an IOBuf of several blocks
+          IOBuf src;
+          for (size_t off = 0; off < len; off += 1000) {
+            IOBuf part;
+            part.append(payload.data() + off,
+                        len - off < 1000 ? len - off : 1000);
+            src.append(std::move(part));
+          }
+          id = tpu_h2d_from_iobuf(src, dev);
+        } else {
+          id = trpc_cuda_h2d_staged((const uint8_t*)payload.data(), len, dev);
+        }
+        if (id == 0) {
+          bad.fetch_add(1);
+          continue;
+        }
+        if (i % 2 == 0) {
+          std::thread killer([id, &cu, &moved]() {
+            tpu_buf_free(id);
+            if (cu.current() != nullptr) {
+              moved.fetch_add(1);
+            }
+          });
+          char* mem = nullptr;
+          size_t n = 0;
+          if (tpu_d2h_raw(id, &mem, &n) == 0) {
+            std::thread([mem]() { tpu_host_free(mem); }).join();
+          }
+          killer.join();
+          tpu_buf_free(id);
+          freed_races.fetch_add(1);
+        } else {
+          TpuBufId read_id = id;
+          TpuBufId hop = 0;
+          if (i % 4 == 1) {
+            hop = tpu_d2d(id, 1 - dev);
+            read_id = hop != 0 ? hop : id;
+            if (hop == 0) {
+              bad.fetch_add(1);
+            }
+          }
+          char* mem = nullptr;
+          size_t n = 0;
+          int rc = tpu_d2h_raw(read_id, &mem, &n);
+          if (rc != 0 || n != len || memcmp(mem, payload.data(), n) != 0) {
+            bad.fetch_add(1);
+          }
+          if (hop != 0) {
+            tpu_buf_free(hop);
+          }
+          tpu_buf_free(id);
+          if (rc == 0) {  // the zone goes back from another thread
+            std::thread([mem]() { tpu_host_free(mem); }).join();
+          }
+          roundtrips.fetch_add(1);
+        }
+        if (cu.current() != mine) {
+          moved.fetch_add(1);
+        }
+      }
+    });
+  }
+  for (auto& t : ts) {
+    t.join();
+  }
+  for (int spin = 0; spin < 200 && tpu_plane_stats().live_buffers != 0;
+       ++spin) {
+    usleep(10000);
+  }
+  uint64_t after[10];
+  trpc_cuda_pool_stats(after);
+  TpuPlaneStats st = tpu_plane_stats();
+  CHECK_TRUE(bad.load() == 0);
+  CHECK_TRUE(moved.load() == 0);
+  CHECK_TRUE(st.live_buffers == 0);
+  CHECK_TRUE(roundtrips.load() == (uint64_t)kThreads * kRounds / 2);
+  CHECK_TRUE(after[0] > before[0]);  // device-cache hits
+  CHECK_TRUE(after[5] > before[5]);  // host-pool hits
+  CHECK_TRUE(st.gather_copies == gathers + (uint64_t)kThreads * kRounds / 3);
+  printf("ok pool_races roundtrips=%llu freed_races=%llu device_hits=%llu "
+         "device_misses=%llu host_hits=%llu host_misses=%llu "
+         "moved_contexts=%d\n",
+         (unsigned long long)roundtrips.load(),
+         (unsigned long long)freed_races.load(),
+         (unsigned long long)(after[0] - before[0]),
+         (unsigned long long)(after[1] - before[1]),
+         (unsigned long long)(after[5] - before[5]),
+         (unsigned long long)(after[6] - before[6]), moved.load());
+}
+
 }  // namespace
 
 int main() {
@@ -196,6 +319,7 @@ int main() {
   }
   CHECK_TRUE(cu.current() == nullptr);  // init left the main thread as is
   plane_races(cu);
+  pool_races(cu);
   if (g_failures == 0) {
     printf("ALL PLANE RACES PASSED\n");
     return 0;

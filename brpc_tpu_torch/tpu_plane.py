@@ -13,6 +13,10 @@ the reference resolve it unchanged):
   copies whose completion (a host function on the copy's stream) stores 1
   into a butex and wakes the waiting fibers: a fiber awaiting a device
   transfer costs no thread.
+* Device buffers come from a cache per device, and host landing zones and
+  h2d staging blocks from a page-locked pool, so a transfer in steady
+  state allocates, frees and page-locks nothing; :func:`pool_stats` counts
+  the pools' hits and misses and says which device pairs have peer access.
 * RPC attachments ride this plane zero-copy: a large attachment lands in
   ONE IOBuf block and that block's memory is the copy source —
   ``stats()["zero_copy_sends"]`` counts the pointer-identity transfers,
@@ -67,9 +71,10 @@ class DeviceBuffer:
     """A byte buffer resident in device memory.  Handle semantics are versioned
     (ABA-safe) like SocketIds; ``free()`` is idempotent.
 
-    Source lifetime is handled natively: the ctypes boundary copies the
-    bytes once and the DMA's release hook frees the copy when the
-    transfer is done — Python object lifetimes never gate the DMA."""
+    Source lifetime is handled natively: :func:`h2d` copies the bytes
+    once, into a page-locked staging block that goes back to the pool
+    when the transfer is done — Python object lifetimes never gate the
+    DMA."""
 
     __slots__ = ("_id", "_len")
 
@@ -94,7 +99,8 @@ class DeviceBuffer:
         raise IOError(f"device transfer failed: rc={rc} ({error()})")
 
     def to_host(self) -> bytes:
-        """Copy the buffer back to host memory."""
+        """Copy the buffer back to host memory (through a page-locked
+        landing zone, handed back to the pool once copied out)."""
         L = lib()
         out = ctypes.POINTER(ctypes.c_uint8)()
         n = L.trpc_tpu_d2h(self._id, ctypes.byref(out))
@@ -117,10 +123,11 @@ class DeviceBuffer:
 
 def h2d(data: bytes, device: int = 0) -> DeviceBuffer:
     """Copy ``data`` into device memory; returns immediately (transfer is async —
-    ``wait()`` parks on the completion butex)."""
+    ``wait()`` parks on the completion butex).  The bytes are copied once,
+    into a page-locked staging block the copy reads from."""
     if not available():
         raise RuntimeError(f"device plane unavailable: {error()}")
-    buf_id = lib().trpc_tpu_h2d(data, len(data), device)
+    buf_id = lib().trpc_cuda_h2d_staged(data, len(data), device)
     if buf_id == 0:
         raise IOError(f"h2d failed: {error()}")
     return DeviceBuffer(buf_id, len(data))
@@ -134,6 +141,29 @@ def stats() -> Dict[str, int]:
             "events_fired", "gather_copies", "zero_copy_sends",
             "live_buffers", "errors", "d2d_transfers", "d2d_bytes")
     return dict(zip(keys, out))
+
+
+POOL_KEYS = ("hits", "misses", "cached_bytes", "releases", "oom_retries")
+
+
+def pool_stats() -> Dict[str, object]:
+    """The plane's pools: ``device`` (the device-buffer caches, summed
+    over devices) and ``host`` (the page-locked landing-zone and staging
+    pool), each with hits and misses (a miss allocates from the driver),
+    the free bytes cached, releases (blocks handed back to the driver:
+    above the cache limit, or to retry an allocation that ran out of
+    memory) and out-of-memory retries; and ``peer_access``, the device
+    pairs [i][j] whose context i reaches device j's memory directly."""
+    L = lib()
+    out = (ctypes.c_uint64 * 10)()
+    L.trpc_cuda_pool_stats(out)
+    n = max(device_count(), 1)
+    peer = (ctypes.c_uint8 * (n * n))()
+    n = L.trpc_cuda_peer_access(peer, n * n)
+    return {"device": dict(zip(POOL_KEYS, out[:5])),
+            "host": dict(zip(POOL_KEYS, out[5:])),
+            "peer_access": [[int(peer[i * n + j]) for j in range(n)]
+                            for i in range(n)]}
 
 
 def plane_uid() -> int:

@@ -21,7 +21,13 @@ printing one JSON line; any failure exits non-zero with no result line:
              256 KiB are byte-equal, live buffers and errors balance;
              torch's current device and the thread's CUDA context are
              the same after init and a round trip, and a thread with no
-             context still has none after one
+             context still has none after one; PLANE_STEADY more rounds
+             at 4 KiB, 1 MiB, 8 MiB and 12345 bytes, each with bytes of
+             its own (two h2d in flight, a d2d whose source is freed
+             under the copy, every h2d -> d2h and d2d result compared),
+             make no miss in either pool (tpu_plane.pool_stats(): no
+             allocation, free or page-locking in the driver), and the
+             line prints the pools' counters and the peer-access matrix
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
              attachment zero-copy
   kernel     decode_attention against its plain PyTorch version at the
@@ -60,6 +66,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              tokens) and one that cancels mid-stream; every full client
              gets 16 tokens below the vocab size, the kernel launched
              steps x n_layers times, the KV and plane accounting balance;
+             the line adds the plane's h2d and d2h over the run (the KV
+             route's blocks) and the KV route's ms per admit (seq_alloc
+             plus seq_fetch);
              then a torch.profiler window over 8 steady decode steps of 4
              more clients (device busy share, top device kernels); then
              one decode step through the kernel agrees with the same
@@ -151,10 +160,15 @@ printing one JSON line; any failure exits non-zero with no result line:
              long_context_ring_torch, finite logits [2, 4096, 256];
              memcache_client_torch) and bench_torch.py --serving-arm
              auto,none --brief (streams completed, no error, balanced);
-             then the plane's h2d, d2h and same-card d2d of 8 MiB (host
-             clock to the completed wait) beside the bound (the PCIe
-             link nvidia-smi reports; 2 x bytes over HBM for d2d) and
-             torch's copy_ through a pinned host tensor and clone(); one
+             then the plane's h2d, d2h and same-card d2d at PLANE_SIZES
+             (4 KiB, 1 MiB, 8 MiB; host clock to the completed wait;
+             across cards too where there are two) beside the bound (the
+             PCIe link; 2 x bytes over HBM for d2d; NVLink one way
+             across cards), torch's copy_ through a pinned host tensor
+             and clone(), and torch doing the plane's own work (bytes
+             in: frombuffer(...).to("cuda"); bytes out:
+             .cpu().numpy().tobytes(); across cards .to("cuda:1")), with
+             the pools' counters around the timed loop (no miss); one
              examples line with each run's seconds and numbers
 
 Before the last line it prints the kernels' JSON line (with the HGMMA
@@ -427,6 +441,32 @@ def _plane_roundtrip(data):
     buf.free()
 
 
+def _salted(n, salt):
+    """n bytes of their own for each salt."""
+    import numpy as np
+    rng = np.random.default_rng(salt)
+    return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+
+
+def _plane_steady_round(r):
+    """One round of the plane phase's steady loop at each of
+    PLANE_STEADY_SIZES, with bytes of this round's own: two h2d in flight
+    at once; a d2d of the first, whose source is freed while the copy may
+    still be pending; the second read back (h2d -> d2h), then the copy
+    (d2d -> d2h).  Every result is compared with its round's bytes."""
+    from brpc_tpu_torch import tpu_plane
+    for n in PLANE_STEADY_SIZES:
+        da, db = _salted(n, 2 * r), _salted(n, 2 * r + 1)
+        a = tpu_plane.h2d(da, device=0)
+        b = tpu_plane.h2d(db, device=0)
+        ca = tpu_plane.d2d(a, 0)
+        a.free()
+        assert b.to_host() == db, f"h2d -> d2h differs: round {r}, {n} B"
+        b.free()
+        assert ca.to_host() == da, f"d2d differs: round {r}, {n} B"
+        ca.free()
+
+
 def phase_plane():
     """The plane's round trips, and the caller's CUDA state left as it
     was: torch's current device and this thread's context after init and
@@ -459,6 +499,18 @@ def phase_plane():
     t.start()
     t.join(60)
     assert not t.is_alive() and bare == [None, None], bare
+    # steady state: a warm round pools every block, then each round moves
+    # bytes of its own, so a block handed out again before its copy landed
+    # reads back another round's bytes
+    _plane_steady_round(0)
+    pools0 = tpu_plane.pool_stats()
+    for r in range(1, PLANE_STEADY + 1):
+        _plane_steady_round(r)
+    pools1 = tpu_plane.pool_stats()
+    steady = _pool_delta(pools0, pools1)
+    for pool in ("device", "host"):
+        assert steady[pool]["misses"] == 0, steady
+        assert steady[pool]["hits"] >= PLANE_STEADY, steady
     s1 = tpu_plane.stats()
     assert s1["live_buffers"] == s0["live_buffers"], (s0, s1)
     assert s1["errors"] == s0["errors"], (s0, s1)
@@ -466,7 +518,23 @@ def phase_plane():
           "device_count": tpu_plane.device_count(), "stats": s1,
           "caller_state_held": {"current_device": device,
                                 "context": True,
-                                "bare_thread_context": None}})
+                                "bare_thread_context": None},
+          "steady_rounds": PLANE_STEADY,
+          "steady_sizes": list(PLANE_STEADY_SIZES), "steady_pools": steady,
+          "pool_stats": pools1})
+
+
+PLANE_STEADY = 50             # rounds of the plane phase's steady loop
+PLANE_STEADY_SIZES = (4 << 10, 1 << 20, 8 << 20, 12345)  # and an odd size
+
+
+def _pool_delta(before, after):
+    """The pools' hits, misses, releases and retries between two
+    tpu_plane.pool_stats() readings, and the bytes cached at the second."""
+    return {pool: {k: after[pool][k] - (0 if k == "cached_bytes"
+                                         else before[pool][k])
+                   for k in after[pool]}
+            for pool in ("device", "host")}
 
 
 def phase_transport():
@@ -2037,10 +2105,10 @@ EXAMPLE_RUNS = (
                      "--brief")),
 )
 EXAMPLE_TIMEOUT_S = 300
-PLANE_BYTES = 8 << 20         # the examples' default size
-PLANE_REPS = 20
+PLANE_SIZES = (4 << 10, 1 << 20, 8 << 20)   # a KV block, 1 MiB, ici's 8 MiB
+PLANE_REPS = 50
 PCIE_GTS = {3: 8e9, 4: 16e9, 5: 32e9, 6: 64e9}   # transfers/s a lane
-
+NVLINK_BYTES_PER_S = 450e9    # H100 SXM NVLink 4, one way
 
 def _example(args):
     """(its last JSON line, its seconds); raises with its output's tail
@@ -2086,8 +2154,6 @@ def _pcie_bytes_per_s():
 
 
 def _median_ms(fn, reps=PLANE_REPS):
-    fn()
-    fn()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -2096,95 +2162,128 @@ def _median_ms(fn, reps=PLANE_REPS):
     return sorted(times)[len(times) // 2]
 
 
-def _driver_ms(n):
-    """Median ms of the driver calls the plane makes per transfer of n
-    bytes, called alone on this thread's (torch's) context: the landing
-    zone's page-locking and its release (each d2h), and a device
-    allocation and its free (each h2d and d2d)."""
-    import ctypes
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuMemHostRegister_v2.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
-                                        ctypes.c_uint]
-    cu.cuMemHostUnregister.argtypes = [ctypes.c_void_p]
-    cu.cuMemAlloc_v2.argtypes = [ctypes.POINTER(ctypes.c_uint64),
-                                 ctypes.c_size_t]
-    cu.cuMemFree_v2.argtypes = [ctypes.c_uint64]
-    host = (ctypes.c_char * n).from_buffer(bytearray(n))
-    ptr = ctypes.addressof(host)
-    dptr = ctypes.c_uint64()
-    out = {}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        rc = fn()
-        out.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        assert rc == 0, f"{name}: CUresult {rc}"
-
-    for _ in range(PLANE_REPS):
-        timed("host_register", lambda: cu.cuMemHostRegister_v2(ptr, n, 1))
-        timed("host_unregister", lambda: cu.cuMemHostUnregister(ptr))
-        timed("mem_alloc", lambda: cu.cuMemAlloc_v2(ctypes.byref(dptr), n))
-        timed("mem_free", lambda: cu.cuMemFree_v2(dptr.value))
-    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
-
-
-def plane_rates():
-    """The plane's h2d, d2h and same-card d2d of PLANE_BYTES, host clock
-    to the completed wait (median of PLANE_REPS), beside the bound (PCIe
-    one way for h2d and d2h, read and write of HBM for d2d) and the
-    library call: torch copy_ from or into a pinned host tensor
-    (non_blocking, then a synchronize) and clone() on the device, timed
-    the same way and on the device alone (CUDA events)."""
-    import torch
+def _plane_ops(data, across):
+    """The plane's transfers of `data`, each to its completed wait and
+    its buffer freed (so a steady loop reuses pooled blocks): h2d, d2h
+    and same-card d2d, and d2d to device 1 when `across`."""
     from brpc_tpu_torch import tpu_plane
-    n = PLANE_BYTES
-    data = bytes(bytearray(range(256)) * (n // 256))
-    keep = []
+    src = tpu_plane.h2d(data, device=0)
+    src.wait()
 
     def h2d():
         b = tpu_plane.h2d(data, device=0)
         b.wait()
-        keep.append(b)
-
-    src = tpu_plane.h2d(data, device=0)
-    src.wait()
-
-    def d2d():
-        b = tpu_plane.d2d(src, 0)
-        b.wait()
-        keep.append(b)
-
-    plane = {"h2d": _median_ms(h2d),
-             "d2h": _median_ms(lambda: src.to_host()),
-             "d2d": _median_ms(d2d)}
-    assert all(b.to_host() == data for b in keep[:2] + keep[-2:])
-    for b in keep + [src]:
         b.free()
+
+    def hop(dev):
+        def call():
+            b = tpu_plane.d2d(src, dev)
+            b.wait()
+            b.free()
+        return call
+
+    ops = {"h2d": h2d, "d2h": lambda: src.to_host(), "d2d": hop(0)}
+    if across:
+        ops["d2d_across"] = hop(1)
+    return src, ops
+
+
+def _torch_ops(data, across):
+    """torch's yardsticks for the same sizes: `library`, one copy through
+    a pinned host tensor or on the device (copy_, clone, to); `same_work`,
+    torch doing what the plane does: bytes in, bytes out, a copy to the
+    other card.  Each synchronizes before it returns."""
+    import torch
+    n = len(data)
     pinned = torch.empty(n, dtype=torch.uint8, pin_memory=True)
     pinned.copy_(torch.frombuffer(bytearray(data), dtype=torch.uint8))
-    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
-    calls = {"h2d": lambda: dev.copy_(pinned, non_blocking=True),
-             "d2h": lambda: pinned.copy_(dev, non_blocking=True),
-             "d2d": lambda: dev.clone()}
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda:0")
 
     def synced(fn):
         def call():
             fn()
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(0)
         return call
 
-    library = {k: _median_ms(synced(f)) for k, f in calls.items()}
-    driver = _driver_ms(n)
-    library_device = {k: cuda_ms(f, PLANE_REPS) for k, f in calls.items()}
+    library = {"h2d": lambda: dev.copy_(pinned, non_blocking=True),
+               "d2h": lambda: pinned.copy_(dev, non_blocking=True),
+               "d2d": lambda: dev.clone()}
+    same = {"h2d": lambda: torch.frombuffer(bytearray(data),
+                                            dtype=torch.uint8).to("cuda:0"),
+            "d2h": lambda: dev.cpu().numpy().tobytes(),
+            "d2d": lambda: dev.clone()}
+    if across:
+        def to1():
+            dev.to("cuda:1")
+            torch.cuda.synchronize(1)
+        library["d2d_across"] = same["d2d_across"] = to1
+    device_ms = {k: cuda_ms(f, PLANE_REPS) for k, f in library.items()
+                 if k != "d2d_across"}
+    return ({k: synced(f) for k, f in library.items()},
+            {k: synced(f) for k, f in same.items()}, device_ms)
+
+
+def plane_rates():
+    """The plane's h2d, d2h and same-card d2d at each of PLANE_SIZES (and
+    a d2d to device 1 where there are two), host clock to the completed
+    wait (median of PLANE_REPS), beside the bound (PCIe one way for h2d
+    and d2h, read and write of HBM for d2d, NVLink one way across cards)
+    and torch's two yardsticks (_torch_ops), timed the same way; the
+    library copies also on the device alone (CUDA events).  Every
+    operation is warmed once first; after the timed loop each size moves
+    bytes of its own through the reused blocks (h2d -> d2h, d2d), and
+    they must compare equal; the pools' counters around both must show
+    no miss (a steady state allocates nothing)."""
+    import torch
+    from brpc_tpu_torch import tpu_plane
+    across = tpu_plane.device_count() > 1 and torch.cuda.device_count() > 1
     link, link_name = _pcie_bytes_per_s()
-    bound = {"h2d": n / link * 1e3, "d2h": n / link * 1e3,
-             "d2d": 2 * n / HBM_BYTES_PER_S * 1e3}
-    return {"bytes": n, "ms": plane, "library_ms": library,
+    cases = []
+    for n in PLANE_SIZES:
+        data = bytes(bytearray(range(256)) * (n // 256))
+        src, ops = _plane_ops(data, across)
+        back = tpu_plane.d2d(src, 1 if across else 0)
+        equal = src.to_host() == data and back.to_host() == data
+        back.free()
+        assert equal, f"plane bytes differ at {n} bytes"
+        library, same, library_device = _torch_ops(data, across)
+        cases.append((n, src, ops, library, same, library_device))
+        for fn in (*ops.values(), *library.values(), *same.values()):
+            fn()                                    # warm every route
+    pools0 = tpu_plane.pool_stats()
+    out = {}
+    for n, src, ops, library, same, library_device in cases:
+        plane = {k: _median_ms(f) for k, f in ops.items()}
+        bound = {"h2d": n / link * 1e3, "d2h": n / link * 1e3,
+                 "d2d": 2 * n / HBM_BYTES_PER_S * 1e3}
+        if across:
+            bound["d2d_across"] = n / NVLINK_BYTES_PER_S * 1e3
+        out[str(n)] = {
+            "ms": plane,
+            "library_ms": {k: _median_ms(f) for k, f in library.items()},
+            "same_work_ms": {k: _median_ms(f) for k, f in same.items()},
             "library_device_ms": library_device, "bound_ms": bound,
-            "driver_ms": driver,
             "gbps": {k: n / ms / 1e6 for k, ms in plane.items()},
-            "library_gbps": {k: n / ms / 1e6 for k, ms in library.items()},
-            "pcie": link_name}
+            "bytes_equal": True}
+    for i, (n, src, *_) in enumerate(cases):
+        # the blocks the timed loop reused, checked with fresh bytes
+        src.free()
+        fresh = _salted(n, 1000 + i)
+        b = tpu_plane.h2d(fresh, device=0)
+        assert b.to_host() == fresh, f"plane h2d -> d2h differs at {n} B"
+        for dev in (0, 1) if across else (0,):
+            c = tpu_plane.d2d(b, dev)
+            assert c.to_host() == fresh, f"plane d2d differs at {n} B"
+            c.free()
+        b.free()
+    pools1 = tpu_plane.pool_stats()
+    steady = _pool_delta(pools0, pools1)
+    for pool in ("device", "host"):
+        assert steady[pool]["misses"] == 0, steady
+    return {"sizes": out, "steady_pools": steady,
+            "peer_access": pools1["peer_access"], "pcie": link_name,
+            "nvlink": "H100 SXM NVLink 4, 450 GB/s one way" if across
+            else None}
 
 
 def phase_examples(smi):
@@ -2238,7 +2337,7 @@ def phase_examples(smi):
         "serving_arm": {k: arm[k] for k in (
             "mesh", "completed", "tokens_per_s", "ttft_p50_us",
             "gap_p50_us", "rail_local", "rail_host")},
-        "plane_8MiB": rates,
+        "plane": rates,
         "phase_s": time.monotonic() - t0}
     emit(line)
     return line
@@ -2449,7 +2548,11 @@ def phase_serving():
     cfg = ModelConfig()
     live0 = tpu_plane.stats()["live_buffers"]
     engine, server, addr = _serve(cfg, None)
+    kv_ms = _time_kv_route(engine.kv)
+    plane0 = tpu_plane.stats()
     results, ops, wall = _concurrent(engine, addr)
+    plane1 = tpu_plane.stats()
+    kv_run = {k: list(v) for k, v in kv_ms.items()}   # this run's admits
     launches = ops["decode_attention"]
     prefill_launches = ops["causal_attention_forward"]
     steps = ops["step"]
@@ -2520,10 +2623,37 @@ def phase_serving():
           "prefill_logits_max_abs_err": prefill_err,
           "prefills": stats["prefills"], "canceled": stats["canceled"],
           "kv_blocks_allocs": stats["kv_pool_allocs"],
+          "kv_route": {
+              "plane_h2d": plane1["h2d_transfers"] - plane0["h2d_transfers"],
+              "plane_d2h": plane1["d2h_transfers"] - plane0["d2h_transfers"],
+              "block_bytes": engine.kv.block_bytes,
+              "admits": len(kv_run["seq_alloc"]),
+              "ms_per_admit": (sum(kv_run["seq_alloc"])
+                               + sum(kv_run["seq_fetch"]))
+              / max(1, len(kv_run["seq_alloc"])),
+              "seq_alloc_ms_p50": _p50(kv_run["seq_alloc"]),
+              "seq_fetch_ms_p50": _p50(kv_run["seq_fetch"])},
           "step_logits_max_abs_err": step_err})
     assert prefill_launches > 0 and prefill_launches % cfg.n_layers == 0, \
         prefill_launches
     return launches, prefill_launches
+
+
+def _time_kv_route(kv):
+    """Time each seq_alloc and seq_fetch of the engine's KV block plane
+    from now on (host clock, ms): {method: [ms, ...]}."""
+    times = {"seq_alloc": [], "seq_fetch": []}
+    for name in times:
+        inner = getattr(kv, name)
+
+        def timed(*args, _inner=inner, _name=name):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*args)
+            finally:
+                times[_name].append((time.perf_counter() - t0) * 1e3)
+        setattr(kv, name, timed)
+    return times
 
 
 def _profile_decode(engine, addr):
