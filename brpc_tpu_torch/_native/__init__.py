@@ -816,6 +816,8 @@ def _declare(L: ctypes.CDLL) -> None:
     L.trpc_cuda_h2d_staged.restype = c.c_uint64
     L.trpc_cuda_pool_stats.argtypes = [c.POINTER(c.c_uint64)]
     L.trpc_cuda_pool_stats.restype = None
+    L.trpc_cuda_slot_stats.argtypes = [c.POINTER(c.c_uint64)]
+    L.trpc_cuda_slot_stats.restype = None
     L.trpc_cuda_peer_access.argtypes = [c.POINTER(c.c_uint8), c.c_int]
     L.trpc_cuda_peer_access.restype = c.c_int
     L.trpc_stream_write_device.argtypes = [c.c_uint64, c.c_uint64,

@@ -103,10 +103,6 @@
 
 namespace {
 
-struct Layout {  // q, k, v, dO
-  Strides t[4];
-};
-
 template <int HD>
 constexpr int smem_bytes() {  // Q, two stages of K and of V, p
   return (5 * Stage<HD>::kFloats + kTile * kLdP) * (int)sizeof(float);
@@ -550,14 +546,6 @@ int bwd_dq(const float* q, const float* k, const float* v, const float* dout,
   causal_dq_f32_kernel<HD><<<dim3(B * H, tiles), kThreads, bytes, stream>>>(
       q, k, v, dout, lse, dq, delta, lay, S, H, sqrt_hd);
   return (int)cudaGetLastError();
-}
-
-Layout layout_of(const long long* strides, int n) {
-  Layout lay{};
-  for (int i = 0; i < n; ++i) {
-    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  }
-  return lay;
 }
 
 }  // namespace

@@ -18,6 +18,9 @@
 //   TRPC_FAKE_CUDA_DROP_D2H_EVENT=1   the next d2h copy never happens and
 //                             its host function never runs
 //   TRPC_FAKE_CUDA_NO_PEER=1  cuDeviceCanAccessPeer says no for every pair
+//   TRPC_FAKE_CUDA_NO_HOST_REGISTER=1   cuMemHostRegister_v2 refuses every
+//                             range (CUDA_ERROR_NOT_PERMITTED), as a driver
+//                             that may not page-lock that memory
 //
 // Besides, for the tests (through ctypes on the same library):
 //   trpc_fake_cuda_calls(name)          how often entry point `name` was
@@ -31,10 +34,15 @@
 // otherwise not see, and aborts the process when one is broken: a host
 // function may make no CUDA call (any entry point called on the
 // completion thread); device memory or page-locked host memory must not
-// be freed while a queued copy still uses it; and a device block may not
-// be written, nor a page-locked host block used at all, by a new copy
+// be freed (nor a registered range unregistered) while a queued copy
+// still uses it; and a device block may not be written, nor a
+// page-locked host block or registered range used at all, by a new copy
 // while an earlier copy on it is still pending (a pool that hands a
-// block out again too early).
+// block out again too early).  Registration is kept as the driver keeps
+// it: cuMemHostRegister_v2 records its range and returns
+// CUDA_ERROR_HOST_MEMORY_ALREADY_REGISTERED on an overlap with one it
+// holds, and cuMemHostUnregister of a base it does not hold returns
+// CUDA_ERROR_HOST_MEMORY_NOT_REGISTERED.
 //
 // Not a CUDA implementation: no kernels, no modules, no events.
 
@@ -49,6 +57,7 @@
 #include <cstdint>
 #include <deque>
 #include <functional>
+#include <iterator>
 #include <map>
 #include <mutex>
 #include <string>
@@ -65,6 +74,9 @@ constexpr CUresult kOk = 0;
 constexpr CUresult kInvalidValue = 1;
 constexpr CUresult kOutOfMemory = 2;
 constexpr CUresult kPeerAlreadyEnabled = 704;
+constexpr CUresult kHostAlreadyRegistered = 712;
+constexpr CUresult kHostNotRegistered = 713;
+constexpr CUresult kNotPermitted = 800;
 constexpr CUresult kInvalidContext = 201;
 constexpr CUresult kInjected = 999;
 
@@ -115,6 +127,11 @@ std::map<CUdeviceptr, Alloc>& allocs() {
 }
 // page-locked host blocks from cuMemHostAlloc, by address
 std::map<CUdeviceptr, Alloc>& host_allocs() {
+  static std::map<CUdeviceptr, Alloc>* m = new std::map<CUdeviceptr, Alloc>();
+  return *m;
+}
+// host ranges registered with cuMemHostRegister_v2, by base
+std::map<CUdeviceptr, Alloc>& registered() {
   static std::map<CUdeviceptr, Alloc>* m = new std::map<CUdeviceptr, Alloc>();
   return *m;
 }
@@ -259,6 +276,9 @@ CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
     }
     if (host != nullptr) {
       pinned = find_in(host_allocs(), (CUdeviceptr)host, n);
+      if (pinned == nullptr) {
+        pinned = find_in(registered(), (CUdeviceptr)host, n);
+      }
       if (pinned != nullptr && pinned->pending != 0) {
         broken("a page-locked host block reused while a copy on it is "
                "pending");
@@ -271,15 +291,14 @@ CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
       pinned->pending++;
     }
   }
-  bool tracked = pinned != nullptr;
-  schedule([s, dst, src, n, dev_ptrs, host, tracked, fail_async]() {
+  schedule([s, dst, src, n, dev_ptrs, pinned, fail_async]() {
     memcpy(dst, src, n);
     std::lock_guard<std::mutex> lk(mu());
     for (CUdeviceptr p : dev_ptrs) {
       find_alloc(p, n)->pending--;
     }
-    if (tracked) {
-      find_in(host_allocs(), (CUdeviceptr)host, n)->pending--;
+    if (pinned != nullptr) {  // (no pending entry is ever erased)
+      pinned->pending--;
     }
     if (fail_async) {
       s->async_err = kInjected;
@@ -498,13 +517,36 @@ CUresult cuMemcpyPeerAsync(CUdeviceptr dst, void* dst_ctx, CUdeviceptr src,
                     {dst, src}, true, nullptr, false);
 }
 
-CUresult cuMemHostRegister_v2(void*, size_t, unsigned) {
+CUresult cuMemHostRegister_v2(void* p, size_t n, unsigned) {
   guard("cuMemHostRegister_v2");
+  if (p == nullptr || n == 0) {
+    return kInvalidValue;
+  }
+  if (env_i64("TRPC_FAKE_CUDA_NO_HOST_REGISTER", 0) != 0) {
+    return kNotPermitted;
+  }
+  const CUdeviceptr base = (CUdeviceptr)p;
+  std::lock_guard<std::mutex> lk(mu());
+  auto it = registered().lower_bound(base + n);  // the first at or past the end
+  if (it != registered().begin() &&
+      std::prev(it)->first + std::prev(it)->second.len > base) {
+    return kHostAlreadyRegistered;
+  }
+  registered()[base] = Alloc{n, 0};
   return kOk;
 }
 
-CUresult cuMemHostUnregister(void*) {
+CUresult cuMemHostUnregister(void* p) {
   guard("cuMemHostUnregister");
+  std::lock_guard<std::mutex> lk(mu());
+  auto it = registered().find((CUdeviceptr)p);
+  if (it == registered().end()) {
+    return kHostNotRegistered;
+  }
+  if (it->second.pending != 0) {
+    broken("cuMemHostUnregister under a pending copy");
+  }
+  registered().erase(it);
   return kOk;
 }
 
@@ -539,6 +581,15 @@ CUresult cuGetErrorString(CUresult rc, const char** out) {
       break;
     case kInvalidContext:
       *out = "invalid device context";
+      break;
+    case kHostAlreadyRegistered:
+      *out = "part or all of the requested memory range is already mapped";
+      break;
+    case kHostNotRegistered:
+      *out = "pointer does not correspond to a registered memory region";
+      break;
+    case kNotPermitted:
+      *out = "operation not permitted";
       break;
     case kInjected:
       *out = "injected failure (fake CUDA driver)";

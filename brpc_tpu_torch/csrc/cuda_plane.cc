@@ -19,9 +19,12 @@
 //   ready / done events    -> one cuLaunchHostFunc after the copy: the
 //                             source is released, 1 stored into the
 //                             butex, waiters woken, the pin dropped
-//   ToHostBuffer           -> cuMemcpyDtoHAsync_v2 into a landing zone
-//                             from the page-locked pool (cuMemHostAlloc,
-//                             PORTABLE, only on a miss)
+//   ToHostBuffer           -> cuMemcpyDtoHAsync_v2 into a landing zone:
+//                             an io_uring registered slot when the ring
+//                             has one free and the zone fits it (as
+//                             tpu.cc's zc_host_alloc), else a block of the
+//                             page-locked pool (cuMemHostAlloc, PORTABLE,
+//                             only on a miss)
 //   CopyToDevice           -> cuMemcpyDtoDAsync_v2 on one device and
 //                             between peers, cuMemcpyPeerAsync across
 //                             devices the driver gives no peer access
@@ -46,6 +49,20 @@
 //     IOBuf deleter of tpu_d2h_into_iobuf and trpc_tpu_buf_release both
 //     end there), so a zone is reused once the socket sent it or Python
 //     copied it out.  PORTABLE is paid once per block, not once a d2h.
+//   * io_uring's registered slots (uring_zc_alloc: with the ring
+//     transport up, a few fixed-size slots registered with the ring as
+//     fixed buffers) come first for a d2h zone, as in tpu.cc: the zone
+//     becomes an IOBuf block that leaves the host as a fixed-buffer
+//     SEND_ZC.  A slot is page-locked with the driver once, on its first
+//     use (cuMemHostRegister_v2, PORTABLE, over its whole extent, probed
+//     with uring_zc_buf_index), and stays so; tpu_host_free hands it back
+//     to the ring (uring_zc_free) before it tries the pool.  A slot the
+//     driver refuses, or one outside the ring's fixed-buffer table (then
+//     it gives a zone nothing the pool does not), goes back to the ring
+//     and is never tried again: its zones come from the pool, with no
+//     driver call per transfer.  The slots stay registered for the life
+//     of the process, as the pool's blocks stay allocated: the plane has
+//     no teardown.
 //   Handing a block back is a push onto a list, not a CUDA call, so a
 //   host function does it directly.  A device block goes back once its
 //   owner freed it and every copy on it has completed (DeviceBuf::users:
@@ -100,6 +117,7 @@
 #include "fiber.h"
 #include "heap_profiler.h"
 #include "object_pool.h"
+#include "uring.h"
 
 namespace trpc {
 
@@ -141,6 +159,7 @@ constexpr CUresult CUDA_ERROR_NOT_READY = 600;
 constexpr CUresult CUDA_ERROR_PEER_ACCESS_ALREADY_ENABLED = 704;
 constexpr unsigned CU_STREAM_NON_BLOCKING = 1;
 constexpr unsigned CU_MEMHOSTALLOC_PORTABLE = 1;
+constexpr unsigned CU_MEMHOSTREGISTER_PORTABLE = 1;
 
 // Size classes and the pools' limits (see the header comment).
 constexpr size_t kMinClass = 4096;
@@ -174,6 +193,7 @@ struct Driver {
   CUresult (*MemFree)(CUdeviceptr);
   CUresult (*MemHostAlloc)(void**, size_t, unsigned);
   CUresult (*MemFreeHost)(void*);
+  CUresult (*MemHostRegister)(void*, size_t, unsigned);
   CUresult (*MemcpyHtoDAsync)(CUdeviceptr, const void*, size_t, CUstream);
   CUresult (*MemcpyDtoHAsync)(void*, CUdeviceptr, size_t, CUstream);
   CUresult (*MemcpyDtoDAsync)(CUdeviceptr, CUdeviceptr, size_t, CUstream);
@@ -261,6 +281,10 @@ struct Plane {
   std::vector<std::unique_ptr<FreeList>> dev_cache;  // one per device
   FreeList host;
   std::unordered_map<void*, size_t> host_blocks;  // every pool block, under host.mu
+  // io_uring slots the plane has tried, by base: the extent page-locked
+  // with the driver, 0 when refused (never tried again)
+  std::mutex slot_mu;
+  std::unordered_map<void*, size_t> slots;
 
   std::atomic<uint64_t> h2d_transfers{0}, d2h_transfers{0};
   std::atomic<uint64_t> h2d_bytes{0}, d2h_bytes{0};
@@ -464,6 +488,68 @@ bool host_release(void* mem) {
   return true;
 }
 
+// --- io_uring's registered slots ---------------------------------------------
+
+// The bytes of the ring's slot at `s` (its base, from uring_zc_alloc),
+// which holds at least `len`: the longest range from s that
+// uring_zc_buf_index places in one registered buffer; 0 when the slot is
+// not in the ring's fixed-buffer table.
+size_t slot_extent(const char* s, size_t len) {
+  if (uring_zc_buf_index(s, len) < 0) {
+    return 0;
+  }
+  size_t fits = len;  // a range that fits, then one that does not
+  size_t over = len;
+  do {
+    fits = over;
+    over *= 2;
+  } while (uring_zc_buf_index(s, over) >= 0);
+  while (over - fits > 1) {
+    const size_t mid = fits + (over - fits) / 2;
+    if (uring_zc_buf_index(s, mid) >= 0) {
+      fits = mid;
+    } else {
+      over = mid;
+    }
+  }
+  return fits;
+}
+
+// Whether slot `s` may be a zone of `len` bytes: page-locked with the
+// driver, which happens on its first use (a context of the plane
+// current; never inside a host function).
+bool slot_ready(char* s, size_t len) {
+  Plane& p = plane();
+  std::lock_guard<std::mutex> lk(p.slot_mu);
+  auto it = p.slots.find(s);
+  if (it == p.slots.end()) {
+    size_t extent = slot_extent(s, len);
+    if (extent != 0 && p.d.MemHostRegister(
+                           s, extent, CU_MEMHOSTREGISTER_PORTABLE) !=
+                           CUDA_SUCCESS) {
+      extent = 0;
+    }
+    it = p.slots.emplace(s, extent).first;
+  }
+  return it->second >= len;
+}
+
+// A d2h landing zone of `len` bytes into *out: a slot of the ring when
+// one is free, fits and is page-locked, else a page-locked pool block; a
+// context of the plane must be current.  0, or -EIO with the reason
+// recorded.
+int zone_alloc(size_t len, char** out) {
+  char* s = (char*)uring_zc_alloc(len);
+  if (s != nullptr) {
+    if (slot_ready(s, len)) {
+      *out = s;
+      return 0;
+    }
+    uring_zc_free(s);
+  }
+  return host_alloc(len, out, "d2h: cuMemHostAlloc");
+}
+
 // --- device buffers ----------------------------------------------------------
 
 struct DeviceBuf {
@@ -644,8 +730,10 @@ void fail_unarmed(DeviceBuf* b, CUresult rc) {
 
 }  // namespace
 
+// A ring slot back to the ring, a pool block back to the pool, anything
+// else to the heap: pushes, so a host function may call it.
 void tpu_host_free(void* p) {
-  if (p != nullptr && !host_release(p)) {
+  if (p != nullptr && !uring_zc_free(p) && !host_release(p)) {
     hp_free(p);
   }
 }
@@ -692,6 +780,7 @@ int tpu_plane_init(const char* driver_path) {
       {"cuMemFree_v2", (void**)&d.MemFree},
       {"cuMemHostAlloc", (void**)&d.MemHostAlloc},
       {"cuMemFreeHost", (void**)&d.MemFreeHost},
+      {"cuMemHostRegister_v2", (void**)&d.MemHostRegister},
       {"cuMemcpyHtoDAsync_v2", (void**)&d.MemcpyHtoDAsync},
       {"cuMemcpyDtoHAsync_v2", (void**)&d.MemcpyDtoHAsync},
       {"cuMemcpyDtoDAsync_v2", (void**)&d.MemcpyDtoDAsync},
@@ -1029,9 +1118,7 @@ struct D2hCtx {
 
   static void Drop(D2hCtx* c) {
     if (c->refs.fetch_sub(1, std::memory_order_acq_rel) == 1) {
-      if (c->mem != nullptr) {
-        host_release(c->mem);
-      }
+      tpu_host_free(c->mem);
       butex_destroy(c->done);
       delete c;
     }
@@ -1066,7 +1153,7 @@ int tpu_d2h_alloc(TpuBufId id, char** mem_out, size_t* len_out) {
     // the device's context for the enqueue alone: the wait below may
     // resume this fiber on another thread
     CtxScope cu(dev);
-    if (!cu.ok() || host_alloc(len, &ctx->mem, "d2h: cuMemHostAlloc") != 0) {
+    if (!cu.ok() || zone_alloc(len, &ctx->mem) != 0) {
       ctx->refs.store(1, std::memory_order_relaxed);
       D2hCtx::Drop(ctx);
       unuse_buf(b);
@@ -1229,6 +1316,18 @@ void trpc_cuda_pool_stats(uint64_t out[10]) {
     add(out, *f);
   }
   add(out + 5, p.host);
+}
+
+// io_uring's slots the plane has tried as d2h zones: out[0] page-locked
+// with the driver (each once, on its first use), out[1] refused (never
+// tried again).  Both only grow, and only on a slot's first use.
+void trpc_cuda_slot_stats(uint64_t out[2]) {
+  trpc::Plane& p = trpc::plane();
+  out[0] = out[1] = 0;
+  std::lock_guard<std::mutex> lk(p.slot_mu);
+  for (const auto& slot : p.slots) {
+    ++out[slot.second != 0 ? 0 : 1];
+  }
 }
 
 // Which ordered device pairs have peer access: out[i * n + j] is 1 when

@@ -76,6 +76,20 @@ struct Strides {
   long long b, s, h;
 };
 
+// The strides of q, k, v (and dO), in that order.
+struct Layout {
+  Strides t[4];
+};
+
+// A Layout from a C entry's (b, s, h) strides of n tensors.
+inline Layout layout_of(const long long* strides, int n) {
+  Layout lay{};
+  for (int i = 0; i < n; ++i) {
+    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  }
+  return lay;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }

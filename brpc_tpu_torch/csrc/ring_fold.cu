@@ -42,9 +42,10 @@
 // from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
 // and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu, and
 // every f32 launch at those head dims to the CUDA-core kernels of
-// ring_fold_f32.cu; this file's kernels are built at hd 8 alone (the
-// reference tests' own head dim), in both dtypes, and its C entries
-// dispatch.
+// ring_fold_f32.cu; the bf16 forward and dk/dv at hd 8 go to the
+// tensor-core kernels of ring_fold_hd8.cu.  This file's kernels are built
+// at hd 8 alone (the reference tests' own head dim): the forward and
+// dk/dv in f32, dq in both dtypes; its C entries dispatch.
 //
 // Design:
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
@@ -658,6 +659,18 @@ extern "C" int trpc_ring_fold_bwd_dkdv_f32(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int hd,
     int q_off, int k_off, int causal, float scale, void* stream);
+// The tensor-core kernels at hd 8 (ring_fold_hd8.cu), for bf16.
+extern "C" int trpc_ring_fold_fwd_hd8(const void* q, const void* k,
+                                      const void* v, void* m, void* l,
+                                      void* o, const long long* strides,
+                                      int B, int Cq, int Ck, int H,
+                                      int q_off, int k_off, int causal,
+                                      float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dkdv_hd8(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int Cq, int Ck, int H, int q_off,
+    int k_off, int causal, float scale, void* stream);
 
 // The C entries.  dtype: 0 = bf16, 1 = f32; hd: 8, 16, 64 or 128.
 // strides: (b, s, h) element strides of q, k, v (and dO for the
@@ -671,7 +684,8 @@ extern "C" int trpc_ring_fold_bwd_dkdv_f32(
 // any other); where the driver refuses the tensor map of input i (0 q,
 // 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  Each
 // takes f32 at those head dims to the CUDA-core kernels, whose 16-byte
-// cp.async copies need the same alignment of q, k, v (and dO).
+// cp.async copies need the same alignment of q, k, v (and dO); so do
+// the forward's and dk/dv's bf16 kernels at hd 8 (one cp.async a row).
 
 static bool wide_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
@@ -679,16 +693,19 @@ static bool tensor_cores(int dtype, int hd) {
   return dtype == 0 && wide_hd(hd);
 }
 
-// return the SIMT FN<T, 8>(...) over the dtype: every other head dim the
-// kernels take went to ring_fold_sm90.cu or ring_fold_f32.cu
+// return the SIMT FN<float, 8>(...): every other case the kernels take
+// went to ring_fold_sm90.cu, ring_fold_f32.cu or ring_fold_hd8.cu
+#define TRPC_RF_F32(FN, ...)          \
+  if (hd == 8 && dtype == 1) {        \
+    return FN<float, 8>(__VA_ARGS__); \
+  }                                   \
+  return (int)cudaErrorInvalidValue;
+// the same over both dtypes (dq: bf16 at hd 8 is SIMT too)
 #define TRPC_RF(FN, ...)                      \
   if (hd == 8 && dtype == 0) {                \
     return FN<__nv_bfloat16, 8>(__VA_ARGS__); \
   }                                           \
-  if (hd == 8 && dtype == 1) {                \
-    return FN<float, 8>(__VA_ARGS__);         \
-  }                                           \
-  return (int)cudaErrorInvalidValue;
+  TRPC_RF_F32(FN, __VA_ARGS__)
 
 extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
                                   const void* v, void* m, void* l, void* o,
@@ -707,11 +724,15 @@ extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
     return trpc_ring_fold_fwd_f32(q, k, v, m, l, o, strides, B, Cq, Ck, H,
                                   hd, q_off, k_off, causal, scale, stream);
   }
+  if (dtype == 0 && hd == 8) {
+    return trpc_ring_fold_fwd_hd8(q, k, v, m, l, o, strides, B, Cq, Ck, H,
+                                  q_off, k_off, causal, scale, stream);
+  }
   const Layout lay = layout_of(strides, 3);
   const Pos pos{q_off, k_off, causal, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_RF(fwd, q, k, v, (float*)m, (float*)l, (float*)o, lay, B, Cq, Ck, H,
-          pos, st);
+  TRPC_RF_F32(fwd, q, k, v, (float*)m, (float*)l, (float*)o, lay, B, Cq, Ck,
+              H, pos, st);
 }
 
 extern "C" int trpc_ring_fold_bwd_dq(const void* q, const void* k,
@@ -763,9 +784,14 @@ extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
                                        strides, B, Cq, Ck, H, hd, q_off,
                                        k_off, causal, scale, stream);
   }
+  if (dtype == 0 && hd == 8) {
+    return trpc_ring_fold_bwd_dkdv_hd8(q, k, v, dout, lse, delta, dk, dv,
+                                       strides, B, Cq, Ck, H, q_off, k_off,
+                                       causal, scale, stream);
+  }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_RF(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta,
+  TRPC_RF_F32(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta,
           (float*)dk, (float*)dv, lay, B, Cq, Ck, H, pos, st);
 }

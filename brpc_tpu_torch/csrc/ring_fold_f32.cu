@@ -110,18 +110,6 @@
 
 namespace {
 
-struct Layout {  // q, k, v (and dO)
-  Strides t[4];
-};
-
-Layout layout_of(const long long* strides, int n) {
-  Layout lay{};
-  for (int i = 0; i < n; ++i) {
-    lay.t[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  }
-  return lay;
-}
-
 template <int HD>
 constexpr int fwd_smem_bytes() {  // Q, two stages of K and of V, p
   return (5 * Stage<HD>::kFloats + kTile * kLdP) * (int)sizeof(float);
@@ -160,8 +148,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ra + 16 * i;
     const bool valid = row < Cq;
     m_run[i] = valid ? m[bh + row] : kNeg;
-    degen |= valid && degenerate(m_run[i]) && pos.causal &&
-             pos.q_off + row < pos.k_off;
+    degen |= valid && unseen_degenerate(pos, row, m_run[i]);
   }
   degen = __syncthreads_or(degen);
   // the key tiles visited: masked tiles come last (their keys are the

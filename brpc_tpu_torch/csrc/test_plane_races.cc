@@ -23,6 +23,17 @@
 // is handed out while a copy on it is pending; at the end both pools
 // have served hits and every slot has drained.
 //
+// Then io_uring's registered slots, where the kernel takes io_uring: with
+// the ring transport on, the same six threads read buffers of sizes that
+// fit a slot (64 KiB and 1 MiB) back, so the d2h zones come from the
+// ring's slots (page-locked with the driver on their first use, under
+// the plane's slot table) while they last and from the pool when every
+// slot is out; each zone goes back on another thread, while other
+// threads take slots.  The fake holds a registered slot to the
+// pending-copy rule, so a slot handed out again under its copy aborts;
+// at the end every slot is back in the ring, each was registered once
+// at most, and every buffer has drained.
+//
 // Built by brpc_tpu_torch._native.build_plane_races() against the core
 // library, or with -fsanitize=address from the core's sources; run with
 // TRPC_CUDA_DRIVER naming libcuda_fake.so:
@@ -42,6 +53,7 @@
 #include "fiber.h"
 #include "iobuf.h"
 #include "tpu.h"
+#include "uring.h"
 
 using namespace trpc;
 
@@ -64,12 +76,14 @@ typedef int (*CtxGetFn)(void**);
 typedef int (*CtxSetFn)(void*);
 typedef int (*InitFn)(unsigned);
 typedef int (*RetainFn)(void**, int);
+typedef unsigned long long (*CallsFn)(const char*);
 
 // The driver the plane binds, opened again: the same library, so the
 // same per-thread current context.
 struct Cu {
   CtxGetFn get = nullptr;
   CtxSetFn set = nullptr;
+  CallsFn calls = nullptr;  // the fake's count of an entry point's calls
   void* ctx0 = nullptr;  // device 0's primary context
 
   void* current() const {
@@ -93,7 +107,8 @@ bool open_driver(Cu* cu) {
   cu->set = (CtxSetFn)dlsym(dso, "cuCtxSetCurrent");
   InitFn init = (InitFn)dlsym(dso, "cuInit");
   RetainFn retain = (RetainFn)dlsym(dso, "cuDevicePrimaryCtxRetain");
-  return cu->get != nullptr && cu->set != nullptr && init != nullptr &&
+  cu->calls = (CallsFn)dlsym(dso, "trpc_fake_cuda_calls");
+  return cu->get != nullptr && cu->calls != nullptr && cu->set != nullptr && init != nullptr &&
          retain != nullptr && init(0) == 0 && retain(&cu->ctx0, 0) == 0;
 }
 
@@ -302,6 +317,76 @@ void pool_races(const Cu& cu) {
          (unsigned long long)(after[6] - before[6]), moved.load());
 }
 
+void slot_races(const Cu& cu) {
+  if (!uring_available()) {
+    printf("skip slot_races: the kernel refuses io_uring\n");
+    return;
+  }
+  uring_set_enabled(true);
+  if (!uring_enabled()) {
+    printf("skip slot_races: the ring engine did not come up\n");
+    return;
+  }
+  const int kThreads = 6;
+  const int kRounds = 40;
+  const size_t kSizes[] = {65536, 1u << 20};
+  int64_t slots = 0, in_use = 0;
+  uring_zc_pool_stats(&slots, &in_use);
+  std::atomic<uint64_t> roundtrips{0};
+  std::atomic<int> bad{0}, moved{0};
+  std::vector<std::thread> ts;
+  for (int t = 0; t < kThreads; ++t) {
+    ts.emplace_back([&, t]() {
+      void* mine = t % 2 == 0 ? cu.ctx0 : nullptr;
+      cu.set(mine);
+      for (int i = 0; i < kRounds; ++i) {
+        size_t len = kSizes[(t + i) % 2];
+        std::string payload(len, (char)('A' + (t + i) % 26));
+        TpuBufId id =
+            trpc_cuda_h2d_staged((const uint8_t*)payload.data(), len, i % 2);
+        if (id == 0) {
+          bad.fetch_add(1);
+          continue;
+        }
+        char* mem = nullptr;
+        size_t n = 0;
+        int rc = tpu_d2h_raw(id, &mem, &n);
+        if (rc != 0 || n != len || memcmp(mem, payload.data(), n) != 0) {
+          bad.fetch_add(1);
+        }
+        tpu_buf_free(id);
+        if (rc == 0) {  // the zone goes back from another thread
+          std::thread([mem]() { tpu_host_free(mem); }).join();
+        }
+        roundtrips.fetch_add(1);
+        if (cu.current() != mine) {
+          moved.fetch_add(1);
+        }
+      }
+    });
+  }
+  for (auto& t : ts) {
+    t.join();
+  }
+  for (int spin = 0; spin < 200 && tpu_plane_stats().live_buffers != 0;
+       ++spin) {
+    usleep(10000);
+  }
+  int64_t slots_after = 0, in_use_after = 0;
+  uring_zc_pool_stats(&slots_after, &in_use_after);
+  unsigned long long registered = cu.calls("cuMemHostRegister_v2");
+  CHECK_TRUE(bad.load() == 0);
+  CHECK_TRUE(moved.load() == 0);
+  CHECK_TRUE(tpu_plane_stats().live_buffers == 0);
+  CHECK_TRUE(roundtrips.load() == (uint64_t)kThreads * kRounds);
+  CHECK_TRUE(in_use_after == 0);
+  CHECK_TRUE(registered >= 1 && (int64_t)registered <= slots);
+  printf("ok slot_races roundtrips=%llu slots=%lld registered=%llu "
+         "moved_contexts=%d\n",
+         (unsigned long long)roundtrips.load(), (long long)slots, registered,
+         moved.load());
+}
+
 }  // namespace
 
 int main() {
@@ -320,6 +405,7 @@ int main() {
   CHECK_TRUE(cu.current() == nullptr);  // init left the main thread as is
   plane_races(cu);
   pool_races(cu);
+  slot_races(cu);
   if (g_failures == 0) {
     printf("ALL PLANE RACES PASSED\n");
     return 0;

@@ -13,10 +13,15 @@ the reference resolve it unchanged):
   copies whose completion (a host function on the copy's stream) stores 1
   into a butex and wakes the waiting fibers: a fiber awaiting a device
   transfer costs no thread.
-* Device buffers come from a cache per device, and host landing zones and
-  h2d staging blocks from a page-locked pool, so a transfer in steady
-  state allocates, frees and page-locks nothing; :func:`pool_stats` counts
-  the pools' hits and misses and says which device pairs have peer access.
+* Device buffers come from a cache per device, and h2d staging blocks
+  and d2h landing zones from a page-locked pool, so a transfer in steady
+  state allocates, frees and page-locks nothing; with the io_uring
+  transport up a landing zone that fits one of the ring's registered
+  slots is that slot instead (page-locked once, on its first use), so
+  the attachment leaves the host as a fixed-buffer SEND_ZC, as the
+  reference's plane does.  :func:`pool_stats` counts the pools' hits and
+  misses and the slots taken, and says which device pairs have peer
+  access.
 * RPC attachments ride this plane zero-copy: a large attachment lands in
   ONE IOBuf block and that block's memory is the copy source —
   ``stats()["zero_copy_sends"]`` counts the pointer-identity transfers,
@@ -148,20 +153,29 @@ POOL_KEYS = ("hits", "misses", "cached_bytes", "releases", "oom_retries")
 
 def pool_stats() -> Dict[str, object]:
     """The plane's pools: ``device`` (the device-buffer caches, summed
-    over devices) and ``host`` (the page-locked landing-zone and staging
-    pool), each with hits and misses (a miss allocates from the driver),
-    the free bytes cached, releases (blocks handed back to the driver:
-    above the cache limit, or to retry an allocation that ran out of
-    memory) and out-of-memory retries; and ``peer_access``, the device
-    pairs [i][j] whose context i reaches device j's memory directly."""
+    over devices) and ``host`` (the page-locked pool of h2d staging
+    blocks and of the d2h landing zones that no io_uring slot takes),
+    each with hits and misses (a miss allocates from the driver), the
+    free bytes cached, releases (blocks handed back to the driver: above
+    the cache limit, or to retry an allocation that ran out of memory)
+    and out-of-memory retries; ``slots``, io_uring's registered slots
+    taken as d2h zones (with the ring transport up): ``registered``
+    (page-locked with the driver, each once, on its first use) and
+    ``refused`` (by the driver, or outside the ring's fixed-buffer
+    table: their zones come from the pool); and ``peer_access``, the
+    device pairs [i][j] whose context i reaches device j's memory
+    directly."""
     L = lib()
     out = (ctypes.c_uint64 * 10)()
     L.trpc_cuda_pool_stats(out)
+    slots = (ctypes.c_uint64 * 2)()
+    L.trpc_cuda_slot_stats(slots)
     n = max(device_count(), 1)
     peer = (ctypes.c_uint8 * (n * n))()
     n = L.trpc_cuda_peer_access(peer, n * n)
     return {"device": dict(zip(POOL_KEYS, out[:5])),
             "host": dict(zip(POOL_KEYS, out[5:])),
+            "slots": {"registered": slots[0], "refused": slots[1]},
             "peer_access": [[int(peer[i * n + j]) for j in range(n)]
                             for i in range(n)]}
 

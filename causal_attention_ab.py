@@ -2,8 +2,9 @@
 r"""Other trees' causal_attention and ring-fold kernels beside the
 checkout's, on one NVIDIA GPU: the bf16 forward, dq and dk/dv kernels,
 their wrappers' host time, the f32 forward's time and accuracy, the
-time of the ring fold's f32 forward, and the f32 dq and dk/dv kernels'
-(causal and the fold's) times, bits and accuracy.
+time of the ring fold's f32 forward, the f32 dq and dk/dv kernels'
+(causal and the fold's) times, bits and accuracy, and the fold's bf16
+forward and dk/dv at head dim 8.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -52,6 +53,12 @@ reversed.  Each prints one JSON line:
   from the tree's own forward and dq), and ``f32_fold_dkdv`` the fold's
   f32 dk/dv's at RING_SHAPE (lse and D of the fold of that block); each
   beside ``sdpa_f32``'s backward (fwd_bwd less fwd);
+* ``bf16_fold_hd8``: the ring fold's bf16 forward's and dk/dv's
+  ``device_ms`` at chip_smoke.py's RING_HD8 (hd 8; one causal diagonal
+  block from a fresh state, folded again at every call; dk/dv from the
+  plain fold's lse and D), the share of chip_smoke.py's bf16 rule
+  (RING_TOL and its flips) that m, l, o, dk and dv use against the plain
+  version on the same inputs, and a digest of those outputs' bits;
 * ``dq_digest`` and ``dkdv_digest``: a sha256 of the bytes of dq (the
   causal kernel's with its D) and of dk and dv of those calls (two trees
   that print the same digest computed the same bits);
@@ -288,6 +295,36 @@ def bwd_f64_errors(ca, rf, cs):
     return dq_out, out
 
 
+def bf16_fold_hd8(rf, cs, g, flush) -> dict:
+    """The ring fold's bf16 forward and dk/dv at RING_HD8 (one causal
+    diagonal block from a fresh state; dk/dv from the plain fold's lse
+    and D): ``device_ms`` of each, the share of chip_smoke.py's bf16 rule
+    (RING_TOL, flips) each output uses against the plain version, and a
+    digest of the kernels' m, l, o, dk, dv."""
+    import torch
+    scale = cs.RING_HD8[3] ** -0.5
+    qkvd, state = cs._fold_inputs(g, cs.RING_HD8, torch.bfloat16, True)
+    kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
+               rf.ring_fold_backward_dkdv)
+    plains = (rf.ring_fold_plain, rf.ring_fold_bwd_dq_plain,
+              rf.ring_fold_bwd_dkdv_plain)
+    got, _ = cs._fold_block(kernels, qkvd, state, 0, 0, True, scale)
+    want, _ = cs._fold_block(plains, qkvd, state, 0, 0, True, scale)
+    names = ("m", "l", "o", "dq", "dk", "dv")
+    held = {n: cs._held(a, b, "bf16")[1] for n, a, b in zip(names, got, want)
+            if n != "dq"}
+    q, k, v, do = qkvd
+    lse, delta = cs._lse_delta(*want[:3], do)
+    acc = [torch.zeros_like(state[2]) for _ in range(2)]
+    return {"shape": list(cs.RING_HD8),
+            "fwd": cs.device_ms(lambda: rf.ring_fold_forward(
+                q, k, v, *state, 0, 0, True, scale), flush),
+            "bwd_dkdv": cs.device_ms(lambda: rf.ring_fold_backward_dkdv(
+                q, k, v, do, lse, delta, *acc, 0, 0, True, scale), flush),
+            "share_vs_plain": held,
+            "digest": _digest(*(got[i] for i in (0, 1, 2, 4, 5)))}
+
+
 def _digest(*ts) -> str:
     h = hashlib.sha256()
     for t in ts:
@@ -400,7 +437,9 @@ def measure(tree: str) -> None:
     fold_dq = cs.device_ms(lambda: rf.ring_fold_backward_dq(
         fq, fk, fv, fdo, flse, fdelta, fdq, 0, 0, True, scale), flush)
     dq_err, dkdv_err = bwd_f64_errors(ca, rf, cs)
-    print(json.dumps({"tree": tree, "device_ms": device,
+    print(json.dumps({"tree": tree, "bf16_fold_hd8": bf16_fold_hd8(rf, cs, g,
+                                                                   flush),
+                      "device_ms": device,
                       "prefill_host_us": host, "f32_fwd": f32,
                       "f32_dq": f32_dq, "f32_fold_fwd": fold,
                       "f32_fold_dq": fold_dq, "f32_dkdv": f32_dkdv,

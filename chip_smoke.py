@@ -16,7 +16,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              ptxas_by_kernel key gives each kernel's registers and spills,
              and the f32 CUDA-core kernels (causal forward, dq and dk/dv,
              the fold's forward, dq and dk/dv; 18 instantiations) must
-             spill nothing
+             spill nothing; the fold's bf16 forward and dk/dv at hd 8
+             (ring_fold_hd8.cu) must have HMMA (mma.sync) instructions
+             (sass_hmma) and spill nothing
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
              256 KiB are byte-equal, live buffers and errors balance;
              torch's current device and the thread's CUDA context are
@@ -30,6 +32,16 @@ printing one JSON line; any failure exits non-zero with no result line:
              line prints the pools' counters and the peer-access matrix
   transport  HbmEcho over tpu:// settles "device" and echoes a 256 KiB
              attachment zero-copy
+  uring      the d2h landing zones on io_uring's registered slots: where
+             the kernel refuses io_uring or SEND_ZC the line says so and
+             the run goes on; else, in a process of its own with the
+             ring transport on and SEND_ZC pinned on, HbmEcho, h2d and d2h
+             at URING_SIZES (1 MiB: a slot; 8 MiB: larger, the pool) with
+             bytes of their own, each equal; the first use of the slots
+             (their page-locking) timed apart from URING_ROUNDS steady
+             rounds (host clock to the completed call); at least one
+             attachment left on a fixed buffer (sendzc_fixed), and no
+             slot page-locked and no pool miss after the first use
   kernel     decode_attention against its plain PyTorch version at the
              serving shapes (N=4, S=1024, H=8, hd=64) at two windows,
              "mixed" p = [0, S-1, r1, r2] and "full" p = [S-1] * 4: cache
@@ -110,25 +122,31 @@ printing one JSON line; any failure exits non-zero with no result line:
              hd=64 in bf16, then in f32, forward and backward, against
              autograd of the plain `_dense_local` (the main path of the
              fold: its launches are read over each), and the same at hd 8
-             (B=8, S=1024, H=64: d_model 512 in heads of 8, the SIMT
-             kernels of csrc/ring_fold.cu); the three ring-fold kernels
+             (B=8, S=1024, H=64: d_model 512 in heads of 8; in bf16 the
+             tensor-core forward and dk/dv of csrc/ring_fold_hd8.cu and
+             the SIMT dq, in f32 the SIMT kernels of csrc/ring_fold.cu);
+             the three ring-fold kernels
              against their plain versions in f32 and bf16, one full-width
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
              (1, 3), causal and not, the wholly future (1, 3) block
              skipped with no launch, and at hd 8 the full-width block and
              a C=256 (3, 1) block (RING_TOL, with the bf16 flip rule);
              exact scores (integer q and k): the bf16 forward and dk/dv
-             hold m, l, o and dv within EXACT_TOL of the plain version,
-             which p rounded once to bf16 leaves; each kernel timed in
-             bf16 and in f32 at the full-width block like the others,
-             beside its bound (products of bf16 values at the bf16 rate,
-             p's f32 products and every f32 product at the f32 CUDA-core
-             rate), the plain version, SDPA on the block in the same
-             dtype and host_call_ms; the f32 fold's device time a layer
-             (forward, dq and dk/dv, cold); the kernel names under
-             torch.profiler: bf16 the tensor-core forward, dq and dk/dv,
-             f32 the CUDA-core forward, dq and dk/dv, hd 8 the SIMT
-             forward, dq and dk/dv in both dtypes, each timed as above
+             (at hd 64 and at hd 8) hold m, l, o and dv within EXACT_TOL
+             of the plain version (at hd 8 over 1024 keys, of the same
+             in f64), which p rounded once to bf16 leaves;
+             each kernel timed in bf16 and in f32 at the full-width block
+             like the others, beside its bound (products of bf16 values
+             at the bf16 rate, p's f32 products and every f32 product at
+             the f32 CUDA-core rate, or one exponential a visible score
+             on the SFUs where that takes longer), the plain version,
+             SDPA on the block in the same dtype and host_call_ms; the
+             f32 fold's device time a layer (forward, dq and dk/dv,
+             cold); the kernel names under torch.profiler: bf16 the
+             tensor-core forward, dq and dk/dv, f32 the CUDA-core
+             forward, dq and dk/dv, hd 8 in bf16 the tensor-core forward
+             and dk/dv beside the SIMT dq, in f32 the SIMT forward, dq
+             and dk/dv, each timed as above
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -173,7 +191,8 @@ printing one JSON line; any failure exits non-zero with no result line:
 
 Before the last line it prints the kernels' JSON line (with the HGMMA
 count and ptxas registers and spills of each kernel's hd 64
-instantiation, hd 8 for the SIMT fold rows; the mesh_serving launches
+instantiation, hd 8 for the fold's hd-8 rows, with their HMMA count;
+the mesh_serving launches
 and tp-shard checks on the decode and causal forward rows) and the
 card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -204,6 +223,9 @@ from concurrent.futures import ThreadPoolExecutor
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12             # H100 SXM f32 outside the tensor cores
+# H100 SXM exponentials: 16 an SM a clock on the SFUs, at the 1.98 GHz
+# of the f32 rate above (132 SMs x 128 lanes x 2 x 1.98e9 = 67e12)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # o against the plain version: bf16 carries one rounding of o and of the
 # plain version's softmax weights (largest error read on the card 0.0039);
 # f32 the same sums in another order (read: 1.5e-7)
@@ -314,18 +336,22 @@ def _kernel_names(mangled):
     return [m.group(1) if m else d for m, d in zip(names, plain)]
 
 
-def sass_hgmma(lib_path):
-    """{kernel: count of HGMMA instructions in its SASS}."""
+def sass_mma(lib_path):
+    """({kernel: count of HGMMA (wgmma) instructions in its SASS},
+    {kernel: count of HMMA (mma.sync) instructions, where it has some})."""
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", lib_path],
                          capture_output=True, text=True, check=True).stdout
     funcs, counts = [], []
     for line in out.splitlines():
         if "Function :" in line:
             funcs.append(line.split("Function :", 1)[1].strip())
-            counts.append(0)
-        elif funcs and "HGMMA" in line:
-            counts[-1] += 1
-    return dict(zip(_kernel_names(funcs), counts))
+            counts.append([0, 0])
+        elif funcs:
+            counts[-1][0] += "HGMMA." in line
+            counts[-1][1] += "HMMA." in line
+    names = _kernel_names(funcs)
+    return ({k: c[0] for k, c in zip(names, counts)},
+            {k: c[1] for k, c in zip(names, counts) if c[1]})
 
 
 def launched_kernels(fn, pattern, expected):
@@ -391,14 +417,14 @@ def phase_card():
                  if "entry function" in ln or "registers" in ln
                  or "spill" in ln]
     assert ptxas, "ptxas reported no kernel"
-    hgmma = sass_hgmma(kernels.result())
+    hgmma, hmma = sass_mma(kernels.result())
     line = {"phase": "card", "nvidia_smi": smi,
             "device_name": torch.cuda.get_device_name(0),
             "device_count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": dict(_native.build_seconds),
             "build_wall_s": time.monotonic() - t0,
-            "ptxas": ptxas, "sass_hgmma": hgmma,
+            "ptxas": ptxas, "sass_hgmma": hgmma, "sass_hmma": hmma,
             "ptxas_by_kernel": ptxas_kernels(ptxas)}
     emit(line)
     tensor_core = {k: n for k, n in hgmma.items()
@@ -418,6 +444,11 @@ def phase_card():
     assert len(f32_cores) == 18 and not any(
         p.get("spill_stores") or p.get("spill_loads")
         for p in f32_cores.values()), f32_cores
+    hd8 = [HD8_KERNELS["bf16"][n][1] for n in ("fwd", "bwd_dkdv")]
+    assert all(hmma.get(k) for k in hd8), hmma
+    assert not any(line["ptxas_by_kernel"][k].get("spill_stores") or
+                   line["ptxas_by_kernel"][k].get("spill_loads")
+                   for k in hd8), line["ptxas_by_kernel"]
     return line
 
 
@@ -565,6 +596,121 @@ def phase_transport():
     emit({"phase": "transport", "transport_state": state,
           "zero_copy_sends": after["zero_copy_sends"]
           - before["zero_copy_sends"]})
+
+
+URING_SIZES = (1 << 20, 8 << 20)   # a slot of io_uring's pool; larger
+URING_ROUNDS = 10                  # steady rounds after the slots' first use
+
+# The uring phase's body, in a process of its own: the ring transport and
+# SEND_ZC are process-wide switches the later phases must not inherit.
+URING_CHILD = r"""
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from brpc_tpu_torch import tpu_plane
+from brpc_tpu_torch._native import lib
+from brpc_tpu_torch.metrics.native import read_native_metrics as metrics_dump
+from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions
+from brpc_tpu_torch.rpc.controller import Controller
+from brpc_tpu_torch.rpc.server import Server
+from brpc_tpu_torch.utils import flags
+
+flags.set_flag("use_io_uring", True)
+L = lib()
+L.trpc_set_io_uring(1)
+if not L.trpc_sendzc_available():
+    print(json.dumps({"phase": "uring",
+                      "skipped": "the kernel lacks IORING_OP_SEND_ZC"}))
+    sys.exit(0)
+srv = Server()
+srv.add_hbm_echo_service()
+srv.start("127.0.0.1:0")
+assert tpu_plane.init(), tpu_plane.error()
+ch = Channel(f"tpu://0/0@127.0.0.1:{srv.port}",
+             ChannelOptions(max_retry=0, timeout_ms=60_000))
+
+
+def settled():
+    end = time.time() + 10
+    c = metrics_dump()
+    while (c["native_uring_sendzc_retired"] < c["native_uring_sendzc_submitted"]
+           or c["native_uring_zc_pool_in_use"]) and time.time() < end:
+        time.sleep(0.05)
+        c = metrics_dump()
+    return c
+
+
+def one(n, salt):
+    data = cs._salted(n, salt)
+    t0 = time.perf_counter()
+    b = tpu_plane.h2d(data, device=0)
+    b.wait()
+    t1 = time.perf_counter()
+    assert b.to_host() == data, f"d2h differs: {n} B"
+    t2 = time.perf_counter()
+    b.free()
+    cntl = Controller()
+    assert ch.call("HbmEcho", b"x", attachment=data, cntl=cntl) == b"x"
+    t3 = time.perf_counter()
+    assert cntl.response_attachment == data, f"HbmEcho differs: {n} B"
+    return {"h2d": (t1 - t0) * 1e3, "d2h": (t2 - t1) * 1e3,
+            "echo": (t3 - t2) * 1e3}
+
+
+# the slots' first use (their page-locking) and two more warm rounds
+first = {n: one(n, n) for n in cs.URING_SIZES}
+for r in range(2):
+    for n in cs.URING_SIZES:
+        one(n, 10 * r + n)
+settled()
+pools0, c0 = tpu_plane.pool_stats(), metrics_dump()
+steady = {n: [one(n, 100 + r + n) for r in range(cs.URING_ROUNDS)]
+          for n in cs.URING_SIZES}
+c1, pools1 = settled(), tpu_plane.pool_stats()
+ch.close()
+srv.destroy()
+line = {"phase": "uring", "sizes": list(cs.URING_SIZES),
+        "rounds": cs.URING_ROUNDS,
+        "first_use_ms": {str(n): t for n, t in first.items()},
+        "steady_p50_ms": {str(n): {op: statistics.median(t[op] for t in ts)
+                                   for op in ("h2d", "d2h", "echo")}
+                          for n, ts in steady.items()},
+        "slots": pools1["slots"], "host_pool": pools1["host"],
+        "sendzc_fixed": c1["native_uring_sendzc_fixed"],
+        "sendzc_fixed_steady": c1["native_uring_sendzc_fixed"]
+        - c0["native_uring_sendzc_fixed"],
+        "zc_pool_slots": c1["native_uring_zc_pool_slots"],
+        "zc_pool_in_use": c1["native_uring_zc_pool_in_use"]}
+print(json.dumps(line), flush=True)
+assert line["sendzc_fixed"] >= 1, line
+assert pools1["slots"] == pools0["slots"], (pools0["slots"], line)
+assert pools0["slots"]["registered"] >= 1, pools0["slots"]
+assert pools1["host"]["misses"] == pools0["host"]["misses"], line
+assert line["zc_pool_in_use"] == 0, line
+"""
+
+
+def phase_uring():
+    """The d2h landing zones on io_uring's registered slots (see the
+    module's docstring); a kernel that refuses io_uring or SEND_ZC is
+    reported on a line of its own, and the run goes on."""
+    from brpc_tpu_torch._native import lib
+    if not lib().trpc_io_uring_available():
+        line = {"phase": "uring", "skipped": "the kernel refuses io_uring "
+                                             "(trpc_io_uring_available() 0)"}
+    else:
+        here = os.path.dirname(os.path.abspath(__file__))
+        r = subprocess.run([sys.executable, "-c", URING_CHILD, here],
+                           env={**os.environ, "TRPC_SENDZC_FORCE": "1"},
+                           capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+        assert r.returncode == 0 and lines, \
+            f"uring phase failed: {r.stdout[-2000:]} {r.stderr[-4000:]}"
+        line = json.loads(lines[-1])
+    if "skipped" in line:
+        print(f"uring: skipped: {line['skipped']}", flush=True)
+    emit(line)
+    return line
 
 
 def decode_attention_bound(N, H, hd, p, elt):
@@ -1312,9 +1458,10 @@ def phase_parallel(smi):
 RING_SHAPE = (8, 1024, 8, 64)
 RING_SMALL = (2, 256, 8, 64)
 RING_BLOCKS = ((2, 2), (3, 1), (1, 3))
-# head dim 8, the reference tests' (csrc/ring_fold.cu's SIMT kernels, the
-# only hd they are built at): ModelConfig()'s d_model 512 as 64 heads of
-# 8, the full-width causal block and a C=256 block in the past, (3, 1)
+# head dim 8, the reference tests' (in bf16 csrc/ring_fold_hd8.cu's
+# forward and dk/dv and the SIMT dq, in f32 csrc/ring_fold.cu's SIMT
+# kernels): ModelConfig()'s d_model 512 as 64 heads of 8, the full-width
+# causal block and a C=256 block in the past, (3, 1)
 RING_HD8 = (8, 1024, 64, 8)
 RING_HD8_SMALL = (2, 256, 64, 8)
 # kernels against the plain version: f32 the same sums in another order;
@@ -1338,29 +1485,51 @@ RING_ROUTES = {"bf16": ["ring_fold_dkdv_sm90_kernel",
                         "ring_fold_fwd_sm90_kernel"],
                "f32": ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_f32_kernel",
                        "ring_fold_fwd_f32_kernel"],
-               "hd8": ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
-                       "ring_fold_fwd_kernel"]}
+               "hd8_bf16": ["ring_fold_dkdv_hd8_kernel",
+                            "ring_fold_dq_kernel",
+                            "ring_fold_fwd_hd8_kernel"],
+               "hd8_f32": ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
+                           "ring_fold_fwd_kernel"]}
+# the kernel behind each hd-8 row of the kernels line: (source, kernel as
+# ptxas and cuobjdump name it), by dtype and wrapper
+HD8_KERNELS = {
+    "bf16": {"fwd": ("ring_fold_hd8.cu", "ring_fold_fwd_hd8_kernel"),
+             "bwd_dq": ("ring_fold.cu",
+                        "ring_fold_dq_kernel<__nv_bfloat16, 8>"),
+             "bwd_dkdv": ("ring_fold_hd8.cu", "ring_fold_dkdv_hd8_kernel")},
+    "f32": {"fwd": ("ring_fold.cu", "ring_fold_fwd_kernel<float, 8>"),
+            "bwd_dq": ("ring_fold.cu", "ring_fold_dq_kernel<float, 8>"),
+            "bwd_dkdv": ("ring_fold.cu", "ring_fold_dkdv_kernel<float, 8>")}}
 MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
 
 
 def fold_bounds(B, C, H, hd, elt):
-    """{kernel: (least ms, what bounds it)} of one causal diagonal block:
-    each input read once, each output written once (the f32 state and
-    accumulators are both: n one [B, C, H, hd] tensor, acc one f32 [B, H,
-    C, hd], rows one f32 [B, H, C]); the products over the causal half:
-    those of the working type's values (q.k, dO.v, dS.k, dS^T.q) at its
-    rate, bf16 on the tensor cores; p.v and P^T.dO, f32 products of an
-    f32 p, at the CUDA cores' f32 rate (the tensor cores' sum of p split
-    in bf16 parts did not hold them to f32: PERF.md, Findings)."""
+    """{kernel: (least ms, what bounds it, what bounds the operations)}
+    of one causal diagonal block: each input read once, each output
+    written once (the f32 state and accumulators are both: n one [B, C,
+    H, hd] tensor, acc one f32 [B, H, C, hd], rows one f32 [B, H, C]);
+    the products over the causal half: those of the working type's
+    values (q.k, dO.v, dS.k, dS^T.q) at its rate, bf16 on the tensor
+    cores; p.v and P^T.dO, f32 products of an f32 p, at the CUDA cores'
+    f32 rate (the tensor cores' sum of p split in bf16 parts did not hold
+    them to f32: PERF.md, Findings).  Every kernel takes one exponential
+    a visible score (p, or P of the backward) on the SFUs, which run
+    beside the CUDA cores: the operations take the longer of the two
+    ("products" or "exponentials"); at hd 8 in bf16 dq's exponentials
+    are longer than its bytes."""
     n, acc, rows = B * C * H * hd * elt, B * H * C * hd * 4, B * H * C * 4
-    prod = 2 * hd * B * H * C * (C + 1) // 2
+    scores = B * H * C * (C + 1) // 2
+    prod = 2 * hd * scores
     typed = prod / (BF16_FLOPS if elt == 2 else F32_FLOPS)
     of_p = prod / F32_FLOPS
+    t_exp = scores / SFU_EXP_PER_S
 
-    def bound(nbytes, t_ops):
+    def bound(nbytes, t_products):
         t_bytes = nbytes / HBM_BYTES_PER_S
-        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                           else "operations")
+        t_ops = max(t_products, t_exp)
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations",
+                "products" if t_products >= t_exp else "exponentials")
     return {"fwd": bound(3 * n + 4 * rows + 2 * acc, typed + of_p),
             "bwd_dq": bound(4 * n + 2 * rows + 2 * acc, 3 * typed),
             "bwd_dkdv": bound(4 * n + 2 * rows + 4 * acc, 3 * typed + of_p)}
@@ -1440,34 +1609,70 @@ def _fold_p_bf16(qkvd, state, q_off, k_off, causal, scale):
     return [o, torch.einsum("bhcd,bchk->bhdk", pb, do.float())]
 
 
+def _exact_f64(qkvd, state, lse, q_off, k_off, causal, scale):
+    """[m, l, o, dv] of one block with every sum in f64, from the
+    kernels' own scores (the bf16 product scaled in f32), f32 state and
+    lse: the fold, and P^T . dO."""
+    import torch
+    from brpc_tpu_torch.ops import ring_fold as rf
+    q, k, v, do = qkvd
+    s = rf.scores_plain(q, k, q_off, k_off, causal, scale).double()
+    m, l, o = (t.double() for t in state)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    out = [m_new, l * alpha + p.sum(-1),
+           o * alpha[..., None] + torch.einsum("bhcd,bdhk->bhck", p,
+                                               v.double())]
+    del p
+    big_p = torch.exp(s - lse.double()[..., None])
+    return out + [torch.einsum("bhcd,bchk->bhdk", big_p, do.double())]
+
+
 def check_exact_scores(g, kernels, plains):
     """The bf16 kernels on exact scores (EXACT_TOL): the full-width block
-    from a fresh state and a C=256 (3, 1) block on an earlier one.
+    from a fresh state and a C=256 (3, 1) block on an earlier one, at hd
+    64 and at hd 8, each against the plain version; and at hd 8 the
+    full-width block against the same in f64, where the plain version's
+    own sums of 1024 f32 products are no nearer the truth than the
+    kernels' (its o and dv against the f64 ones are reported beside, as
+    plain_o and plain_dv, and held to nothing).
     Returns {case: {output: [max abs err, share of EXACT_TOL]}}, with the
     control's share on o and dv (p rounded once to bf16)."""
     import torch
 
     def share(a, b):
-        diff = (a - b).abs()
+        diff = (a.double() - b.double()).abs()
         return [float(diff.max()), float((diff / (
-            EXACT_TOL["atol"] + EXACT_TOL["rtol"] * b.abs())).max())]
+            EXACT_TOL["atol"] + EXACT_TOL["rtol"] * b.double().abs())).max())]
     out = {}
-    for name, shape, idx, src, fresh in (
-            ("full_0_0_causal", RING_SHAPE, 0, 0, True),
-            ("c256_3_1_causal", RING_SMALL, 3, 1, False)):
+    for name, shape, idx, src, fresh, ref in (
+            ("full_0_0_causal", RING_SHAPE, 0, 0, True, "plain"),
+            ("c256_3_1_causal", RING_SMALL, 3, 1, False, "plain"),
+            ("hd8_full_0_0_causal", RING_HD8, 0, 0, True, "f64"),
+            ("hd8_c256_3_1_causal", RING_HD8_SMALL, 3, 1, False, "plain")):
         C, hd = shape[1], shape[3]
         qkvd, state = _fold_inputs(g, shape, torch.bfloat16, fresh)
         qkvd[:2] = [torch.randint(-1, 2, shape, generator=g, device="cuda")
                     .to(torch.bfloat16) for _ in range(2)]
-        args = (idx * C, src * C, True, hd ** -0.5)   # 1/8 at hd 64: exact
+        # the same f32 scale on both sides: the same bits of every score
+        args = (idx * C, src * C, True, hd ** -0.5)
         got, _ = _fold_block(kernels, qkvd, state, *args)
         want, _ = _fold_block(plains, qkvd, state, *args)
         control = _fold_p_bf16(qkvd, state, *args)
+        res = {}
+        if ref == "f64":   # dk/dv ran from the plain fold's lse
+            lse, _ = _lse_delta(*want[:3], qkvd[3])
+            exact = _exact_f64(qkvd, state, lse, *args)
+            res["plain_o"] = share(want[2], exact[2])
+            res["plain_dv"] = share(want[5], exact[3])
+            want = exact[:3] + [None, None, exact[3]]
         torch.cuda.synchronize()
-        res = {o: share(got[i], want[i]) for o, i in
-               (("m", 0), ("l", 1), ("o", 2), ("dv", 5))}
+        res.update({o: share(got[i], want[i]) for o, i in
+                    (("m", 0), ("l", 1), ("o", 2), ("dv", 5))})
         res["control_o"] = share(control[0], want[2])
         res["control_dv"] = share(control[1], want[5])
+        res["against"] = ref
         out[name] = res
         del qkvd, state, got, want, control
     return out
@@ -1476,9 +1681,9 @@ def check_exact_scores(g, kernels, plains):
 def check_ring_fold(g):
     """The three fold kernels against their plain versions, f32 and bf16:
     the full-width block and the RING_BLOCKS at C=256, causal and not, and
-    at hd 8 (the SIMT kernels) the RING_HD8 block and a RING_HD8_SMALL
-    (3, 1) block; then check_exact_scores.  Returns {case: {kernel: [max abs err, share
-    of the tolerance]}} (the forward's error on the normalised output
+    at hd 8 the RING_HD8 block and a RING_HD8_SMALL (3, 1) block; then
+    check_exact_scores.  Returns {case: {kernel: [max abs err, share of
+    the tolerance]}} (the forward's error on the normalised output
     o / l, its share over the state m, l, o), the skip checks and the
     exact-scores results."""
     import torch
@@ -1584,11 +1789,12 @@ def fold_rows(g, dtype, flush, shape=RING_SHAPE):
     rows = {}
     for name, (kernel, plain) in calls.items():
         ms, cold_ms = device_ms(kernel, flush)
-        bound_ms, bound_by = bounds[name]
+        bound_ms, bound_by, ops_by = bounds[name]
         library = sdpa_fwd if name == "fwd" else [
             a - b for a, b in zip(sdpa_fwd_bwd, sdpa_fwd)]
         rows[name] = {"ms": ms, "cold_ms": cold_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "bound_share": bound_ms / cold_ms,
+                      "bound_by": bound_by, "bound_ops_by": ops_by,
+                      "bound_share": bound_ms / cold_ms,
                       "plain_ms": cuda_ms(plain, 3),
                       "library_ms": library[0],
                       "library_cold_ms": library[1],
@@ -1633,9 +1839,11 @@ def fold_paths(mesh, dtype, g, shape=RING_SHAPE):
 def phase_ring(smi):
     """ring_attention and ulysses_attention on the NCCL world of one (the
     main path of the fold: the launches are read over it), in bf16 and in
-    f32, at hd 64 and at hd 8 (RING_HD8: the SIMT kernels); the fold
-    kernels against their plain versions, and their times on the device
-    at the full-width block in bf16 and in f32, at both head dims."""
+    f32, at hd 64 and at hd 8 (RING_HD8: in bf16 the tensor-core forward
+    and dk/dv of ring_fold_hd8.cu and the SIMT dq, in f32 the SIMT
+    kernels); the fold kernels against their plain versions, and their
+    times on the device at the full-width block in bf16 and in f32, at
+    both head dims."""
     import torch
 
     from brpc_tpu_torch.parallel import make_mesh
@@ -1681,7 +1889,7 @@ def phase_ring(smi):
             lambda *a: RingAttention.apply(*a, None, "sp", True,
                                            RING_HD8[3] ** -0.5),
             *(t.to(dtype) for t in small)),
-        r"ring_fold_\w+_kernel", RING_ROUTES["hd8"])
+        r"ring_fold_\w+_kernel", RING_ROUTES[f"hd8_{dt}"])
         for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))}
 
     def errs(dt, prefix="full"):
@@ -1720,7 +1928,8 @@ def phase_ring(smi):
            if v[1] > 1}
     assert not bad, f"the fold kernels differ from the plain version: {bad}"
     bad = {c: o for c, res in exact.items() for o, v in res.items()
-           if (v[1] > 1) != o.startswith("control")}
+           if o != "against" and not o.startswith("plain")
+           and (v[1] > 1) != o.startswith("control")}
     assert not bad, f"exact scores: outside EXACT_TOL or a control inside: " \
         f"{bad}"
     bad = {f"{dt}/{p}": o for dt, ps in (("bf16", paths), ("f32", paths_f32),
@@ -1732,7 +1941,7 @@ def phase_ring(smi):
     assert all(n == 2 for n in launches_f32.values()), launches_f32
     assert all(n == 2 for dt in hd8 for n in hd8[dt][1].values()), hd8
     assert names == {dt: RING_ROUTES[dt] for dt in names}, names
-    assert names_hd8 == {dt: RING_ROUTES["hd8"] for dt in names_hd8}, \
+    assert names_hd8 == {dt: RING_ROUTES[f"hd8_{dt}"] for dt in names_hd8}, \
         names_hd8
     assert len(skipped) == 2, skipped
     return line
@@ -2756,6 +2965,7 @@ def main() -> int:
     smi = card["nvidia_smi"]
     phase_plane()
     phase_transport()
+    phase_uring()
     k = phase_kernel()["full"]
     attn = phase_attention()
     launches, prefill_launches = phase_serving()
@@ -2870,21 +3080,21 @@ def main() -> int:
                            "backward, on the NCCL world of one"})
     hd8 = ring["hd8"]
     for dt in ("f32", "bf16"):
-        for name, wrapper, kernel in (
-                ("fwd", "ring_fold_forward", "ring_fold_fwd_kernel"),
-                ("bwd_dq", "ring_fold_backward_dq", "ring_fold_dq_kernel"),
-                ("bwd_dkdv", "ring_fold_backward_dkdv",
-                 "ring_fold_dkdv_kernel")):
-            ctype = "float" if dt == "f32" else "__nv_bfloat16"
+        for name, wrapper in (("fwd", "ring_fold_forward"),
+                              ("bwd_dq", "ring_fold_backward_dq"),
+                              ("bwd_dkdv", "ring_fold_backward_dkdv")):
+            source, kernel = HD8_KERNELS[dt][name]
             kernels.append({
                 "name": f"ring_fold_{name}_hd8_{dt}", "route": "cuda",
-                "source": "brpc_tpu_torch/csrc/ring_fold.cu",
+                "source": f"brpc_tpu_torch/csrc/{source}",
+                "kernel": kernel,
                 "replaces": "brpc_tpu/parallel/ring_attention.py:56"
                             + ("" if name == "fwd" else " (its jax.grad)"),
                 "launches": hd8["launches"][dt][wrapper],
                 "max_abs_err": hd8["max_abs_err"][dt][name],
                 **hd8["kernels"][dt][name],
-                **compiled(f"{kernel}<{ctype}, 8>"),
+                **compiled(kernel),
+                "sass_hmma": card["sass_hmma"].get(kernel, 0),
                 "shape": hd8["shape"],
                 "launches_in": "ring phase: ring_attention and "
                                f"ulysses_attention in {dt} at hd 8 (64 "

@@ -454,11 +454,13 @@ def test_plane_races_against_the_core(fake_env):
     each transfer, wait and d2h racing the free, a double free,
     round-trips and d2d hops on both devices from 6 threads, each
     thread's current context (device 0's or none) unchanged after every
-    round, every slot drained."""
+    round, every slot drained; then, where the kernel takes io_uring,
+    d2h zones from the ring's registered slots raced the same way."""
     r = _races(_native.build_plane_races(), fake_env)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "ALL PLANE RACES PASSED" in r.stdout, r.stdout
     assert "moved_contexts=0" in r.stdout, r.stdout
+    assert "slot_races" in r.stdout, r.stdout
 
 
 def test_plane_races_under_asan(fake_env, tmp_path):
@@ -476,6 +478,7 @@ def test_plane_races_under_asan(fake_env, tmp_path):
                       for p in tmp_path.glob("asan*"))
     assert r.returncode == 0, r.stdout + r.stderr + reports
     assert "ALL PLANE RACES PASSED" in r.stdout, r.stdout
+    assert "slot_races" in r.stdout, r.stdout
     assert not reports, reports
 
 

@@ -34,7 +34,17 @@ On the CPU:
   reference's fold; the dq order (per query tile, summed over the keys
   in order, added to a carried dq once) likewise over 1024 keys.  The
   plain f32 dq, dk and dv against f64 at unit scale and a wide range
-  (q, k x 2, v x 8).  Control: the
+  (q, k x 2, v x 8).  The hd-8 bf16 forward and dk/dv of
+  ``csrc/ring_fold_hd8.cu`` (``fold_model_hd8``, ``dkdv_model_hd8``: one
+  pass with a per-tile rescale, each thread's 16 key (query) columns of
+  a tile summed apart and then added, the quad's partials summed at the
+  end; 8-term f32 sums for s and dP, dS^T rounded to bf16, dk per
+  16-query chunk) against the plain version on the small blocks, over
+  1024 keys against the plain version, the jnp fold and jax.vjp of the
+  reference's fold in bf16, and on exact scores within ``EXACT_TOL``
+  (over 1024 keys against the fold in f64, which the plain version's
+  own sums leave); the dk/dv skip rule read from the rows that see no
+  key of the block alone, against the SIMT kernel's scan.  Control: the
   same model skipping masked tile pairs unconditionally leaves it on a
   block whose first rows have seen no key (the reference weighs their
   masked scores by 1), in either order.
@@ -56,14 +66,19 @@ for TMA, and an unaligned f32 view copied for the f32 forward's, dq's
 and dk/dv's cp.async, bit-equal; the wholly future block with no launch; no
 fallback (a head dim the kernels lack raises); the route under
 torch.profiler (bf16 at hd 16, 64 and 128: the tensor-core forward, dq
-and dk/dv; f32 there: the CUDA-core forward, dq and dk/dv; hd 8 in both
-dtypes: the SIMT kernels); dq added into a carried dq; the f32 dq and
+and dk/dv; f32 there: the CUDA-core forward, dq and dk/dv; hd 8 in bf16:
+the tensor-core forward and dk/dv of ring_fold_hd8.cu beside the SIMT
+dq, in f32 the SIMT kernels); dq added into a carried dq; the f32 dq and
 dk/dv added into a carried dq, dk, dv at C = 65 to 1024, and against
 f64 at unit scale and a wide range, as exact as the plain version; and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
-another order), which p rounded once to bf16 leaves.  They skip without
+another order), which p rounded once to bf16 leaves; at hd 8 the same
+for the hd-8 kernels (over 1024 keys against the fold in f64).  Every
+``KERNEL_HEAD_DIMS`` leg at hd 8 in bf16 reaches the hd-8 tensor-core
+forward and dk/dv (a view not 16-byte aligned is copied for their
+cp.async) and the SIMT dq.  They skip without
 a card and run there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_ring_fold.py`` (this file imports jax only inside its
 CPU legs).
@@ -855,6 +870,313 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# the hd-8 bf16 forward and dk/dv (csrc/ring_fold_hd8.cu), on the CPU
+
+# a thread (g, t) of a warp holds columns 8 j + 2 t + c (j < 8, c < 2) of
+# a 64-column tile: its 16 columns, in the order it visits them
+QUAD_COLS = [[8 * j + 2 * t + c for j in range(8) for c in range(2)]
+             for t in range(4)]
+
+
+def _quad_sum(x):
+    """The quad's sum of per-thread partials x[..., t, ...] (t on dim 3),
+    as two xor-shuffles add them: (x0 + x1) + (x2 + x3)."""
+    return (x[:, :, :, 0] + x[:, :, :, 1]) + (x[:, :, :, 2] + x[:, :, :, 3])
+
+
+def _padded(x, n):
+    """x [B, H, rows, cols] with cols padded to n by -inf."""
+    pad = n - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad), value=-math.inf) if pad \
+        else x
+
+
+def fold_model_hd8(q, k, v, m, l, o, q_off, k_off, causal, scale):
+    """ring_fold_fwd_hd8_kernel in its order of work: per 64-row query
+    tile the skip rule decided up front, then one pass over the visited
+    key tiles: m_t = max(m_run, tile row max), c = exp(m_run - m_t), and
+    per thread of a row's quad (its 16 key columns of the tile) l_t = l_t
+    c + (its tile's p summed in column order) and o_t = o_t c + (its
+    tile's p . f32(v) summed over its columns in order; each FMA modelled
+    as a product and a sum);
+    at the end the quad sums l_t and o_t, and (m', l a + l, o a + o) is
+    written once, a = exp(m - m').  Returns new (m, l, o)."""
+    (B, Cq, H, hd), Ck = q.shape, k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m, l, o = m.clone(), l.clone(), o.clone()
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        m_old = m[:, :, q0:q0 + nq].clone()
+        tiles = range(0, Ck, TILE)
+        if not bool(_degenerate_up_front(m_old, q0, q_off, k_off,
+                                         causal).any()):
+            tiles = [k0 for k0 in tiles
+                     if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
+        m_run = m_old.clone()
+        l_t = torch.zeros(B, H, nq, 4)
+        o_t = torch.zeros(B, H, nq, 4, hd)
+        for k0 in tiles:
+            nk = min(TILE, Ck - k0)
+            s = _padded(_tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off,
+                                     causal, scale, q.dtype), TILE)
+            vt = torch.zeros(B, TILE, H, hd)
+            vt[:, :nk] = vf[:, k0:k0 + nk]
+            m_t = torch.maximum(m_run, s.amax(-1))
+            corr = torch.exp(m_run - m_t)
+            m_run = m_t
+            l_t = l_t * corr[..., None]
+            o_t = o_t * corr[..., None, None]
+            p = torch.exp(s - m_t[..., None])
+            tile_sum = torch.zeros(B, H, nq, 4)
+            part = torch.zeros_like(o_t)
+            for i in range(16):
+                cols = [QUAD_COLS[t][i] for t in range(4)]
+                pc = p[..., cols]                        # [B, H, nq, 4]
+                tile_sum = tile_sum + pc
+                part = part + pc[..., None] * vt[:, cols].permute(
+                    0, 2, 1, 3)[:, :, None]
+            l_t = l_t + tile_sum
+            o_t = o_t + part
+        alpha = torch.exp(m_old - m_run)
+        l[:, :, q0:q0 + nq] = l[:, :, q0:q0 + nq] * alpha + _quad_sum(l_t)
+        o[:, :, q0:q0 + nq] = o[:, :, q0:q0 + nq] * alpha[..., None] + \
+            _quad_sum(o_t)
+        m[:, :, q0:q0 + nq] = m_run
+    return m, l, o
+
+
+def _unseen_degenerate(lse, q_off, k_off, causal):
+    """The dk/dv kernel's flag: a row that sees no key of the block
+    (causal, q_off + row < k_off) has a degenerate lse.  Only those rows
+    are read."""
+    unseen = max(0, min(lse.shape[-1], k_off - q_off)) if causal else 0
+    return _degenerate(lse[..., :unseen]) if unseen else False
+
+
+def dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                   dk=None, dv=None):
+    """ring_fold_dkdv_hd8_kernel in its order of work: per 64-key tile,
+    over the query tiles it visits (every tile if a row that sees no key
+    of the block has a degenerate lse, else those not wholly before the
+    key tile), S^T and dP^T as 8-term f32 sums (the products of bf16
+    values exact), P^T = exp(S^T - lse), dS^T = bf16(P^T (dP^T - D)
+    scale); dk's f32 sum of dS^T . Q per 16-query chunk (the tensor
+    cores' m16n8k16), dv per thread of a key's quad over its query
+    columns in order (each FMA a product and a sum), each query tile's
+    part summed apart and then added, the quad's partials summed at the
+    end; then the carried dk, dv plus the block's, once.
+    Returns (dk, dv)."""
+    (B, Cq, H, hd), Ck = q.shape, k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dk = torch.zeros(B, H, Ck, hd) if dk is None else dk.clone()
+    dv = torch.zeros(B, H, Ck, hd) if dv is None else dv.clone()
+    degen = _unseen_degenerate(lse, q_off, k_off, causal)
+    for k0 in range(0, Ck, TILE):
+        nk = min(TILE, Ck - k0)
+        acc_k = torch.zeros(B, H, nk, hd)
+        dv_t = torch.zeros(B, H, nk, 4, hd)
+        for q0 in range(0, Cq, TILE):
+            if _all_masked(q_off, q0, Cq, k_off, k0, causal) and not degen:
+                continue
+            nq = min(TILE, Cq - q0)
+            p, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
+                               q_off, k_off, causal, scale, q.dtype)
+            pt = torch.zeros(B, H, TILE, nk)           # rows past Cq: p = 0
+            pt[:, :, :nq] = p
+            qt = torch.zeros(B, TILE, H, hd)
+            qt[:, :nq] = qf[:, q0:q0 + nq]
+            dot = torch.zeros(B, TILE, H, hd)
+            dot[:, :nq] = dof[:, q0:q0 + nq]
+            for c0 in range(0, nq, 16):
+                acc_k = acc_k + torch.einsum(
+                    "bhcd,bchk->bhdk", ds[:, :, c0:c0 + 16],
+                    qf[:, q0 + c0:q0 + min(c0 + 16, nq)])
+            part = torch.zeros_like(dv_t)
+            for i in range(16):
+                cols = [QUAD_COLS[t][i] for t in range(4)]
+                pc = pt[:, :, cols].transpose(2, 3)       # [B, H, nk, 4]
+                part = part + pc[..., None] * dot[:, cols].permute(
+                    0, 2, 1, 3)[:, :, None]
+            dv_t = dv_t + part
+        dk[:, :, k0:k0 + nk] = dk[:, :, k0:k0 + nk] + acc_k
+        dv[:, :, k0:k0 + nk] = dv[:, :, k0:k0 + nk] + _quad_sum(dv_t)
+    return dk, dv
+
+
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_hd8_bf16_models_match_plain(Cq, Ck, q_off, k_off, causal):
+    """The hd-8 bf16 forward's and dk/dv's orders of work against the
+    plain version on the small blocks (a state from an earlier fold, a
+    block whose first rows see no key), within the bf16 rule, and dk, dv
+    added into carried ones."""
+    q, k, v, do, m, l, o = _block(73, 1, Cq, Ck, 2, 8, torch.bfloat16)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    got = list(fold_model_hd8(q, k, v, m, l, o, q_off, k_off, causal,
+                              scale))
+    got += dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                          scale)
+    _close(got, want[:3] + want[4:], torch.bfloat16)
+    carried = [torch.from_numpy(a) for a in _draw(75, *[(1, 2, Ck, 8)] * 2)]
+    more = [t.clone() for t in carried]
+    ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, *more, q_off, k_off,
+                             causal, scale)
+    _close(dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                          scale, *carried), more, torch.bfloat16)
+
+
+@pytest.mark.parametrize("fresh", [False, True], ids=["carried", "fresh"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_hd8_dkdv_degenerate_rule_reads_only_unseen_rows(Cq, Ck, q_off,
+                                                         k_off, causal,
+                                                         fresh):
+    """The hd-8 dk/dv kernel reads the lse of only the rows that see no
+    key of the block for its skip rule; on the lse of a fold of the block
+    (from an earlier state or a fresh one) that decides as the SIMT
+    kernel's scan of the whole row, and it is true exactly on a fresh
+    state whose first rows see no key."""
+    q, k, v, do, m, l, o = _block(77, 2, Cq, Ck, 2, 8, torch.bfloat16)
+    if fresh:
+        m, l, o = _fresh(m, l, o)
+    _, (lse, _) = _plain_block(q, k, v, do, m, l, o, q_off, k_off, causal,
+                               8 ** -0.5)
+    rule = _unseen_degenerate(lse, q_off, k_off, causal)
+    assert rule == _degenerate(lse)
+    assert rule == (fresh and causal and q_off < k_off)
+
+
+def _c1024_hd8(case, seed):
+    """A C = 1024 block at hd 8 in bf16, as _c1024_case."""
+    C = 1024
+    q, k, v, do, m, l, o = _block(seed, 1, C, C, 2, 8, torch.bfloat16)
+    q_off, k_off = {"fresh": (0, 0), "carried": (C, C),
+                    "off_diagonal": (C, 0)}[case]
+    if case != "off_diagonal":
+        m, l, o = _fresh(m, l, o)
+    if case == "carried":
+        k0, v0 = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _draw(seed + 2, *[(1, C, 2, 8)] * 2))
+        ring_fold_plain(q, k0, v0, m, l, o, C, 0, True, 8 ** -0.5)
+    return q, k, v, do, (m, l, o), q_off, k_off
+
+
+def _jnp_bf16(t):
+    import jax.numpy as jnp
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_hd8_bf16_models_hold_plain_jnp_and_jax_grad_over_1024(case):
+    """At C = 1024 (16 tiles, so the running max rises past the first
+    tile in many rows), hd 8, bf16: the forward's model against the plain
+    fold and the reference's jnp fold in bf16, and the dk/dv model (from
+    the plain fold's lse and D) against the plain version and jax.vjp of
+    the reference's fold in bf16, normalised, all within the bf16 rule."""
+    import jax
+    import jax.numpy as jnp
+    q, k, v, do, state, q_off, k_off = _c1024_hd8(case, 79)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = fold_model_hd8(q, k, v, *state, q_off, k_off, True, scale)
+    _close(got, want[:3], torch.bfloat16)
+    jnp_fold = _jnp_fold(*(_jnp_bf16(t) for t in (q, k, v)),
+                         *(jnp.array(t.numpy()) for t in state),
+                         q_off, k_off, True, scale)
+    _close(got, [torch.from_numpy(np.array(w)) for w in jnp_fold],
+           torch.bfloat16)
+    dkdv = dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, True,
+                          scale)
+    _close(dkdv, want[4:], torch.bfloat16)
+
+    def out(q, k, v):
+        _, l2, o2 = _jnp_fold(q, k, v,
+                              *(jnp.array(t.numpy()) for t in state),
+                              q_off, k_off, True, scale)
+        return o2 / l2[..., None]
+    _, pull = jax.vjp(out, *(_jnp_bf16(t) for t in (q, k, v)))
+    grads = pull(jnp.asarray(do.float().numpy().transpose(0, 2, 1, 3)))
+    _close(dkdv, [torch.from_numpy(np.array(
+        g.astype(jnp.float32)).transpose(0, 2, 1, 3)) for g in grads[1:]],
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal,fresh",
+                         [(256, 256, 256, 256, True, True),
+                          (130, 130, 260, 0, True, False),
+                          (128, 128, 0, 64, True, True),
+                          (200, 70, 0, 0, False, False)])
+def test_hd8_models_on_exact_scores_hold_the_f32_products(Cq, Ck, q_off,
+                                                          k_off, causal,
+                                                          fresh):
+    """With q, k in {-1, 0, 1} every score is the same bits in the models
+    and the plain version, so m, l, o and dv (p's f32 products as f32
+    FMAs, summed per thread and then over the quad) hold the plain
+    version within EXACT_TOL."""
+    q, k, v, do, m, l, o = _block(81, 2, Cq, Ck, 2, 8, torch.bfloat16)
+    rng = np.random.default_rng(83)
+    q, k = (torch.from_numpy(rng.integers(-1, 2, t.shape).astype(
+        np.float32)).to(torch.bfloat16) for t in (q, k))
+    if fresh:
+        m, l, o = _fresh(m, l, o)
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, 0.125)
+    got = list(fold_model_hd8(q, k, v, m, l, o, q_off, k_off, causal,
+                              0.125))
+    got.append(dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                              0.125)[1])
+    for g, w in zip(got, want[:3] + [want[5]]):
+        torch.testing.assert_close(g, w, **EXACT_TOL)
+
+
+def _exact_f64(q, k, v, do, state, lse, q_off, k_off, causal, scale):
+    """[m, l, o, dv] of one block with every sum in f64, from the bf16
+    scores scaled in f32 (the kernels' and the plain version's bits),
+    the f32 state, and dv from the given lse."""
+    s = scores_plain(q, k, q_off, k_off, causal, scale).double()
+    m, l, o = (t.double() for t in state)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    big_p = torch.exp(s - lse.double()[..., None])
+    return [m_new, l * alpha + p.sum(-1),
+            o * alpha[..., None] + torch.einsum("bhcd,bdhk->bhck", p,
+                                                v.double()),
+            torch.einsum("bhcd,bchk->bhdk", big_p, do.double())]
+
+
+def test_hd8_models_on_exact_scores_over_1024_keys_hold_f64():
+    """Over 1024 keys at hd 8 the plain version's own sums of f32
+    products are no nearer the fold in f64 than the kernels' order, so
+    there the hd-8 orders of work are held to the fold in f64 instead,
+    within EXACT_TOL: m, l, o and dv (from the plain fold's lse); p
+    rounded once to bf16 (the control) leaves it."""
+    q, k, v, do, m, l, o = _block(85, 2, 1024, 1024, 4, 8, torch.bfloat16)
+    rng = np.random.default_rng(87)
+    q, k = (torch.from_numpy(rng.integers(-1, 2, t.shape).astype(
+        np.float32)).to(torch.bfloat16) for t in (q, k))
+    state = _fresh(m, l, o)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, 0, 0, True,
+                                      scale)
+    exact = _exact_f64(q, k, v, do, state, lse, 0, 0, True, scale)
+    got = list(fold_model_hd8(q, k, v, *state, 0, 0, True, scale))
+    got.append(dkdv_model_hd8(q, k, v, do, lse, delta, 0, 0, True,
+                              scale)[1])
+    for g, w in zip(got, exact):
+        torch.testing.assert_close(g.double(), w, **EXACT_TOL)
+    s = scores_plain(q, k, 0, 0, True, scale)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    control = torch.einsum("bhcd,bdhk->bhck",
+                           p.to(torch.bfloat16).float(), v.float())
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(control.double(), exact[2], **EXACT_TOL)
+
+
+# ---------------------------------------------------------------------------
 # the card
 
 
@@ -875,6 +1197,11 @@ CARD_BLOCKS = BLOCKS + [(1, 1, 0, 0, True), (1000, 1000, 1000, 0, True),
 @pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal", CARD_BLOCKS)
 def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
                                          dtype):
+    """Every kernel against the plain version: in bf16 at hd 16, 64 and
+    128 the tensor-core kernels of ring_fold_sm90.cu, at hd 8 the
+    tensor-core forward and dk/dv of ring_fold_hd8.cu and the SIMT dq;
+    in f32 the CUDA-core kernels of ring_fold_f32.cu, at hd 8 the SIMT
+    kernels."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do, m, l, o = _block(17, 2, Cq, Ck, 3, hd, dtype, "cuda")
@@ -916,9 +1243,20 @@ def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
 def test_kernels_read_strided_inputs_and_repeat_their_bits(dtype):
     """q, k, v as views of one fused [B, C, 3, H, hd] projection and a
     transposed dO give the bits of contiguous copies, twice."""
+    _strided_and_repeated(dtype, 64)
+
+
+@pytest.mark.cuda
+def test_hd8_kernels_read_strided_inputs_and_repeat_their_bits():
+    """The same at hd 8 in bf16: the tensor-core forward and dk/dv of
+    ring_fold_hd8.cu (and the SIMT dq)."""
+    _strided_and_repeated(torch.bfloat16, 8)
+
+
+def _strided_and_repeated(dtype, hd):
     _card()
     g = torch.Generator(device="cuda").manual_seed(19)
-    B, C, H, hd = 2, 200, 4, 64
+    B, C, H = 2, 200, 4
     qkv = torch.randn(B, C, 3, H, hd, generator=g, device="cuda").to(dtype)
     q, k, v = (qkv[:, :, i] for i in range(3))
     do = torch.randn(B, H, C, hd, generator=g,
@@ -1002,8 +1340,19 @@ def test_one_fold_attention_on_the_card_matches_plain_autograd(dtype,
 def test_tensor_core_kernels_copy_an_unaligned_view():
     """A bf16 k whose base is off 16 bytes (TMA's rule) is copied by the
     wrapper: the forward, dq and dk/dv give the bits of a contiguous k."""
+    _unaligned_k_copied(64)
+
+
+@pytest.mark.cuda
+def test_hd8_kernels_copy_an_unaligned_view():
+    """The same at hd 8, where the forward and dk/dv copy a 16-byte row
+    at a time with cp.async."""
+    _unaligned_k_copied(8)
+
+
+def _unaligned_k_copied(hd):
     _card()
-    q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, 64, torch.bfloat16,
+    q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, hd, torch.bfloat16,
                                   "cuda")
     flat = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
     k_odd = flat[1:].view(k.shape)               # base off by 2 bytes
@@ -1030,8 +1379,10 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
     forward, dq and dk/dv; f32 there the CUDA-core forward, dq and dk/dv
     (ring_fold_fwd_f32_kernel, ring_fold_dq_f32_kernel,
-    ring_fold_dkdv_f32_kernel); hd 8 in both dtypes the SIMT kernels,
-    the only route left to them."""
+    ring_fold_dkdv_f32_kernel); hd 8 in f32 the SIMT kernels, and in
+    bf16 the tensor-core forward and dk/dv of ring_fold_hd8.cu
+    (ring_fold_fwd_hd8_kernel, ring_fold_dkdv_hd8_kernel) beside the
+    SIMT dq."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -1066,7 +1417,9 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
         names
     simt = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
             "ring_fold_fwd_kernel"]
-    assert names["f32_hd8"] == simt and names["bf16_hd8"] == simt, names
+    hd8 = ["ring_fold_dkdv_hd8_kernel", "ring_fold_dq_kernel",
+           "ring_fold_fwd_hd8_kernel"]
+    assert names["f32_hd8"] == simt and names["bf16_hd8"] == hd8, names
 
 
 @pytest.mark.cuda
@@ -1370,6 +1723,41 @@ def test_exact_scores_hold_the_f32_products_of_p(Cq, Ck, q_off, k_off,
     for c, w in zip(control, (want[2], want[5])):
         with pytest.raises(AssertionError):
             torch.testing.assert_close(c, w, **EXACT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal,fresh", EXACT_BLOCKS)
+def test_exact_scores_at_hd8_hold_the_f32_products_of_p(Cq, Ck, q_off,
+                                                        k_off, causal,
+                                                        fresh):
+    """The hd-8 bf16 forward and dk/dv (ring_fold_hd8.cu) on exact
+    scores: m, l, o and dv within EXACT_TOL of the plain version, and
+    over 1024 keys, where the plain version's own f32 sums leave
+    EXACT_TOL of the f64 fold, of the same in f64; p rounded once to bf16
+    leaves it."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, m, l, o = _exact_inputs(89, 2, Cq, Ck, 4, 8, fresh)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    want = want[:3] + [want[5]]
+    if Ck == 1024:
+        want = _exact_f64(q, k, v, do, (m, l, o), lse, q_off, k_off, causal,
+                          scale)
+    got = [t.clone() for t in (m, l, o)]
+    ring_fold_forward(q, k, v, *got, q_off, k_off, causal, scale)
+    dk, dv = (torch.zeros(2, 4, Ck, 8, device="cuda") for _ in range(2))
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, q_off, k_off,
+                            causal, scale)
+    control = _fold_p_bf16(q, k, v, do, m, l, o, q_off, k_off, causal,
+                           scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got + [dv], want):
+        torch.testing.assert_close(g.double(), w.double(), **EXACT_TOL)
+    for c, w in zip(control, (want[2], want[3])):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(c.double(), w.double(), **EXACT_TOL)
 
 
 @pytest.mark.cuda
