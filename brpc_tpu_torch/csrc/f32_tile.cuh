@@ -1,11 +1,12 @@
 // f32_tile.cuh — what the f32 kernels on the CUDA cores share
 // (causal_attention_f32.cu: the causal forward, dq and dk/dv;
-// ring_fold_f32.cu: the ring fold's forward, dq and dk/dv): the padded-row
-// geometry of a staged tile, the cp.async copies that fill it, the row
-// reductions, the per-column row statistics of the transposed (dk/dv)
-// tiles, and the two register-tile products, rows against rows over hd
-// (scores) and a staged [64][64] weight tile times 64 rows of hd
-// (weights_v).
+// ring_fold_f32.cu: the ring fold's forward, dq and dk/dv; at hd 8
+// ring_fold_f32_hd8.cu's dk/dv and ring_fold_hd8.cu's cp.async rings):
+// the padded-row geometry of a staged tile, the cp.async copies that fill
+// it, the row reductions, the per-column row statistics of the
+// transposed (dk/dv) tiles, the two register-tile products, rows against
+// rows over hd (scores) and a staged [64][64] weight tile times 64 rows
+// of hd (weights_v), and the hd-8 kernels' rows of 8 floats (f32_row).
 //
 // Geometry.  A block is 128 threads (4 warps); a tile is 64 query or key
 // rows.  Thread t (ra = t / 8, cb = t % 8) owns rows ra + 16 i (i < 4):
@@ -270,6 +271,21 @@ __device__ __forceinline__ void weights_v(float (&acc)[4][Stage<HD>::kCols],
       }
     }
   }
+}
+
+// The 8 values of a row of 8 floats at src (16-byte aligned, in shared or
+// device memory): the hd-8 kernels' rows.
+__device__ __forceinline__ void f32_row(float (&f)[8], const float* src) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0];
+  const float4 b = reinterpret_cast<const float4*>(src)[1];
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = a.z;
+  f[3] = a.w;
+  f[4] = b.x;
+  f[5] = b.y;
+  f[6] = b.z;
+  f[7] = b.w;
 }
 
 // Stores the thread's columns of one accumulator row to dst (a row of a

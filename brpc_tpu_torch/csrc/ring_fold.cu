@@ -42,12 +42,14 @@
 // from that bound.  Every bf16 launch at hd 16, 64 and 128 (forward, dq
 // and dk/dv) goes to the tensor-core kernels of ring_fold_sm90.cu, and
 // every f32 launch at those head dims to the CUDA-core kernels of
-// ring_fold_f32.cu; the bf16 forward and dk/dv at hd 8 go to the
-// tensor-core kernels of ring_fold_hd8.cu.  This file's kernels are built
-// at hd 8 alone (the reference tests' own head dim): the forward and
-// dk/dv in f32, dq in both dtypes; its C entries dispatch.
+// ring_fold_f32.cu; at hd 8 (the reference tests' own head dim) every
+// bf16 launch goes to the tensor-core kernels of ring_fold_hd8.cu and the
+// f32 dk/dv to the CUDA-core kernel of ring_fold_f32_hd8.cu.  This file's
+// kernels are the f32 forward and dq at hd 8 alone; its C entries
+// dispatch.
 //
-// Design:
+// Design (the SIMT kernels; ring_fold_f32_hd8.cu's note says why its
+// dk/dv left it):
 //  - A tile is 64 query rows or 64 key rows.  A block is 256 threads in a
 //    16 x 16 grid; thread (ty, tx) owns rows ty + 16 i (i < 4) and columns
 //    tx + 16 j of every tile product; a row's 16 owners are one half-warp
@@ -58,15 +60,13 @@
 //    pass 2 p, its row sum and p . V; then the (m, l, o) update, once
 //    per block as the reference's fold.
 //    dq, per query tile: dP, dS and dq += dS . K over the key tiles.
-//    dkdv, per key tile: over the query tiles, dk += dS^T Q and
-//    dv += P^T dO.  No atomics: every output element has one owner, so
-//    two runs give the same bits.
+//    No atomics: every output element has one owner, so two runs give
+//    the same bits.
 //  - Causality: a tile pair with every query before every key is all
 //    -1e30, whose p = exp(-1e30 - m') is 0 for every row that saw a key
 //    before; such pairs are skipped unless some row of the block has
 //    not (then its p is 1, as in the reference, and nothing is skipped).
 //    The wrapper skips a wholly future block without a launch.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -101,10 +101,6 @@ template <>
 __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // x rounded to the working type and back.
 template <typename T>
@@ -112,10 +108,6 @@ __device__ __forceinline__ float round_t(float x);
 template <>
 __device__ __forceinline__ float round_t<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float round_t<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ float half_warp_max(float x) {
@@ -230,11 +222,6 @@ constexpr int fwd_smem() {
 template <int HD>
 constexpr int dq_smem() {
   return (4 * kTile * Dims<HD>::kLd + kTile * kLdP) * (int)sizeof(float);
-}
-template <int HD>
-constexpr int dkdv_smem() {
-  return (4 * kTile * Dims<HD>::kLd + 2 * kTile * kLdP + 2 * kTile) *
-         (int)sizeof(float);
 }
 
 template <typename T, int HD>
@@ -452,109 +439,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-    ring_fold_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          Layout lay, int Cq, int Ck, int H, Pos pos) {
-  constexpr int kLd = Dims<HD>::kLd;
-  constexpr int NJ = Dims<HD>::kNJ;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * kLd;
-  float* sQ = sV + kTile * kLd;
-  float* sDO = sQ + kTile * kLd;
-  float* sP = sDO + kTile * kLd;
-  float* sDS = sP + kTile * kLdP;
-  float* sL = sDS + kTile * kLdP;
-  float* sD = sL + kTile;
-  const int kt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int k0 = kt * kTile;
-  const int n_qt = (Cq + kTile - 1) / kTile;
-  const long long bh = ((long long)b * H + h) * Cq;
-  const long long bhk = ((long long)b * H + h) * Ck;
-
-  int degen = 0;
-  for (int r = threadIdx.x; r < Cq; r += kThreads) {
-    degen |= degenerate(lse[bh + r]);
-  }
-  degen = __syncthreads_or(degen);
-  load_tile<T, HD>(sK, k, lay.t[1], b, h, k0, Ck);
-  load_tile<T, HD>(sV, v, lay.t[2], b, h, k0, Ck);
-  float acc_k[4][NJ];
-  float acc_v[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      acc_k[i][j] = 0.0f;
-      acc_v[i][j] = 0.0f;
-    }
-  }
-  for (int qt = 0; qt < n_qt; ++qt) {
-    const int q0 = qt * kTile;
-    if (!degen && all_masked(pos, q0, Cq, k0, kTile)) {
-      continue;
-    }
-    __syncthreads();
-    load_tile<T, HD>(sQ, q, lay.t[0], b, h, q0, Cq);
-    load_tile<T, HD>(sDO, dout, lay.t[3], b, h, q0, Cq);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      sL[threadIdx.x] = row < Cq ? lse[bh + row] : INFINITY;  // p = 0
-      sD[threadIdx.x] = row < Cq ? delta[bh + row] : 0.0f;
-    }
-    __syncthreads();
-    float L[4];
-    float D[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      L[i] = sL[ty + 16 * i];
-      D[i] = sD[ty + 16 * i];
-    }
-    // rows: queries ty + 16 i; columns: keys tx + 16 j
-    float p[4][4];
-    float ds[4][4];
-    p_and_ds<T, HD>(p, ds, sQ, sK, sDO, sV, q0, k0, Ck, pos, L, D, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = p[i][j];
-        sDS[(ty + 16 * i) * kLdP + tx + 16 * j] = ds[i][j];
-      }
-    }
-    __syncthreads();
-    // rows: keys ty + 16 i; dv[t] += sum_s P[s][t] dO[s], dk likewise
-    tile_mma<NJ, kTile, 1, kLdP, kLd, 1>(acc_v, sP, sDO, tx, ty);
-    tile_mma<NJ, kTile, 1, kLdP, kLd, 1>(acc_k, sDS, sQ, tx, ty);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key < Ck) {
-      float* dkr = dk + (bhk + key) * HD;
-      float* dvr = dv + (bhk + key) * HD;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < HD) {
-          dkr[c] = __fadd_rn(dkr[c], acc_k[i][j]);
-          dvr[c] = __fadd_rn(dvr[c], acc_v[i][j]);
-        }
-      }
-    }
-  }
-}
-
 // Dynamic shared memory above 48 KB needs the opt-in once per kernel.
 template <typename K>
 int allow_smem(K kernel, int bytes) {
@@ -602,23 +486,6 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
-             const float* lse, const float* delta, float* dk, float* dv,
-             const Layout& lay, int B, int Cq, int Ck, int H, const Pos& pos,
-             cudaStream_t st) {
-  static const int attr =
-      allow_smem(ring_fold_dkdv_kernel<T, HD>, dkdv_smem<HD>());
-  if (attr != 0) {
-    return attr;
-  }
-  const dim3 grid((Ck + kTile - 1) / kTile, H, B);
-  ring_fold_dkdv_kernel<T, HD><<<grid, kThreads, dkdv_smem<HD>(), st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, dk,
-      dv, lay, Cq, Ck, H, pos);
-  return (int)cudaGetLastError();
-}
-
 bool valid_shape(int B, int Cq, int Ck, int H) {
   return B > 0 && Cq > 0 && Ck > 0 && H > 0 && H <= 65535 && B <= 65535;
 }
@@ -659,14 +526,25 @@ extern "C" int trpc_ring_fold_bwd_dkdv_f32(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int hd,
     int q_off, int k_off, int causal, float scale, void* stream);
-// The tensor-core kernels at hd 8 (ring_fold_hd8.cu), for bf16.
+// The kernels at hd 8: on the tensor cores (ring_fold_hd8.cu) for bf16,
+// and the CUDA-core dk/dv (ring_fold_f32_hd8.cu) for f32.
 extern "C" int trpc_ring_fold_fwd_hd8(const void* q, const void* k,
                                       const void* v, void* m, void* l,
                                       void* o, const long long* strides,
                                       int B, int Cq, int Ck, int H,
                                       int q_off, int k_off, int causal,
                                       float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dq_hd8(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int q_off, int k_off, int causal,
+    float scale, void* stream);
 extern "C" int trpc_ring_fold_bwd_dkdv_hd8(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, int B, int Cq, int Ck, int H, int q_off,
+    int k_off, int causal, float scale, void* stream);
+extern "C" int trpc_ring_fold_bwd_dkdv_f32_hd8(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int Cq, int Ck, int H, int q_off,
@@ -684,8 +562,9 @@ extern "C" int trpc_ring_fold_bwd_dkdv_hd8(
 // any other); where the driver refuses the tensor map of input i (0 q,
 // 1 k, 2 v, 3 dO) they return -(1000 (i + 1) + its CUresult).  Each
 // takes f32 at those head dims to the CUDA-core kernels, whose 16-byte
-// cp.async copies need the same alignment of q, k, v (and dO); so do
-// the forward's and dk/dv's bf16 kernels at hd 8 (one cp.async a row).
+// cp.async copies need the same alignment of q, k, v (and dO); so do the
+// kernels at hd 8 other than the SIMT ones (the bf16 forward, dq and
+// dk/dv: one cp.async a row; the f32 dk/dv: 16-byte copies and loads).
 
 static bool wide_hd(int hd) { return hd == 16 || hd == 64 || hd == 128; }
 
@@ -700,12 +579,6 @@ static bool tensor_cores(int dtype, int hd) {
     return FN<float, 8>(__VA_ARGS__); \
   }                                   \
   return (int)cudaErrorInvalidValue;
-// the same over both dtypes (dq: bf16 at hd 8 is SIMT too)
-#define TRPC_RF(FN, ...)                      \
-  if (hd == 8 && dtype == 0) {                \
-    return FN<__nv_bfloat16, 8>(__VA_ARGS__); \
-  }                                           \
-  TRPC_RF_F32(FN, __VA_ARGS__)
 
 extern "C" int trpc_ring_fold_fwd(const void* q, const void* k,
                                   const void* v, void* m, void* l, void* o,
@@ -755,11 +628,16 @@ extern "C" int trpc_ring_fold_bwd_dq(const void* q, const void* k,
                                      B, Cq, Ck, H, hd, q_off, k_off, causal,
                                      scale, stream);
   }
+  if (dtype == 0 && hd == 8) {
+    return trpc_ring_fold_bwd_dq_hd8(q, k, v, dout, lse, delta, dq, strides,
+                                     B, Cq, Ck, H, q_off, k_off, causal,
+                                     scale, stream);
+  }
   const Layout lay = layout_of(strides, 4);
   const Pos pos{q_off, k_off, causal, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  TRPC_RF(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta,
-          (float*)dq, lay, B, Cq, Ck, H, pos, st);
+  TRPC_RF_F32(bwd_dq, q, k, v, dout, (const float*)lse, (const float*)delta,
+              (float*)dq, lay, B, Cq, Ck, H, pos, st);
 }
 
 extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
@@ -789,9 +667,10 @@ extern "C" int trpc_ring_fold_bwd_dkdv(const void* q, const void* k,
                                        strides, B, Cq, Ck, H, q_off, k_off,
                                        causal, scale, stream);
   }
-  const Layout lay = layout_of(strides, 4);
-  const Pos pos{q_off, k_off, causal, scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  TRPC_RF_F32(bwd_dkdv, q, k, v, dout, (const float*)lse, (const float*)delta,
-          (float*)dk, (float*)dv, lay, B, Cq, Ck, H, pos, st);
+  if (dtype == 1 && hd == 8) {
+    return trpc_ring_fold_bwd_dkdv_f32_hd8(q, k, v, dout, lse, delta, dk, dv,
+                                           strides, B, Cq, Ck, H, q_off,
+                                           k_off, causal, scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,7 @@
 // ring_fold.cuh — what the ring fold's kernel files share (ring_fold.cu,
 // SIMT; ring_fold_sm90.cu and ring_fold_hd8.cu, tensor cores;
-// ring_fold_f32.cu, CUDA cores): where the held block sits, the masked
-// score, and the rules that skip a tile pair.
+// ring_fold_f32.cu and ring_fold_f32_hd8.cu, CUDA cores): where the held
+// block sits, the masked score, and the rules that skip a tile pair.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,47 +1,50 @@
-// ring_fold_hd8.cu — the ring fold's forward and dk/dv in bf16 at head
-// dim 8 on the tensor cores (mma.sync), with p's f32 products as f32 FMAs
-// from registers.
+// ring_fold_hd8.cu — the ring fold's forward, dq and dk/dv in bf16 at
+// head dim 8 on the tensor cores (mma.sync), with p's f32 products as f32
+// FMAs from registers.
 //
 // Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71 at
-// the reference tests' head dim, and the dk/dv half of its jax.grad,
-// which ring_fold.cu's trpc_ring_fold_fwd and trpc_ring_fold_bwd_dkdv
-// send here for bf16 at hd 8 (bf16 dq and every f32 launch at hd 8 stay
-// on that file's SIMT kernels).  Layout and function are that file's:
+// the reference tests' head dim, and its jax.grad, which ring_fold.cu's
+// trpc_ring_fold_fwd, trpc_ring_fold_bwd_dq and trpc_ring_fold_bwd_dkdv
+// send here for bf16 at hd 8 (f32 at hd 8 goes to ring_fold.cu's SIMT
+// forward and dq and to ring_fold_f32_hd8.cu's dk/dv).  Layout and
+// function are that file's:
 //   q, dO [B, Cq, H, 8], k, v [B, Ck, H, 8] bf16, read through their
 //   (b, s, h) strides (the last dim contiguous; base and strides 16-byte
 //   multiples, which the wrapper ensures by copying any other view)
-//   m, l, lse, D [B, H, Cq] f32, o [B, H, Cq, 8] f32 (unnormalised), dk,
-//   dv [B, H, Ck, 8] f32, contiguous; m, l, o, dk, dv updated in place
+//   m, l, lse, D [B, H, Cq] f32, o, dq [B, H, Cq, 8] f32 (o
+//   unnormalised), dk, dv [B, H, Ck, 8] f32, contiguous; m, l, o, dq,
+//   dk, dv updated in place
 //   s  = f32(bf16(q . k)) * scale, -1e30 where q_off + i < k_off + j
 //        (causal), -inf past Ck (no key: out of every max and sum)
 //   m' = max(m, rowmax s)   p = exp(s - m')   a = exp(m - m')
 //   l' = l a + sum_j p      o' = o a + p . f32(v)   (an f32 product)
 //   P  = exp(s - lse)   dP = f32(dO) . f32(v)   dS = bf16(P (dP - D) scale)
-//   dk += dS^T . q      dv += P^T . f32(dO)    (f32 sums)
+//   dq += dS . k   dk += dS^T . q   dv += P^T . f32(dO)    (f32 sums)
 // each op rounded as the jnp op is (the __f*_rn intrinsics: no FMA
 // contraction across them).
 //
 // Bound on an H100 (B=8, C=1024, H=64, hd=8: chip_smoke.py's RING_HD8,
 // one causal diagonal block; fold_bounds).  268.7 M scores are visible.
-// q.k, dO.v and dS^T.q, products of bf16 values, are 4.3 GFLOP each,
-// 4.35 us on the tensor cores; p.v and P^T.dO, f32 products, 64.2 us
-// each at the CUDA cores' 67 TFLOP/s; one exponential a visible score,
-// 64.3 us on the SFUs (16 an SM a clock).  The forward moves 67.1 MB
-// (20.0 us at 3.35 TB/s), dk/dv 104.9 MB (31.3 us).  So the forward's
-// least time is 68.5 us and dk/dv's 77.2 us, both the CUDA cores' f32
-// products.
+// q.k, dO.v, dS.k and dS^T.q, products of bf16 values, are 4.3 GFLOP
+// each, 4.35 us on the tensor cores; p.v and P^T.dO, f32 products, 64.2
+// us each at the CUDA cores' 67 TFLOP/s; one exponential a visible
+// score, 64.3 us on the SFUs (16 an SM a clock).  The forward moves 67.1
+// MB (20.0 us at 3.35 TB/s), dq 71.3 MB (21.3 us), dk/dv 104.9 MB (31.3
+// us).  So the forward's least time is 68.5 us and dk/dv's 77.2 us, both
+// the CUDA cores' f32 products; dq has no f32 product, and its least
+// time is its exponentials', 64.3 us.
 //
 // Why not the SIMT kernels' design: at hd 8 a row of q, k or v is 16
 // bytes, far too little depth for the 16 x 16 thread grid's staged f32
-// tiles (half of its p . v lanes computed zero padding, p and dS made a
-// round trip through shared memory, and the forward computed q . k
+// tiles (half of its product lanes computed zero padding, p and dS made
+// a round trip through shared memory, and the forward computed q . k
 // twice).  Here a warp owns 16 rows, and hd 8 is exactly one k-step of
 // mma.sync.m16n8k8 (wgmma's bf16 k-step is 16, which would pad q . k):
-//  - q . k (and k . q^T, v . dO^T) with mma.sync m16n8k8: the fragments
-//    of the warp's own 16 rows are loaded once, from device memory; a key
-//    (or query) tile's 8 B fragments with two ldmatrix.x4.  The products
-//    of bf16 values are exact, and their f32 sum of 8 is rounded to bf16
-//    as the reference rounds the T product.
+//  - q . k (and dO . v^T, k . q^T, v . dO^T) with mma.sync m16n8k8: the
+//    fragments of the warp's own 16 rows are loaded once, from device
+//    memory; a key (or query) tile's 8 B fragments with two ldmatrix.x4.
+//    The products of bf16 values are exact, and their f32 sum of 8 is
+//    rounded to bf16 as the reference rounds the T product.
 //  - The scores stay in the accumulator layout: thread (g, t) = (lane /
 //    4, lane % 4) holds rows g and g + 8 at columns 8 j + 2 t + {0, 1}
 //    (j < 8) of a 64-column tile.  p (P^T) is formed there, and its f32
@@ -49,7 +52,11 @@
 //    staged as f32 in shared memory, 8 FMAs for each of its two rows: no
 //    staging of p, no lane on padding, no conversion in the FMA loop.  A
 //    row's 4 owners are a quad, whose partial sums meet with two
-//    xor-shuffles once per block.
+//    xor-shuffles once per block.  dS (dS^T) is formed there too, and
+//    two adjacent n8 accumulator tiles of it, rounded to bf16, are the A
+//    fragment of m16n8k16, so its product with k (q) runs on the tensor
+//    cores with no shared-memory round trip, the B fragments by
+//    ldmatrix.trans from the staged bf16 tile.
 //  - Two stages in shared memory, tile i + 1 landing while tile i is
 //    computed: K (Q; and lse, D) by cp.async, one 16-byte copy a row; V
 //    (dO) loaded into registers a tile ahead and stored as f32 rows (dO
@@ -70,18 +77,28 @@
 // raises a row's max, every exp(s - m_t) is the reference's p bit for
 // bit.  The skip rule is decided before the loop (unseen_degenerate).
 //
+// dq (ring_fold_dq_hd8_kernel): the forward's grid and warps, over the
+// key tiles through the ring, K and V both staged as bf16 rows by
+// cp.async (nothing needs V as f32 here): S = Q . K^T and dP = dO . V^T
+// with m16n8k8 from the warp's Q and dO fragments, P = exp(S - lse) and
+// dS in f32 in registers (lse and D per row, lse = +inf past Cq), then
+// dq += dS . K on m16n8k16 (K's B fragments by ldmatrix.trans), summed
+// in the accumulator over the visited tiles and added to the carried dq
+// once.  No product of it is an f32 one: its loop is the exponentials,
+// the f32 ops around them and three mma a 16 x 16 chunk.  Its skip rule
+// is the SIMT kernel's: every key tile when some row of the query tile
+// has a degenerate lse, else the tiles up to the first wholly masked one.
+//
 // dk/dv (ring_fold_dkdv_hd8_kernel): one block of 4 warps per (64-key
 // tile, h, b), key tile 0 (which the most query tiles see) first, a warp
 // per 16 keys, over the query tiles through the ring: S^T = K . Q^T and
 // dP^T = V . dO^T with m16n8k8, P^T = exp(S^T - lse) and dS^T in f32 in
-// registers; two adjacent n8 accumulator tiles of dS^T, rounded to bf16,
-// are the A fragment of m16n8k16, so dk += dS^T . Q runs on the tensor
-// cores (Q's B fragments by ldmatrix.trans) with no shared-memory round
-// trip; dv += P^T . f32(dO) as f32 FMAs, each query tile's part summed
-// apart and then added, the quad's partials summed once at the end.  The
-// skip rule needs the degenerate flag only of rows that see no key of
-// the block (sees_no_key: none on a diagonal or past block), so only
-// those rows' lse are read for it, not the whole row.
+// registers; dk += dS^T . Q on m16n8k16 as dq's dS . K; dv += P^T .
+// f32(dO) as f32 FMAs, each query tile's part summed apart and then
+// added, the quad's partials summed once at the end.  The skip rule
+// needs the degenerate flag only of rows that see no key of the block
+// (sees_no_key: none on a diagonal or past block), so only those rows'
+// lse are read for it, not the whole row.
 //
 // One owner per output element and no atomics: two runs give the same
 // bits.
@@ -186,20 +203,6 @@ __device__ __forceinline__ void store_f32_row(float* dst, const uint4& u) {
   }
   reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-// The 8 f32 values of a staged f32 row.
-__device__ __forceinline__ void f32_row(float (&f)[8], const float* src) {
-  const float4 a = reinterpret_cast<const float4*>(src)[0];
-  const float4 b = reinterpret_cast<const float4*>(src)[1];
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = a.z;
-  f[3] = a.w;
-  f[4] = b.x;
-  f[5] = b.y;
-  f[6] = b.z;
-  f[7] = b.w;
 }
 
 // f32 rows of v (dO) are staged 12 floats apart: the 16-byte reads of the
@@ -455,6 +458,144 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The 8 B fragments of m16n8k16 (k: 16 rows of a staged 64-row tile, n:
+// its 8 columns) of the tile's four 16-row chunks: chunk c's in r[2 c],
+// r[2 c + 1] (ldmatrix.trans: column g, rows 2 t and 2 t + 1).
+__device__ __forceinline__ void bt_frags(uint32_t (&r)[8], const uint4* tile,
+                                         int lane) {
+  ldsm_x4_trans(r, smem_u32(tile + lane));
+  ldsm_x4_trans(r + 4, smem_u32(tile + 32 + lane));
+}
+
+// Two adjacent n8 accumulator tiles (j even, odd) of an f32 16 x 64 tile
+// rounded to bf16: the A fragment of m16n8k16 over their 16 columns.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], int j,
+                                       const float (&x)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  a[2 * (j & 1)] = *reinterpret_cast<const uint32_t*>(&lo);
+  a[2 * (j & 1) + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ring_fold_dq_hd8_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq, Layout lay, int Cq,
+                            int Ck, int H, Pos pos) {
+  __shared__ __align__(16) uint4 sK[2][kTile];
+  __shared__ __align__(16) uint4 sV[2][kTile];
+  // every (h, b) of the longest query tiles first
+  const int qt = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int h = (int)blockIdx.x % H;
+  const int b = (int)blockIdx.x / H;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qt * kTile;
+  const int r0 = q0 + 16 * (threadIdx.x >> 5) + g;  // rows r0, r0 + 8
+  const int n_kt = (Ck + kTile - 1) / kTile;
+  const long long bh = ((long long)b * H + h) * Cq;
+
+  float L[2];  // +inf past Cq: p = 0 there
+  float D[2];
+  int degen = 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    L[i] = row < Cq ? lse[bh + row] : INFINITY;
+    D[i] = row < Cq ? delta[bh + row] : 0.0f;
+    degen |= row < Cq && degenerate(L[i]);
+  }
+  degen = __syncthreads_or(degen);
+  // the key tiles visited: masked tiles come last, so a prefix
+  int n_vis = 0;
+  while (n_vis < n_kt &&
+         (degen || !all_masked(pos, q0, Cq, n_vis * kTile, kTile))) {
+    ++n_vis;
+  }
+  if (n_vis == 0) {
+    return;  // every P and dS of the query tile is 0: dq stays
+  }
+
+  // threads 0-63 copy a row of K, 64-127 a row of V, with cp.async
+  const int r = threadIdx.x % kTile;
+  const bool copies_k = threadIdx.x < kTile;
+  // a select, not an index: lay.t[runtime] would copy lay to local memory
+  const Strides cs = copies_k ? lay.t[1] : lay.t[2];
+  const bf16* cb = (copies_k ? k : v) + b * cs.b + h * cs.h;
+  copy_row(copies_k ? sK[0] : sV[0], cb, cs, 0, Ck, r);
+  cp_async_commit();
+  const bf16* qb = q + b * lay.t[0].b + h * lay.t[0].h;
+  const bf16* ob = dout + b * lay.t[3].b + h * lay.t[3].h;
+  const uint32_t qa0 = a_word(qb, lay.t[0], r0, Cq, t);
+  const uint32_t qa1 = a_word(qb, lay.t[0], r0 + 8, Cq, t);
+  const uint32_t oa0 = a_word(ob, lay.t[3], r0, Cq, t);
+  const uint32_t oa1 = a_word(ob, lay.t[3], r0 + 8, Cq, t);
+
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // rows r0 (+ 8), dims 2 t..
+  for (int kt = 0; kt < n_vis; ++kt) {
+    cp_async_wait_all();
+    // tile kt is in place for every thread, and every thread is done
+    // with tile kt - 1's stage
+    __syncthreads();
+    if (kt + 1 < n_vis) {
+      copy_row(copies_k ? sK[(kt + 1) & 1] : sV[(kt + 1) & 1], cb, cs,
+               (kt + 1) * kTile, Ck, r);
+      cp_async_commit();
+    }
+    const int st = kt & 1;
+    const int k0 = kt * kTile;
+    uint32_t kf[8];
+    uint32_t vf[8];
+    b_frags(kf, sK[st], lane);
+    b_frags(vf, sV[st], lane);
+    const bool edge = at_edge(pos, q0, k0, Ck);
+    uint32_t dsa[4][4];  // dS as the A fragments of 4 k16 key chunks
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // s[2 i + c], w[2 i + c]: row r0 + 8 i, key k0 + 8 j + 2 t + c
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma_k8(s, qa0, qa1, kf[j]);
+      mma_k8(w, oa0, oa1, vf[j]);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x =
+            edge ? score(s[e], r0 + 8 * (e >> 1),
+                         k0 + 8 * j + 2 * t + (e & 1), Ck, pos)
+                 : scaled(s[e], pos);
+        const float p = expf(__fsub_rn(x, L[e >> 1]));
+        ds[e] = __fmul_rn(__fmul_rn(p, __fsub_rn(w[e], D[e >> 1])),
+                          pos.scale);
+      }
+      pack_a(dsa[j >> 1], j, ds);
+    }
+    // dq += dS . K: B fragments of 16 keys by 8 dims, transposed
+    uint32_t ktf[8];
+    bt_frags(ktf, sK[st], lane);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_k16(acc, dsa[kk], ktf[2 * kk], ktf[2 * kk + 1]);
+    }
+  }
+  // the block's sum added to the carried dq once; scalar accesses: dq
+  // need not be 8-byte aligned
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row < Cq) {
+      float* dst = dq + (bh + row) * 8 + 2 * t;
+      dst[0] = __fadd_rn(dst[0], acc[2 * i]);
+      dst[1] = __fadd_rn(dst[1], acc[2 * i + 1]);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     ring_fold_dkdv_hd8_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -582,15 +723,11 @@ __global__ void __launch_bounds__(kThreads)
         p[j][e] = expf(__fsub_rn(x, L));
         ds[e] = __fmul_rn(__fmul_rn(p[j][e], __fsub_rn(w[e], D)), pos.scale);
       }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(ds[0], ds[1]);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(ds[2], ds[3]);
-      dsa[j >> 1][2 * (j & 1)] = *reinterpret_cast<const uint32_t*>(&lo);
-      dsa[j >> 1][2 * (j & 1) + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+      pack_a(dsa[j >> 1], j, ds);
     }
     // dk += dS^T . Q: B fragments of 16 queries by 8 dims, transposed
     uint32_t qtf[8];
-    ldsm_x4_trans(qtf, smem_u32(sQ[st] + lane));
-    ldsm_x4_trans(qtf + 4, smem_u32(sQ[st] + 32 + lane));
+    bt_frags(qtf, sQ[st], lane);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       mma_k16(dk_acc, dsa[kk], qtf[2 * kk], qtf[2 * kk + 1]);
@@ -669,6 +806,19 @@ extern "C" int trpc_ring_fold_fwd_hd8(const void* q, const void* k,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (float*)m, (float*)l,
       (float*)o, layout_of(strides, 3), Cq, Ck, H,
       Pos{q_off, k_off, causal, scale});
+  return (int)cudaGetLastError();
+}
+
+extern "C" int trpc_ring_fold_bwd_dq_hd8(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int Cq, int Ck, int H, int q_off, int k_off, int causal,
+    float scale, void* stream) {
+  const dim3 grid(B * H, (Cq + kTile - 1) / kTile);
+  ring_fold_dq_hd8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (float*)dq,
+      layout_of(strides, 4), Cq, Ck, H, Pos{q_off, k_off, causal, scale});
   return (int)cudaGetLastError();
 }
 

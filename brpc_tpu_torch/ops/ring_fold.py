@@ -1,8 +1,8 @@
 """The ring-attention fold: the hand-written CUDA kernels
 (``csrc/ring_fold_sm90.cu`` and, at head dim 8, ``csrc/ring_fold_hd8.cu``
-on the tensor cores, ``csrc/ring_fold_f32.cu`` on the CUDA cores,
-``csrc/ring_fold.cu`` SIMT at head dim 8) and the plain PyTorch version
-beside each.
+on the tensor cores, ``csrc/ring_fold_f32.cu`` and, at head dim 8,
+``csrc/ring_fold_f32_hd8.cu`` on the CUDA cores, ``csrc/ring_fold.cu``
+SIMT at head dim 8) and the plain PyTorch version beside each.
 
 Function (brpc_tpu/parallel/ring_attention.py:56-71, one ring step's fold
 of the held K/V block, and its jax.grad; Ulysses' local attention
@@ -28,19 +28,22 @@ kernel's launches.  A CUDA tensor goes to the kernel or raises; only CPU
 tensors take the plain version.
 
 Head dims ``KERNEL_HEAD_DIMS`` on the card (8 is the reference tests'
-own); the plain version takes any.  In bf16 at ``SM90_HEAD_DIMS`` every
+own); the plain version takes any.  In bf16 at head dims 16, 64 and 128 every
 kernel takes its products of bf16 values on the tensor cores (dq all
 three of them) and p's f32 products (p . f32(v), P^T . f32(dO)) as f32
 FMAs on the CUDA cores.  In f32 at those head dims every kernel runs on
 the CUDA cores (register tiles, cp.async copies): the forward and dq in
 one pass over the keys, dk/dv on transposed tiles.  In bf16 at head dim
-8 the forward and dk/dv take the same split on ``mma.sync``
-(``csrc/ring_fold_hd8.cu``: one pass, p in registers); dq in bf16 and
-all three kernels in f32 run the SIMT kernels there.  TMA and cp.async
-copy 16 bytes at a time, so at ``SM90_HEAD_DIMS`` and in bf16 at hd 8 a
-view whose base or strides are not 16-byte multiples is copied first.  ``split_bf16x3`` models the
-three-part bf16 split of p that was tried for p's products on the tensor
-cores.  Bound and design: the kernel sources' notes.
+8 the forward, dq and dk/dv take the same split on ``mma.sync``
+(``csrc/ring_fold_hd8.cu``: one pass, p and dS in registers, dS . k and
+dS^T . q on m16n8k16); in f32 there dk/dv runs on the CUDA cores
+(``csrc/ring_fold_f32_hd8.cu``: K and V in registers, every product an
+FMA from registers) and the forward and dq the SIMT kernels.  TMA and
+cp.async copy 16 bytes at a time, so a view whose base or strides are
+not 16-byte multiples is copied first (the SIMT kernels need it not,
+but take the same views).  ``split_bf16x3`` models the three-part bf16
+split of p that was tried for p's products on the tensor cores.  Bound
+and design: the kernel sources' notes.
 """
 
 from __future__ import annotations
@@ -56,7 +59,6 @@ from brpc_tpu_torch.ops.causal_attention import tma_ready
 NEG = -1e30
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 KERNEL_HEAD_DIMS = (8, 16, 64, 128)
-SM90_HEAD_DIMS = (16, 64, 128)
 # split_bf16x3 splits p 2^SPLIT_SHIFT, whose bf16 parts are all normal
 # for every f32 p (p >= 2^-149), so the split is exact
 SPLIT_SHIFT = 32
@@ -201,14 +203,11 @@ def _check(q, k, v, do, rows, cols) -> None:
 
 def _kernel_views(*ts):
     """The tensors as the kernels read them: a contiguous last dim (the
-    other dims through their strides), and at SM90_HEAD_DIMS and in bf16
-    at hd 8, where the kernels copy 16 bytes at a time (TMA in bf16,
-    cp.async in f32 and at hd 8), what ``tma_ready`` takes; anything else
-    is copied."""
-    hd = ts[0].shape[-1]
-    aligned = hd in SM90_HEAD_DIMS or (hd == 8 and
-                                       ts[0].dtype == torch.bfloat16)
-    return [t if t.stride(-1) == 1 and (not aligned or tma_ready(t))
+    other dims through their strides), base and strides 16-byte multiples
+    (what ``tma_ready`` takes: the kernels copy 16 bytes at a time, TMA
+    in bf16 at hd 16, 64 and 128, cp.async elsewhere); anything else is
+    copied."""
+    return [t if t.stride(-1) == 1 and tma_ready(t)
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 
 

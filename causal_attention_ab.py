@@ -3,8 +3,8 @@ r"""Other trees' causal_attention and ring-fold kernels beside the
 checkout's, on one NVIDIA GPU: the bf16 forward, dq and dk/dv kernels,
 their wrappers' host time, the f32 forward's time and accuracy, the
 time of the ring fold's f32 forward, the f32 dq and dk/dv kernels'
-(causal and the fold's) times, bits and accuracy, and the fold's bf16
-forward and dk/dv at head dim 8.
+(causal and the fold's) times, bits and accuracy, the causal bf16 dq's
+accuracy, and the fold's kernels at head dim 8 in bf16 and in f32.
 
     mkdir -p scratch/base
     git archive <commit> | tar -x -C scratch/base
@@ -53,23 +53,27 @@ reversed.  Each prints one JSON line:
   from the tree's own forward and dq), and ``f32_fold_dkdv`` the fold's
   f32 dk/dv's at RING_SHAPE (lse and D of the fold of that block); each
   beside ``sdpa_f32``'s backward (fwd_bwd less fwd);
-* ``bf16_fold_hd8``: the ring fold's bf16 forward's and dk/dv's
+* ``bf16_fold_hd8``: the ring fold's bf16 forward's, dq's and dk/dv's
   ``device_ms`` at chip_smoke.py's RING_HD8 (hd 8; one causal diagonal
-  block from a fresh state, folded again at every call; dk/dv from the
-  plain fold's lse and D), the share of chip_smoke.py's bf16 rule
-  (RING_TOL and its flips) that m, l, o, dk and dv use against the plain
-  version on the same inputs, and a digest of those outputs' bits;
+  block from a fresh state, folded again at every call; dq and dk/dv
+  from the plain fold's lse and D), the share of chip_smoke.py's bf16
+  rule (RING_TOL and its flips) that m, l, o, dq, dk and dv use against
+  the plain version on the same inputs, and a digest of the bits of m,
+  l, o, dk and dv (``digest``) and of dq (``dq_digest``);
+* ``f32_fold_hd8``: the same in f32 (the share of RING_TOL["f32"]), with
+  a digest of dk and dv;
 * ``dq_digest`` and ``dkdv_digest``: a sha256 of the bytes of dq (the
   causal kernel's with its D) and of dk and dv of those calls (two trees
   that print the same digest computed the same bits);
 * ``dq_f64_err`` and ``dkdv_f64_err``: at S = C = 1000 and 1024, head
-  dims 16, 64 and 128, unit scale and a wide range (q, k x 2, v x 8;
-  B=2, H=3, numpy seed 23), of causal attention (lse from the plain
-  softmax in f32; dk/dv also its D) and of the fold (a ring's first,
-  diagonal block; lse and D of the plain f32 fold): the largest
-  |x - x64| of the kernel and of the plain version against the same in
-  f64 throughout, [kernel dq, plain dq] and [kernel dk, plain dk,
-  kernel dv, plain dv].
+  dims 16, 64 and 128 (the fold also 8), unit scale and a wide range
+  (q, k x 2, v x 8; B=2, H=3, numpy seed 23), of causal attention (lse
+  from the plain softmax in f32; dk/dv also its D; ``causal_bf16_*``:
+  the bf16 dq on the same values rounded to bf16, lse from the bf16
+  scores) and of the fold (a ring's first, diagonal block; lse and D of
+  the plain f32 fold): the largest |x - x64| of the kernel and of the
+  plain version against the same in f64 throughout, [kernel dq, plain
+  dq] and [kernel dk, plain dk, kernel dv, plain dv].
 
 Prints the card's nvidia-smi name and power limit first; exits non-zero
 if a tree's process failed.
@@ -230,6 +234,47 @@ def _fold_f64_grads(q, k, v, do, scale):
             torch.einsum("bhcd,bchk->bhdk", p, do))
 
 
+def _lse(q, k, S, hd):
+    """The plain softmax's f32 lse of causal attention's scores (the
+    product in q's type)."""
+    import torch
+    s = torch.einsum("bshk,bthk->bhst", q, k).float() / math.sqrt(hd)
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
+    return s, torch.logsumexp(s.masked_fill(~mask, -1e30), -1)
+
+
+def causal_errors(ca, q, k, v, do, S, name, out, err) -> dict:
+    """Causal attention's dq, dk, dv in f32 and its dq in bf16 against
+    f64 (bwd_f64_errors' causal rows): {case: [kernel dq, plain dq]},
+    and [kernel dk, plain dk, kernel dv, plain dv] into `out`."""
+    import torch
+    hd = q.shape[-1]
+    # lse and D of the plain f32 softmax
+    s, lse = _lse(q, k, S, hd)
+    p = torch.exp(s - lse[..., None]).tril()
+    delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
+    got = (ca.causal_attention_backward_dq(q, k, v, do, lse)[0],
+           *ca.causal_attention_backward_dkdv(q, k, v, do, lse, delta))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(ca.causal_attention_plain(*leaves), leaves,
+                                do)
+    exact = _causal_f64_grads(q, k, v, do)
+    key = f"S{S}_hd{hd}_{name}"
+    out[f"causal_{key}"] = [err(got[1], exact[1]), err(plain[1], exact[1]),
+                            err(got[2], exact[2]), err(plain[2], exact[2])]
+    # the bf16 dq (its D = sum_t p dW unnormalised) on the values in bf16
+    qb, kb, vb, dob = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    got_b = ca.causal_attention_backward_dq(qb, kb, vb, dob,
+                                            _lse(qb, kb, S, hd)[1])[0]
+    leaves = [t.clone().requires_grad_(True) for t in (qb, kb, vb)]
+    plain_b, = torch.autograd.grad(ca.causal_attention_plain(*leaves),
+                                   leaves[0], dob)
+    exact_b = _causal_f64_grads(qb, kb, vb, dob)[0]
+    return {f"causal_{key}": [err(got[0], exact[0]), err(plain[0], exact[0])],
+            f"causal_bf16_{key}": [err(got_b, exact_b),
+                                   err(plain_b, exact_b)]}
+
+
 def bwd_f64_errors(ca, rf, cs):
     """({case: [kernel dq, plain dq]}, {case: [kernel dk, plain dk,
     kernel dv, plain dv]}): the largest |x - x64| against the same
@@ -242,7 +287,7 @@ def bwd_f64_errors(ca, rf, cs):
         return float((a.double() - b).abs().max())
     dq_out, out = {}, {}
     for S in (1000, 1024):
-        for hd in (16, 64, 128):
+        for hd in (8, 16, 64, 128):
             for name, scale, v_scale in (("unit", 1.0, 1.0),
                                          ("wide", 2.0, 8.0)):
                 rng = np.random.default_rng(23)
@@ -250,25 +295,9 @@ def bwd_f64_errors(ca, rf, cs):
                     (2, S, 3, hd))).astype(np.float32)).to("cuda")
                     for _ in range(4))
                 v = v * v_scale
-                # causal attention: lse and D of the plain f32 softmax
-                s = torch.einsum("bshk,bthk->bhst", q, k) / math.sqrt(hd)
-                mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
-                                             device="cuda"))
-                lse = torch.logsumexp(s.masked_fill(~mask, -1e30), -1)
-                p = torch.exp(s - lse[..., None]).tril()
-                delta = (p * torch.einsum("bshk,bthk->bhst", do, v)).sum(-1)
-                got = (ca.causal_attention_backward_dq(q, k, v, do, lse)[0],
-                       *ca.causal_attention_backward_dkdv(q, k, v, do, lse,
-                                                          delta))
-                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-                plain = torch.autograd.grad(ca.causal_attention_plain(
-                    *leaves), leaves, do)
-                exact = _causal_f64_grads(q, k, v, do)
-                dq_out[f"causal_S{S}_hd{hd}_{name}"] = [
-                    err(got[0], exact[0]), err(plain[0], exact[0])]
-                out[f"causal_S{S}_hd{hd}_{name}"] = [
-                    err(got[1], exact[1]), err(plain[1], exact[1]),
-                    err(got[2], exact[2]), err(plain[2], exact[2])]
+                if hd != 8:   # causal attention takes 16, 64 and 128
+                    dq_out.update(causal_errors(ca, q, k, v, do, S, name,
+                                                out, err))
                 # the fold: a ring's first, diagonal block
                 fscale = hd ** -0.5
                 m = torch.full((2, 3, S), -1e30, device="cuda")
@@ -295,15 +324,16 @@ def bwd_f64_errors(ca, rf, cs):
     return dq_out, out
 
 
-def bf16_fold_hd8(rf, cs, g, flush) -> dict:
-    """The ring fold's bf16 forward and dk/dv at RING_HD8 (one causal
-    diagonal block from a fresh state; dk/dv from the plain fold's lse
-    and D): ``device_ms`` of each, the share of chip_smoke.py's bf16 rule
-    (RING_TOL, flips) each output uses against the plain version, and a
-    digest of the kernels' m, l, o, dk, dv."""
+def fold_hd8(rf, cs, g, flush, dtype) -> dict:
+    """The ring fold's forward, dq and dk/dv at RING_HD8 in `dtype` (one
+    causal diagonal block from a fresh state; dq and dk/dv from the plain
+    fold's lse and D): ``device_ms`` of each, the share of chip_smoke.py's
+    rule (RING_TOL, in bf16 its flips) each output uses against the plain
+    version, and digests of the kernels' outputs."""
     import torch
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
     scale = cs.RING_HD8[3] ** -0.5
-    qkvd, state = cs._fold_inputs(g, cs.RING_HD8, torch.bfloat16, True)
+    qkvd, state = cs._fold_inputs(g, cs.RING_HD8, dtype, True)
     kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
                rf.ring_fold_backward_dkdv)
     plains = (rf.ring_fold_plain, rf.ring_fold_bwd_dq_plain,
@@ -311,18 +341,22 @@ def bf16_fold_hd8(rf, cs, g, flush) -> dict:
     got, _ = cs._fold_block(kernels, qkvd, state, 0, 0, True, scale)
     want, _ = cs._fold_block(plains, qkvd, state, 0, 0, True, scale)
     names = ("m", "l", "o", "dq", "dk", "dv")
-    held = {n: cs._held(a, b, "bf16")[1] for n, a, b in zip(names, got, want)
-            if n != "dq"}
+    held = {n: cs._held(a, b, dt)[1] for n, a, b in zip(names, got, want)}
     q, k, v, do = qkvd
     lse, delta = cs._lse_delta(*want[:3], do)
-    acc = [torch.zeros_like(state[2]) for _ in range(2)]
+    acc = [torch.zeros_like(state[2]) for _ in range(3)]
     return {"shape": list(cs.RING_HD8),
             "fwd": cs.device_ms(lambda: rf.ring_fold_forward(
                 q, k, v, *state, 0, 0, True, scale), flush),
+            "bwd_dq": cs.device_ms(lambda: rf.ring_fold_backward_dq(
+                q, k, v, do, lse, delta, acc[0], 0, 0, True, scale), flush),
             "bwd_dkdv": cs.device_ms(lambda: rf.ring_fold_backward_dkdv(
-                q, k, v, do, lse, delta, *acc, 0, 0, True, scale), flush),
+                q, k, v, do, lse, delta, *acc[1:], 0, 0, True, scale),
+                flush),
             "share_vs_plain": held,
-            "digest": _digest(*(got[i] for i in (0, 1, 2, 4, 5)))}
+            "digest": _digest(*(got[i] for i in (0, 1, 2, 4, 5))),
+            "dkdv_digest": _digest(got[4], got[5]),
+            "dq_digest": _digest(got[3])}
 
 
 def _digest(*ts) -> str:
@@ -437,8 +471,11 @@ def measure(tree: str) -> None:
     fold_dq = cs.device_ms(lambda: rf.ring_fold_backward_dq(
         fq, fk, fv, fdo, flse, fdelta, fdq, 0, 0, True, scale), flush)
     dq_err, dkdv_err = bwd_f64_errors(ca, rf, cs)
-    print(json.dumps({"tree": tree, "bf16_fold_hd8": bf16_fold_hd8(rf, cs, g,
-                                                                   flush),
+    print(json.dumps({"tree": tree,
+                      "bf16_fold_hd8": fold_hd8(rf, cs, g, flush,
+                                                torch.bfloat16),
+                      "f32_fold_hd8": fold_hd8(rf, cs, g, flush,
+                                               torch.float32),
                       "device_ms": device,
                       "prefill_host_us": host, "f32_fwd": f32,
                       "f32_dq": f32_dq, "f32_fold_fwd": fold,

@@ -15,8 +15,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              the ring fold must have some (18 instantiations); its
              ptxas_by_kernel key gives each kernel's registers and spills,
              and the f32 CUDA-core kernels (causal forward, dq and dk/dv,
-             the fold's forward, dq and dk/dv; 18 instantiations) must
-             spill nothing; the fold's bf16 forward and dk/dv at hd 8
+             the fold's forward, dq and dk/dv; 18 instantiations, and the
+             fold's dk/dv at hd 8, ring_fold_f32_hd8.cu) must spill
+             nothing; the fold's bf16 forward, dq and dk/dv at hd 8
              (ring_fold_hd8.cu) must have HMMA (mma.sync) instructions
              (sass_hmma) and spill nothing
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
@@ -123,8 +124,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              autograd of the plain `_dense_local` (the main path of the
              fold: its launches are read over each), and the same at hd 8
              (B=8, S=1024, H=64: d_model 512 in heads of 8; in bf16 the
-             tensor-core forward and dk/dv of csrc/ring_fold_hd8.cu and
-             the SIMT dq, in f32 the SIMT kernels of csrc/ring_fold.cu);
+             tensor-core forward, dq and dk/dv of csrc/ring_fold_hd8.cu,
+             in f32 the CUDA-core dk/dv of csrc/ring_fold_f32_hd8.cu and
+             the SIMT forward and dq of csrc/ring_fold.cu);
              the three ring-fold kernels
              against their plain versions in f32 and bf16, one full-width
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
@@ -134,7 +136,11 @@ printing one JSON line; any failure exits non-zero with no result line:
              exact scores (integer q and k): the bf16 forward and dk/dv
              (at hd 64 and at hd 8) hold m, l, o and dv within EXACT_TOL
              of the plain version (at hd 8 over 1024 keys, of the same
-             in f64), which p rounded once to bf16 leaves;
+             in f64), which p rounded once to bf16 leaves; at hd 8 the
+             bf16 dq on integer q, k, v and dO holds dq (its dS then the
+             plain version's bits), which dS left unrounded leaves, and
+             the f32 dk/dv holds dk and dv, which P and dS rounded once
+             to bf16 leave;
              each kernel timed in bf16 and in f32 at the full-width block
              like the others, beside its bound (products of bf16 values
              at the bf16 rate, p's f32 products and every f32 product at
@@ -144,9 +150,9 @@ printing one JSON line; any failure exits non-zero with no result line:
              f32 fold's device time a layer (forward, dq and dk/dv,
              cold); the kernel names under torch.profiler: bf16 the
              tensor-core forward, dq and dk/dv, f32 the CUDA-core
-             forward, dq and dk/dv, hd 8 in bf16 the tensor-core forward
-             and dk/dv beside the SIMT dq, in f32 the SIMT forward, dq
-             and dk/dv, each timed as above
+             forward, dq and dk/dv, hd 8 in bf16 the tensor-core forward,
+             dq and dk/dv, in f32 the CUDA-core dk/dv beside the SIMT
+             forward and dq, each timed as above
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -444,8 +450,9 @@ def phase_card():
     assert len(f32_cores) == 18 and not any(
         p.get("spill_stores") or p.get("spill_loads")
         for p in f32_cores.values()), f32_cores
-    hd8 = [HD8_KERNELS["bf16"][n][1] for n in ("fwd", "bwd_dkdv")]
+    hd8 = [HD8_KERNELS["bf16"][n][1] for n in ("fwd", "bwd_dq", "bwd_dkdv")]
     assert all(hmma.get(k) for k in hd8), hmma
+    hd8.append(HD8_KERNELS["f32"]["bwd_dkdv"][1])
     assert not any(line["ptxas_by_kernel"][k].get("spill_stores") or
                    line["ptxas_by_kernel"][k].get("spill_loads")
                    for k in hd8), line["ptxas_by_kernel"]
@@ -1459,9 +1466,10 @@ RING_SHAPE = (8, 1024, 8, 64)
 RING_SMALL = (2, 256, 8, 64)
 RING_BLOCKS = ((2, 2), (3, 1), (1, 3))
 # head dim 8, the reference tests' (in bf16 csrc/ring_fold_hd8.cu's
-# forward and dk/dv and the SIMT dq, in f32 csrc/ring_fold.cu's SIMT
-# kernels): ModelConfig()'s d_model 512 as 64 heads of 8, the full-width
-# causal block and a C=256 block in the past, (3, 1)
+# forward, dq and dk/dv; in f32 csrc/ring_fold_f32_hd8.cu's dk/dv and
+# csrc/ring_fold.cu's SIMT forward and dq): ModelConfig()'s d_model 512
+# as 64 heads of 8, the full-width causal block and a C=256 block in the
+# past, (3, 1)
 RING_HD8 = (8, 1024, 64, 8)
 RING_HD8_SMALL = (2, 256, 64, 8)
 # kernels against the plain version: f32 the same sums in another order;
@@ -1486,20 +1494,20 @@ RING_ROUTES = {"bf16": ["ring_fold_dkdv_sm90_kernel",
                "f32": ["ring_fold_dkdv_f32_kernel", "ring_fold_dq_f32_kernel",
                        "ring_fold_fwd_f32_kernel"],
                "hd8_bf16": ["ring_fold_dkdv_hd8_kernel",
-                            "ring_fold_dq_kernel",
+                            "ring_fold_dq_hd8_kernel",
                             "ring_fold_fwd_hd8_kernel"],
-               "hd8_f32": ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
-                           "ring_fold_fwd_kernel"]}
+               "hd8_f32": ["ring_fold_dkdv_f32_hd8_kernel",
+                           "ring_fold_dq_kernel", "ring_fold_fwd_kernel"]}
 # the kernel behind each hd-8 row of the kernels line: (source, kernel as
 # ptxas and cuobjdump name it), by dtype and wrapper
 HD8_KERNELS = {
     "bf16": {"fwd": ("ring_fold_hd8.cu", "ring_fold_fwd_hd8_kernel"),
-             "bwd_dq": ("ring_fold.cu",
-                        "ring_fold_dq_kernel<__nv_bfloat16, 8>"),
+             "bwd_dq": ("ring_fold_hd8.cu", "ring_fold_dq_hd8_kernel"),
              "bwd_dkdv": ("ring_fold_hd8.cu", "ring_fold_dkdv_hd8_kernel")},
     "f32": {"fwd": ("ring_fold.cu", "ring_fold_fwd_kernel<float, 8>"),
             "bwd_dq": ("ring_fold.cu", "ring_fold_dq_kernel<float, 8>"),
-            "bwd_dkdv": ("ring_fold.cu", "ring_fold_dkdv_kernel<float, 8>")}}
+            "bwd_dkdv": ("ring_fold_f32_hd8.cu",
+                         "ring_fold_dkdv_f32_hd8_kernel")}}
 MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
 
 
@@ -1629,6 +1637,98 @@ def _exact_f64(qkvd, state, lse, q_off, k_off, causal, scale):
     return out + [torch.einsum("bhcd,bchk->bhdk", big_p, do.double())]
 
 
+def _bwd_parts(qkvd, lse, delta, args):
+    """The plain backward's f32 scores s, P, dP and dS = P (dP - D) scale
+    (unrounded) of one block, from lse and D."""
+    import torch
+    from brpc_tpu_torch.ops import ring_fold as rf
+    q, k, v, do = qkvd
+    s = rf.scores_plain(q, k, *args)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bchk,bdhk->bhcd", do.float(), v.float())
+    return s, p, dp, p * (dp - delta[..., None]) * args[3]
+
+
+def check_exact_inputs_hd8(g, kernels, plains):
+    """At hd 8, the bf16 dq with q, k, v and dO in {-1, 0, 1} (every dP
+    exact, so every P and dS the plain version's bits, dq a sum of exact
+    products) and the f32 dk/dv with q and k in {-1, 0, 1} (every score
+    exact), each on the RING_HD8 block from a fresh state against the
+    same sums in f64 (its dS from the plain version's bits; dk and dv
+    from the plain lse and D, everything after them in f64), with the
+    plain version's own share beside (plain_*, held to nothing), and on
+    a RING_HD8_SMALL (3, 1) block against the plain version, within
+    EXACT_TOL.  Controls: dS left unrounded (dq), dS and P rounded once
+    to bf16 (dk, dv).  Returns {case: {output: [max abs err, share of
+    EXACT_TOL]}}."""
+    import torch
+
+    def share(a, b):
+        diff = (a.double() - b.double()).abs()
+        return [float(diff.max()), float((diff / (
+            EXACT_TOL["atol"] + EXACT_TOL["rtol"] * b.double().abs())).max())]
+    out = {}
+    for name, shape, dtype, idx, src, fresh, ref in (
+            ("hd8_dq_full_0_0_causal", RING_HD8, torch.bfloat16, 0, 0, True,
+             "f64"),
+            ("hd8_dq_c256_3_1_causal", RING_HD8_SMALL, torch.bfloat16, 3, 1,
+             False, "plain"),
+            ("hd8_f32_full_0_0_causal", RING_HD8, torch.float32, 0, 0, True,
+             "f64"),
+            ("hd8_f32_c256_3_1_causal", RING_HD8_SMALL, torch.float32, 3, 1,
+             False, "plain")):
+        C, hd = shape[1], shape[3]
+        bf16 = dtype == torch.bfloat16
+        qkvd, state = _fold_inputs(g, shape, dtype, fresh)
+        n_int = 4 if bf16 else 2
+        qkvd[:n_int] = [torch.randint(-1, 2, shape, generator=g,
+                                      device="cuda").to(dtype)
+                        for _ in range(n_int)]
+        args = (idx * C, src * C, True, hd ** -0.5)
+        got, _ = _fold_block(kernels, qkvd, state, *args)
+        want, _ = _fold_block(plains, qkvd, state, *args)
+        # the backward's lse and D, as _fold_block takes them
+        lse, delta = _lse_delta(*want[:3], qkvd[3])
+        s, p, dp, ds = _bwd_parts(qkvd, lse, delta, args)
+        q, k, v, do = qkvd
+        if bf16:
+            outs = {"dq": (got[3], want[3], torch.einsum(
+                "bhcd,bdhk->bhck", ds, k.float()))}
+            if ref == "f64":
+                exact = {"dq": torch.einsum(
+                    "bhcd,bdhk->bhck", ds.to(dtype).double(), k.double())}
+        else:
+            outs = {"dk": (got[4], want[4], torch.einsum(
+                        "bhcd,bchk->bhdk", ds.to(torch.bfloat16).float(), q)),
+                    "dv": (got[5], want[5], torch.einsum(
+                        "bhcd,bchk->bhdk", p.to(torch.bfloat16).float(), do))}
+            if ref == "f64":
+                del ds, dp
+                p64 = torch.exp(s.double() - lse.double()[..., None])
+                ds64 = p64 * (torch.einsum(
+                    "bchk,bdhk->bhcd", do.double(), v.double())
+                    - delta.double()[..., None]) * args[3]
+                exact = {"dk": torch.einsum("bhcd,bchk->bhdk", ds64,
+                                            q.double()),
+                         "dv": torch.einsum("bhcd,bchk->bhdk", p64,
+                                            do.double())}
+                del p64, ds64
+        torch.cuda.synchronize()
+        res = {}
+        for o, (kern, plain, control) in outs.items():
+            want_o = exact[o] if ref == "f64" else plain
+            res[o] = share(kern, want_o)
+            res["control_" + o] = share(control, want_o)
+            if ref == "f64":
+                res["plain_" + o] = share(plain, want_o)
+        res["against"] = ref
+        out[name] = res
+        del qkvd, state, got, want, s, p, outs
+        if ref == "f64":
+            del exact
+    return out
+
+
 def check_exact_scores(g, kernels, plains):
     """The bf16 kernels on exact scores (EXACT_TOL): the full-width block
     from a fresh state and a C=256 (3, 1) block on an earlier one, at hd
@@ -1636,7 +1736,8 @@ def check_exact_scores(g, kernels, plains):
     full-width block against the same in f64, where the plain version's
     own sums of 1024 f32 products are no nearer the truth than the
     kernels' (its o and dv against the f64 ones are reported beside, as
-    plain_o and plain_dv, and held to nothing).
+    plain_o and plain_dv, and held to nothing); then
+    check_exact_inputs_hd8.
     Returns {case: {output: [max abs err, share of EXACT_TOL]}}, with the
     control's share on o and dv (p rounded once to bf16)."""
     import torch
@@ -1675,7 +1776,7 @@ def check_exact_scores(g, kernels, plains):
         res["against"] = ref
         out[name] = res
         del qkvd, state, got, want, control
-    return out
+    return {**out, **check_exact_inputs_hd8(g, kernels, plains)}
 
 
 def check_ring_fold(g):
@@ -1839,11 +1940,11 @@ def fold_paths(mesh, dtype, g, shape=RING_SHAPE):
 def phase_ring(smi):
     """ring_attention and ulysses_attention on the NCCL world of one (the
     main path of the fold: the launches are read over it), in bf16 and in
-    f32, at hd 64 and at hd 8 (RING_HD8: in bf16 the tensor-core forward
-    and dk/dv of ring_fold_hd8.cu and the SIMT dq, in f32 the SIMT
-    kernels); the fold kernels against their plain versions, and their
-    times on the device at the full-width block in bf16 and in f32, at
-    both head dims."""
+    f32, at hd 64 and at hd 8 (RING_HD8: in bf16 the tensor-core forward,
+    dq and dk/dv of ring_fold_hd8.cu, in f32 the CUDA-core dk/dv of
+    ring_fold_f32_hd8.cu and the SIMT forward and dq); the fold kernels
+    against their plain versions, and their times on the device at the
+    full-width block in bf16 and in f32, at both head dims."""
     import torch
 
     from brpc_tpu_torch.parallel import make_mesh

@@ -56,7 +56,8 @@ and an unaligned view in bf16; two dk/dv calls bit-equal; the one-pass
 f32 forward's o and lse at S = 1000 and 1024 (at a wider range against
 an f64 reference, as near to it as the plain version); an unaligned f32
 view copied for the f32 forward's, dq's and dk/dv's cp.async,
-bit-equal, and dq and dk/dv twice to the same bits; the f32 dq and
+bit-equal, and dq and dk/dv twice to the same bits; the bf16 dq (its D
+unnormalised) and the f32 dq and
 dk/dv kernels against f64 at unit scale and a wide range, as exact as
 the plain version, and the f32 dk/dv kernel alone against the plain
 version at S = 65 to 1024; and
@@ -881,6 +882,33 @@ def test_f32_dq_at_a_wide_range_is_as_exact_as_plain(S, hd, wide):
     torch.backends.cuda.matmul.allow_tf32 = False
     arrays = _wide(25, 2, S, 3, hd, wide)
     q, k, v, do = (torch.from_numpy(a).to("cuda") for a in arrays)
+    got, _ = causal_attention_backward_dq(q, k, v, do, _lse_plain(q, k))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    plain, = torch.autograd.grad(causal_attention_plain(*leaves), leaves[0],
+                                 do)
+    exact = _f64_grads(q, k, v, do)[0]
+    torch.cuda.synchronize()
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= WIDE_ERR_RATIO * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("S", [1000, 1024])
+def test_bf16_dq_at_a_wide_range_is_as_exact_as_plain(S, hd, wide):
+    """dq of the bf16 dq kernel (causal_dq_sm90, which takes D = sum_t p
+    dW without dividing p by its row sum) against the function in f64
+    throughout on the same bf16 inputs, at unit scale and at a wide range
+    (q, k x 2, v x 8, where the same cause once left the f32 dq at 2.7x
+    the plain version's error): the kernel's
+    largest error at most WIDE_ERR_RATIO times the plain version's
+    (autograd in bf16), the kernel from the plain bf16 scores' f32 lse."""
+    _card()
+    arrays = _wide(25, 2, S, 3, hd, wide)
+    q, k, v, do = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                   for a in arrays)
     got, _ = causal_attention_backward_dq(q, k, v, do, _lse_plain(q, k))
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     plain, = torch.autograd.grad(causal_attention_plain(*leaves), leaves[0],

@@ -47,7 +47,17 @@ On the CPU:
   key of the block alone, against the SIMT kernel's scan.  Control: the
   same model skipping masked tile pairs unconditionally leaves it on a
   block whose first rows have seen no key (the reference weighs their
-  masked scores by 1), in either order.
+  masked scores by 1), in either order.  The hd-8 bf16 dq of
+  ``csrc/ring_fold_hd8.cu`` (``dq_model_hd8``: dq per 16-key chunk, the
+  SIMT kernel's skip rule, with the same control) and the hd-8 f32 dk/dv
+  of ``csrc/ring_fold_f32_hd8.cu`` (``dkdv_model_f32_hd8``: each key
+  row's 8 owners sum their queries straight, then a tree of 8) against
+  the plain version on the small blocks (from zeros and from carried
+  accumulators), over 1024 keys against the plain version and jax.vjp
+  of the reference's fold (bf16 and f32), the f32 dk/dv against f64 at
+  unit and wide range (at most WIDE_ERR_RATIO times the plain version's
+  error), and the dq on integer q, k, v, dO over 1024 keys against the
+  same sum in f64 within EXACT_TOL (control: dS unrounded).
 * ``split_bf16x3``, the split of p into three bf16 parts (of p 2^32)
   for its products on the tensor cores: their sum is p exactly for
   every f32 p in [0, 1] (a split of p itself loses bits below 2^-109),
@@ -67,18 +77,24 @@ and dk/dv's cp.async, bit-equal; the wholly future block with no launch; no
 fallback (a head dim the kernels lack raises); the route under
 torch.profiler (bf16 at hd 16, 64 and 128: the tensor-core forward, dq
 and dk/dv; f32 there: the CUDA-core forward, dq and dk/dv; hd 8 in bf16:
-the tensor-core forward and dk/dv of ring_fold_hd8.cu beside the SIMT
-dq, in f32 the SIMT kernels); dq added into a carried dq; the f32 dq and
+the tensor-core forward, dq and dk/dv of ring_fold_hd8.cu, in f32 the
+CUDA-core dk/dv of ring_fold_f32_hd8.cu beside the SIMT forward and
+dq); dq added into a carried dq; the f32 dq and
 dk/dv added into a carried dq, dk, dv at C = 65 to 1024, and against
-f64 at unit scale and a wide range, as exact as the plain version; and
+f64 at unit scale and a wide range, as exact as the plain version (the
+dk/dv at hd 8 too, with its strided, repeated and unaligned legs); and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
 another order), which p rounded once to bf16 leaves; at hd 8 the same
-for the hd-8 kernels (over 1024 keys against the fold in f64).  Every
-``KERNEL_HEAD_DIMS`` leg at hd 8 in bf16 reaches the hd-8 tensor-core
-forward and dk/dv (a view not 16-byte aligned is copied for their
-cp.async) and the SIMT dq.  They skip without
+for the hd-8 kernels (over 1024 keys against the fold in f64), and on
+integer q, k, v, dO the bf16 dq (every dS the plain version's bits)
+and on integer q, k the f32 dk and dv within ``EXACT_TOL``, which dS
+left unrounded (dq) or P and dS rounded to bf16 (dk, dv) leave.  Every
+``KERNEL_HEAD_DIMS`` leg at hd 8 reaches, in bf16, the hd-8
+tensor-core forward, dq and dk/dv, and in f32 the hd-8 CUDA-core dk/dv
+beside the SIMT forward and dq (a view not 16-byte aligned is copied
+for their 16-byte copies).  They skip without
 a card and run there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_ring_fold.py`` (this file imports jax only inside its
 CPU legs).
@@ -1003,6 +1019,86 @@ def dkdv_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
     return dk, dv
 
 
+def dq_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                 dq=None, skip_always=False):
+    """ring_fold_dq_hd8_kernel in its order of work: per 64-row query
+    tile, over the key tiles it visits (every tile if a row of the query
+    tile has a degenerate lse, else those not wholly masked; with
+    ``skip_always`` never every tile), S and dP as 8-term f32 sums (the
+    products of bf16 values exact), P = exp(S - lse), dS = bf16(P (dP -
+    D) scale); dq's f32 sum of dS . K per 16-key chunk (the tensor cores'
+    m16n8k16), over the chunks in key order; then the carried dq plus the
+    block's, once.  Returns dq."""
+    (B, Cq, H, hd), Ck = q.shape, k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros(B, H, Cq, hd) if dq is None else dq.clone()
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        tiles = range(0, Ck, TILE)
+        if skip_always or not _degenerate(lse[:, :, q0:q0 + nq]):
+            tiles = [k0 for k0 in tiles
+                     if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
+        acc = torch.zeros(B, H, nq, hd)
+        for k0 in tiles:
+            nk = min(TILE, Ck - k0)
+            _, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
+                               q_off, k_off, causal, scale, q.dtype)
+            for c0 in range(0, nk, 16):
+                acc = acc + torch.einsum(
+                    "bhcd,bdhk->bhck", ds[..., c0:c0 + 16],
+                    kf[:, k0 + c0:k0 + min(c0 + 16, nk)])
+        dq[:, :, q0:q0 + nq] = dq[:, :, q0:q0 + nq] + acc
+    return dq
+
+
+def _oct_sum(x):
+    """The sum of 8 owners' partials x[..., cb, :] (cb on dim 3), as three
+    xor-shuffles add them: ((x0 + x1) + (x2 + x3)) + ((x4 + x5) +
+    (x6 + x7))."""
+    pairs = [x[:, :, :, i] + x[:, :, :, i + 1] for i in range(0, 8, 2)]
+    return (pairs[0] + pairs[1]) + (pairs[2] + pairs[3])
+
+
+def dkdv_model_f32_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                       scale, dk=None, dv=None):
+    """ring_fold_dkdv_f32_hd8_kernel in its order of work: per 64-key
+    tile, over the query tiles it visits (as dkdv_model_hd8: every tile
+    if a row that sees no key of the block has a degenerate lse, else
+    those not wholly before the key tile), P^T and dS^T in f32 (nothing
+    rounded); each of a key row's 8 owners cb (query columns cb + 8 j of
+    every tile) sums dS^T q and P^T dO over its queries in order straight
+    into its accumulators (each FMA a product and a sum), the owners'
+    sums added as three xor-shuffles add them, once; then the carried
+    dk, dv plus the block's.  Returns (dk, dv)."""
+    (B, Cq, H, hd), Ck = q.shape, k.shape[1]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dk = torch.zeros(B, H, Ck, hd) if dk is None else dk.clone()
+    dv = torch.zeros(B, H, Ck, hd) if dv is None else dv.clone()
+    degen = _unseen_degenerate(lse, q_off, k_off, causal)
+    for k0 in range(0, Ck, TILE):
+        nk = min(TILE, Ck - k0)
+        acc = [torch.zeros(B, H, nk, 8, hd) for _ in range(2)]
+        for q0 in range(0, Cq, TILE):
+            if _all_masked(q_off, q0, Cq, k_off, k0, causal) and not degen:
+                continue
+            nq = min(TILE, Cq - q0)
+            p, ds = _tile_p_ds(qf, kf, vf, dof, lse, delta, q0, k0, nq, nk,
+                               q_off, k_off, causal, scale, q.dtype)
+            w = [torch.zeros(B, H, TILE, nk) for _ in range(2)]
+            rows = [torch.zeros(B, TILE, H, hd) for _ in range(2)]
+            for x, y, src in zip(w, rows, ((ds, qf), (p, dof))):
+                x[:, :, :nq] = src[0]        # rows past Cq: P = dS = 0
+                y[:, :nq] = src[1][:, q0:q0 + nq]
+            for j in range(8):
+                cols = [cb + 8 * j for cb in range(8)]
+                for a, x, y in zip(acc, w, rows):
+                    a += x[:, :, cols].transpose(2, 3)[..., None] * \
+                        y[:, cols].permute(0, 2, 1, 3)[:, :, None]
+        dk[:, :, k0:k0 + nk] = dk[:, :, k0:k0 + nk] + _oct_sum(acc[0])
+        dv[:, :, k0:k0 + nk] = dv[:, :, k0:k0 + nk] + _oct_sum(acc[1])
+    return dk, dv
+
+
 @pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
                          BLOCKS + [(200, 130, 0, 100, True)])
 def test_hd8_bf16_models_match_plain(Cq, Ck, q_off, k_off, causal):
@@ -1176,6 +1272,164 @@ def test_hd8_models_on_exact_scores_over_1024_keys_hold_f64():
         torch.testing.assert_close(control.double(), exact[2], **EXACT_TOL)
 
 
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_hd8_bf16_dq_model_matches_plain(Cq, Ck, q_off, k_off, causal):
+    """The hd-8 bf16 dq's order of work against the plain version on the
+    small blocks (a state from an earlier fold, a block whose first rows
+    see no key), within the bf16 rule, from zeros and added into a
+    carried dq."""
+    q, k, v, do, m, l, o = _block(91, 1, Cq, Ck, 2, 8, torch.bfloat16)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    got = dq_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal, scale)
+    _close([got], want[3:4], torch.bfloat16)
+    carried = torch.from_numpy(_draw(93, (1, 2, Cq, 8))[0])
+    more = carried.clone()
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, more, q_off, k_off,
+                           causal, scale)
+    got = dq_model_hd8(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                       dq=carried)
+    assert not torch.equal(got, carried)
+    _close([got], [more], torch.bfloat16)
+
+
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_hd8_f32_dkdv_model_matches_plain(Cq, Ck, q_off, k_off, causal):
+    """The hd-8 f32 dk/dv's order of work (per-owner sums, a tree of 8)
+    against the plain version on the small blocks within CARD_TOL, from
+    zeros and added into carried dk, dv."""
+    q, k, v, do, m, l, o = _block(95, 1, Cq, Ck, 2, 8, torch.float32)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    got = dkdv_model_f32_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                             scale)
+    _close(got, want[4:], torch.float32)
+    carried = [torch.from_numpy(a) for a in _draw(97, *[(1, 2, Ck, 8)] * 2)]
+    more = [t.clone() for t in carried]
+    ring_fold_bwd_dkdv_plain(q, k, v, do, lse, delta, *more, q_off, k_off,
+                             causal, scale)
+    got = dkdv_model_f32_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
+                             scale, *carried)
+    assert not any(torch.equal(g, c) for g, c in zip(got, carried))
+    _close(got, more, torch.float32)
+
+
+def test_hd8_dq_model_skipping_every_masked_tile_fails_a_fresh_block():
+    """Rows 0..63 at q_off 0 see no key at k_off 64: from a fresh state
+    their lse is about -1e30 and the reference weighs their masked
+    scores by exp(0) = 1, so the dq kernel's rule visits every key tile
+    there; skipping the masked tiles regardless leaves the plain dq."""
+    q, k, v, do, m, l, o = _block(99, 1, 128, 128, 2, 8, torch.bfloat16)
+    want, (lse, delta) = _plain_block(q, k, v, do, *_fresh(m, l, o), 0, 64,
+                                      True, 8 ** -0.5)
+    assert _degenerate(lse[:, :, :64])
+    args = (q, k, v, do, lse, delta, 0, 64, True, 8 ** -0.5)
+    _close([dq_model_hd8(*args)], want[3:4], torch.bfloat16)
+    with pytest.raises(AssertionError):
+        _close([dq_model_hd8(*args, skip_always=True)], want[3:4],
+               torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_hd8_bf16_dq_model_holds_plain_and_jax_grad_over_1024(case):
+    """At C = 1024, hd 8, bf16: the dq model (from the plain fold's lse
+    and D) against the plain version and jax.vjp of the reference's fold
+    in bf16, normalised, within the bf16 rule."""
+    import jax
+    import jax.numpy as jnp
+    q, k, v, do, state, q_off, k_off = _c1024_hd8(case, 101)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = dq_model_hd8(q, k, v, do, lse, delta, q_off, k_off, True, scale)
+    _close([got], want[3:4], torch.bfloat16)
+
+    def out(q, k, v):
+        _, l2, o2 = _jnp_fold(q, k, v,
+                              *(jnp.array(t.numpy()) for t in state),
+                              q_off, k_off, True, scale)
+        return o2 / l2[..., None]
+    _, pull = jax.vjp(out, *(_jnp_bf16(t) for t in (q, k, v)))
+    dq = pull(jnp.asarray(do.float().numpy().transpose(0, 2, 1, 3)))[0]
+    _close([got], [torch.from_numpy(np.array(
+        dq.astype(jnp.float32)).transpose(0, 2, 1, 3))], torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_hd8_f32_dkdv_model_holds_plain_and_jax_grad_over_1024(case):
+    """At C = 1024, hd 8, f32: the dk/dv model (from the plain fold's lse
+    and D) within CARD_TOL of ring_fold_bwd_dkdv_plain and of jax.vjp of
+    the reference's fold, normalised."""
+    q, k, v, do, state, q_off, k_off = _c1024_case(case, 103, hd=8)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = dkdv_model_f32_hd8(q, k, v, do, lse, delta, q_off, k_off, True,
+                             scale)
+    _close(got, want[4:], torch.float32)
+    _close(got, _jnp_fold_grads(q, k, v, do, *state, q_off, k_off, True,
+                                scale)[1:], torch.float32)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_hd8_f32_dkdv_model_is_as_exact_as_plain_against_f64(C, wide):
+    """The hd-8 f32 dk/dv's order (a ring's first, diagonal block, from
+    the plain f32 fold's lse and D) against the fold and backward in f64
+    throughout, at unit scale and at a wide range (q, k x 2, v x 8): its
+    largest error at most WIDE_ERR_RATIO times the plain version's, as
+    the card leg holds the kernel."""
+    q, k, v, do, m, l, o = _wide_block(105, 1, C, 2, 8, wide)
+    scale = 8 ** -0.5
+    plain, (lse, delta) = _plain_block(q, k, v, do, m, l, o, 0, 0, True,
+                                       scale)
+    got = dkdv_model_f32_hd8(q, k, v, do, lse, delta, 0, 0, True, scale)
+    exact = _f64_bwd(q, k, v, do, m, l, o, 0, 0, True, scale)[1:]
+    for name, g, p, e in zip(("dk", "dv"), got, plain[4:], exact):
+        err = float((g.double() - e).abs().max())
+        plain_err = float((p.double() - e).abs().max())
+        assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
+
+
+def _integer_block(seed, B, Cq, Ck, H, device="cpu"):
+    """A bf16 block at hd 8 whose q, k, v and dO have entries in {-1, 0,
+    1}, and a fresh state."""
+    q, k, v, do, m, l, o = _block(seed, B, Cq, Ck, H, 8, torch.bfloat16,
+                                  device)
+    rng = np.random.default_rng(seed + 2)
+    return [torch.from_numpy(rng.integers(-1, 2, t.shape).astype(
+        np.float32)).to(device, torch.bfloat16) for t in (q, k, v, do)] + \
+        list(_fresh(m, l, o))
+
+
+def test_hd8_dq_model_on_integer_inputs_over_1024_keys_holds_f64():
+    """With q, k, v and dO in {-1, 0, 1}, every score, dP and so every P
+    and dS is the same bits in the model and the plain version; dq is
+    then a sum of exact products, and the model's (per 16-key chunk, in
+    key order) holds the same sum in f64 within EXACT_TOL over 1024
+    keys, as the plain version's does; dS left unrounded (the control)
+    leaves it."""
+    q, k, v, do, m, l, o = _integer_block(107, 2, 1024, 1024, 2)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, 0, 0, True,
+                                      scale)
+    from brpc_tpu_torch.ops.ring_fold import _p_ds
+    p, ds = _p_ds(q, k, v, do, lse, delta, 0, 0, True, scale)
+    exact = torch.einsum("bhcd,bdhk->bhck", ds.double(), k.double())
+    got = dq_model_hd8(q, k, v, do, lse, delta, 0, 0, True, scale)
+    for g in (got, want[3]):
+        torch.testing.assert_close(g.double(), exact, **EXACT_TOL)
+    dp = torch.einsum("bchk,bdhk->bhcd", do.float(), v.float())
+    unrounded = p * (dp - delta[..., None]) * scale
+    control = torch.einsum("bhcd,bdhk->bhck", unrounded.double(), k.double())
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(control, exact, **EXACT_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the card
 
@@ -1198,10 +1452,10 @@ CARD_BLOCKS = BLOCKS + [(1, 1, 0, 0, True), (1000, 1000, 1000, 0, True),
 def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
                                          dtype):
     """Every kernel against the plain version: in bf16 at hd 16, 64 and
-    128 the tensor-core kernels of ring_fold_sm90.cu, at hd 8 the
-    tensor-core forward and dk/dv of ring_fold_hd8.cu and the SIMT dq;
-    in f32 the CUDA-core kernels of ring_fold_f32.cu, at hd 8 the SIMT
-    kernels."""
+    128 the tensor-core kernels of ring_fold_sm90.cu, at hd 8 those of
+    ring_fold_hd8.cu; in f32 the CUDA-core kernels of ring_fold_f32.cu,
+    at hd 8 the CUDA-core dk/dv of ring_fold_f32_hd8.cu and the SIMT
+    forward and dq."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do, m, l, o = _block(17, 2, Cq, Ck, 3, hd, dtype, "cuda")
@@ -1248,9 +1502,18 @@ def test_kernels_read_strided_inputs_and_repeat_their_bits(dtype):
 
 @pytest.mark.cuda
 def test_hd8_kernels_read_strided_inputs_and_repeat_their_bits():
-    """The same at hd 8 in bf16: the tensor-core forward and dk/dv of
-    ring_fold_hd8.cu (and the SIMT dq)."""
+    """The same at hd 8 in bf16: the tensor-core forward, dq and dk/dv of
+    ring_fold_hd8.cu."""
     _strided_and_repeated(torch.bfloat16, 8)
+
+
+@pytest.mark.cuda
+def test_hd8_f32_kernels_read_strided_inputs_and_repeat_their_bits():
+    """The same at hd 8 in f32: the CUDA-core dk/dv of
+    ring_fold_f32_hd8.cu (16-byte copies of q and dO, 16-byte loads of k
+    and v; the fused projection's strides are 16-byte multiples) beside
+    the SIMT forward and dq."""
+    _strided_and_repeated(torch.float32, 8)
 
 
 def _strided_and_repeated(dtype, hd):
@@ -1345,17 +1608,25 @@ def test_tensor_core_kernels_copy_an_unaligned_view():
 
 @pytest.mark.cuda
 def test_hd8_kernels_copy_an_unaligned_view():
-    """The same at hd 8, where the forward and dk/dv copy a 16-byte row
-    at a time with cp.async."""
+    """The same at hd 8, where the forward, dq and dk/dv copy a 16-byte
+    row at a time with cp.async."""
     _unaligned_k_copied(8)
 
 
-def _unaligned_k_copied(hd):
+@pytest.mark.cuda
+def test_hd8_f32_kernels_copy_an_unaligned_view():
+    """The same at hd 8 in f32 (a k off by 4 bytes), where the dk/dv
+    loads k's rows 16 bytes at a time: the view is copied for every
+    kernel, and the forward, dq and dk/dv give the bits of a contiguous
+    k."""
+    _unaligned_k_copied(8, torch.float32)
+
+
+def _unaligned_k_copied(hd, dtype=torch.bfloat16):
     _card()
-    q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, hd, torch.bfloat16,
-                                  "cuda")
+    q, k, v, do, m, l, o = _block(33, 2, 130, 130, 3, hd, dtype, "cuda")
     flat = torch.empty(k.numel() + 1, dtype=k.dtype, device="cuda")
-    k_odd = flat[1:].view(k.shape)               # base off by 2 bytes
+    k_odd = flat[1:].view(k.shape)         # base off by one element
     k_odd.copy_(k)
     lse, delta = _lse_delta(m, l, o, do)
     outs = []
@@ -1379,10 +1650,11 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     torch.profiler: bf16 at hd 16, 64 and 128 launches the tensor-core
     forward, dq and dk/dv; f32 there the CUDA-core forward, dq and dk/dv
     (ring_fold_fwd_f32_kernel, ring_fold_dq_f32_kernel,
-    ring_fold_dkdv_f32_kernel); hd 8 in f32 the SIMT kernels, and in
-    bf16 the tensor-core forward and dk/dv of ring_fold_hd8.cu
-    (ring_fold_fwd_hd8_kernel, ring_fold_dkdv_hd8_kernel) beside the
-    SIMT dq."""
+    ring_fold_dkdv_f32_kernel); hd 8 in bf16 the tensor-core forward, dq
+    and dk/dv of ring_fold_hd8.cu (ring_fold_fwd_hd8_kernel,
+    ring_fold_dq_hd8_kernel, ring_fold_dkdv_hd8_kernel), and in f32 the
+    CUDA-core dk/dv of ring_fold_f32_hd8.cu
+    (ring_fold_dkdv_f32_hd8_kernel) beside the SIMT forward and dq."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -1415,11 +1687,11 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
            "ring_fold_fwd_f32_kernel"]
     assert names["f32"] == names["f32_hd16"] == names["f32_hd128"] == f32, \
         names
-    simt = ["ring_fold_dkdv_kernel", "ring_fold_dq_kernel",
-            "ring_fold_fwd_kernel"]
-    hd8 = ["ring_fold_dkdv_hd8_kernel", "ring_fold_dq_kernel",
+    f32_hd8 = ["ring_fold_dkdv_f32_hd8_kernel", "ring_fold_dq_kernel",
+               "ring_fold_fwd_kernel"]
+    hd8 = ["ring_fold_dkdv_hd8_kernel", "ring_fold_dq_hd8_kernel",
            "ring_fold_fwd_hd8_kernel"]
-    assert names["f32_hd8"] == simt and names["bf16_hd8"] == hd8, names
+    assert names["f32_hd8"] == f32_hd8 and names["bf16_hd8"] == hd8, names
 
 
 @pytest.mark.cuda
@@ -1483,13 +1755,13 @@ def test_dq_kernel_adds_into_a_carried_dq_on_the_card(Cq, Ck, q_off, k_off,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 @pytest.mark.parametrize("C", [65, 200, 1000, 1024])
 def test_f32_dkdv_matches_plain_on_the_card(C, hd):
-    """The f32 dk/dv kernel on a causal diagonal block of a carried
-    state, adding into dk and dv carried over earlier blocks: within
-    CARD_TOL of ring_fold_bwd_dkdv_plain from the same dk, dv, one
-    launch."""
+    """The f32 dk/dv kernel (at hd 8 ring_fold_f32_hd8.cu's) on a causal
+    diagonal block of a carried state, adding into dk and dv carried
+    over earlier blocks: within CARD_TOL of ring_fold_bwd_dkdv_plain
+    from the same dk, dv, one launch."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do, m, l, o = _block(63, 2, C, C, 3, hd, torch.float32, "cuda")
@@ -1511,7 +1783,7 @@ def test_f32_dkdv_matches_plain_on_the_card(C, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 @pytest.mark.parametrize("C", [1000, 1024])
 def test_f32_dkdv_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
     """dk and dv of the f32 dk/dv kernel (a ring's first, diagonal block)
@@ -1537,7 +1809,7 @@ def test_f32_dkdv_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 def test_f32_dkdv_copies_an_unaligned_view_and_repeats_its_bits(hd):
     """An f32 q and dO whose bases are off 16 bytes (the f32 dk/dv's
     16-byte cp.async copies) are copied by the wrapper: dk and dv are the
@@ -1758,6 +2030,68 @@ def test_exact_scores_at_hd8_hold_the_f32_products_of_p(Cq, Ck, q_off,
     for c, w in zip(control, (want[2], want[3])):
         with pytest.raises(AssertionError):
             torch.testing.assert_close(c.double(), w.double(), **EXACT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal,fresh", EXACT_BLOCKS)
+def test_exact_inputs_at_hd8_hold_the_bf16_dq_and_f32_dkdv(Cq, Ck, q_off,
+                                                            k_off, causal,
+                                                            fresh):
+    """The hd-8 bf16 dq (ring_fold_dq_hd8_kernel) with q, k, v and dO in
+    {-1, 0, 1}: every P and dS is the plain version's bits, so dq, a sum
+    of exact products on the tensor cores, holds the plain version's
+    within EXACT_TOL (over 1024 keys the same sum in f64); dS left
+    unrounded (the control) leaves it.  The hd-8 f32 dk/dv
+    (ring_fold_dkdv_f32_hd8_kernel) with integer q and k: dk and dv
+    within EXACT_TOL of the plain version's (over 1024 queries of the
+    same in f64 from the plain lse and D); dS and P rounded once to bf16
+    (the control) leave it."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from brpc_tpu_torch.ops.ring_fold import _p_ds
+    scale = 8 ** -0.5
+    args = (q_off, k_off, causal, scale)
+    q, k, v, do, m, l, o = _integer_block(109, 2, Cq, Ck, 4, "cuda")
+    if not fresh:
+        m, l, o = _block(111, 2, Cq, Ck, 4, 8, torch.float32, "cuda")[4:]
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, *args)
+    p, ds = _p_ds(q, k, v, do, lse, delta, *args)
+    dq = torch.zeros_like(want[3])
+    ring_fold_backward_dq(q, k, v, do, lse, delta, dq, *args)
+    ref = want[3].double()
+    if Ck == 1024:
+        ref = torch.einsum("bhcd,bdhk->bhck", ds.double(), k.double())
+    dp = torch.einsum("bchk,bdhk->bhcd", do.float(), v.float())
+    control = torch.einsum("bhcd,bdhk->bhck",
+                           p * (dp - delta[..., None]) * scale, k.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dq.double(), ref, **EXACT_TOL)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(control.double(), ref, **EXACT_TOL)
+
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    g = torch.Generator(device="cuda").manual_seed(113)
+    v, do = (torch.randn(t.shape, generator=g, device="cuda") for t in (v, do))
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, *args)
+    p, ds = _p_ds(q, k, v, do, lse, delta, *args)
+    dk, dv = torch.zeros_like(want[4]), torch.zeros_like(want[5])
+    ring_fold_backward_dkdv(q, k, v, do, lse, delta, dk, dv, *args)
+    refs = [want[4].double(), want[5].double()]
+    if Cq == 1024:
+        s = scores_plain(q, k, *args).double()
+        p64 = torch.exp(s - lse.double()[..., None])
+        dp64 = torch.einsum("bchk,bdhk->bhcd", do.double(), v.double())
+        ds64 = p64 * (dp64 - delta.double()[..., None]) * scale
+        refs = [torch.einsum("bhcd,bchk->bhdk", ds64, q.double()),
+                torch.einsum("bhcd,bchk->bhdk", p64, do.double())]
+    controls = [torch.einsum("bhcd,bchk->bhdk",
+                             x.to(torch.bfloat16).float(), y)
+                for x, y in ((ds, q), (p, do))]
+    torch.cuda.synchronize()
+    for got, ref, control in zip((dk, dv), refs, controls):
+        torch.testing.assert_close(got.double(), ref, **EXACT_TOL)
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(control.double(), ref, **EXACT_TOL)
 
 
 @pytest.mark.cuda
