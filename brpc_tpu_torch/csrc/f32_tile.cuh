@@ -1,7 +1,8 @@
 // f32_tile.cuh — what the f32 kernels on the CUDA cores share
 // (causal_attention_f32.cu: the causal forward, dq and dk/dv;
 // ring_fold_f32.cu: the ring fold's forward, dq and dk/dv; at hd 8
-// ring_fold_f32_hd8.cu's dk/dv and ring_fold_hd8.cu's cp.async rings):
+// ring_fold_f32_hd8.cu's forward, dq and dk/dv and ring_fold_hd8.cu's
+// cp.async rings):
 // the padded-row geometry of a staged tile, the cp.async copies that fill
 // it, the row reductions, the per-column row statistics of the
 // transposed (dk/dv) tiles, the two register-tile products, rows against
@@ -117,15 +118,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Rows [row0, row0 + 64) of head (b, h) into the padded tile at dst;
-// rows at or past S zero-filled.
-template <int HD>
+// rows at or past S zero-filled.  NT: the block's threads, which share
+// the copies.
+template <int HD, int NT = kThreads>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           const Strides& st, int b, int h,
                                           int row0, int S) {
   constexpr int kChunks = HD / 4;  // 16-byte copies a row
   const float* base = src + b * st.b + h * st.h;
   const uint32_t d = smem_u32(dst);
-  for (int e = threadIdx.x; e < kTile * kChunks; e += kThreads) {
+  for (int e = threadIdx.x; e < kTile * kChunks; e += NT) {
     const int r = e / kChunks;
     const int c = e % kChunks;
     const int row = row0 + r;

@@ -1,7 +1,7 @@
-// ring_fold.cuh — what the ring fold's kernel files share (ring_fold.cu,
-// SIMT; ring_fold_sm90.cu and ring_fold_hd8.cu, tensor cores;
-// ring_fold_f32.cu and ring_fold_f32_hd8.cu, CUDA cores): where the held
-// block sits, the masked score, and the rules that skip a tile pair.
+// ring_fold.cuh — what the ring fold's kernel files share
+// (ring_fold_sm90.cu and ring_fold_hd8.cu, tensor cores; ring_fold_f32.cu
+// and ring_fold_f32_hd8.cu, CUDA cores): where the held block sits, the
+// masked score, and the rules that skip a tile pair.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,7 +44,7 @@ __device__ __forceinline__ bool sees_no_key(const Pos& pos, int row) {
 // degenerate) and sees none of this block, so its masked scores weigh 1
 // and no tile pair may be skipped.  A row that sees a key of the block
 // has a finite score, so its m' and lse leave -1e30: this is the rule
-// read after a first pass (the SIMT kernels'), decided without it.
+// read after a first pass (a two-pass forward's), decided without it.
 __device__ __forceinline__ bool unseen_degenerate(const Pos& pos, int row,
                                                   float x) {
   return sees_no_key(pos, row) && degenerate(x);

@@ -5,9 +5,8 @@
 // Counterpart: the fold of brpc_tpu/parallel/ring_attention.py:56-71 at
 // the reference tests' head dim, and its jax.grad, which ring_fold.cu's
 // trpc_ring_fold_fwd, trpc_ring_fold_bwd_dq and trpc_ring_fold_bwd_dkdv
-// send here for bf16 at hd 8 (f32 at hd 8 goes to ring_fold.cu's SIMT
-// forward and dq and to ring_fold_f32_hd8.cu's dk/dv).  Layout and
-// function are that file's:
+// send here for bf16 at hd 8 (f32 at hd 8 goes to ring_fold_f32_hd8.cu).
+// Layout and function are ring_fold.cu's:
 //   q, dO [B, Cq, H, 8], k, v [B, Ck, H, 8] bf16, read through their
 //   (b, s, h) strides (the last dim contiguous; base and strides 16-byte
 //   multiples, which the wrapper ensures by copying any other view)

@@ -1,8 +1,8 @@
 """The ring-attention fold: the hand-written CUDA kernels
 (``csrc/ring_fold_sm90.cu`` and, at head dim 8, ``csrc/ring_fold_hd8.cu``
 on the tensor cores, ``csrc/ring_fold_f32.cu`` and, at head dim 8,
-``csrc/ring_fold_f32_hd8.cu`` on the CUDA cores, ``csrc/ring_fold.cu``
-SIMT at head dim 8) and the plain PyTorch version beside each.
+``csrc/ring_fold_f32_hd8.cu`` on the CUDA cores; ``csrc/ring_fold.cu``
+holds their C entries) and the plain PyTorch version beside each.
 
 Function (brpc_tpu/parallel/ring_attention.py:56-71, one ring step's fold
 of the held K/V block, and its jax.grad; Ulysses' local attention
@@ -36,14 +36,15 @@ the CUDA cores (register tiles, cp.async copies): the forward and dq in
 one pass over the keys, dk/dv on transposed tiles.  In bf16 at head dim
 8 the forward, dq and dk/dv take the same split on ``mma.sync``
 (``csrc/ring_fold_hd8.cu``: one pass, p and dS in registers, dS . k and
-dS^T . q on m16n8k16); in f32 there dk/dv runs on the CUDA cores
-(``csrc/ring_fold_f32_hd8.cu``: K and V in registers, every product an
-FMA from registers) and the forward and dq the SIMT kernels.  TMA and
-cp.async copy 16 bytes at a time, so a view whose base or strides are
-not 16-byte multiples is copied first (the SIMT kernels need it not,
-but take the same views).  ``split_bf16x3`` models the three-part bf16
-split of p that was tried for p's products on the tensor cores.  Bound
-and design: the kernel sources' notes.
+dS^T . q on m16n8k16); in f32 there the forward, dq and dk/dv run on
+the CUDA cores (``csrc/ring_fold_f32_hd8.cu``: a thread's rows in
+registers, the other side's rows of 8 floats through a cp.async ring,
+every product an FMA from registers; the forward in one pass, dq with
+each row's keys in one thread).  TMA and cp.async copy 16 bytes at a
+time, so a view whose base or strides are not 16-byte multiples is
+copied first, for every kernel.  ``split_bf16x3`` models the three-part
+bf16 split of p that was tried for p's products on the tensor cores.
+Bound and design: the kernel sources' notes.
 """
 
 from __future__ import annotations
@@ -204,9 +205,10 @@ def _check(q, k, v, do, rows, cols) -> None:
 def _kernel_views(*ts):
     """The tensors as the kernels read them: a contiguous last dim (the
     other dims through their strides), base and strides 16-byte multiples
-    (what ``tma_ready`` takes: the kernels copy 16 bytes at a time, TMA
-    in bf16 at hd 16, 64 and 128, cp.async elsewhere); anything else is
-    copied."""
+    (what ``tma_ready`` takes: every kernel copies 16 bytes at a time,
+    TMA in bf16 at hd 16, 64 and 128, cp.async and 16-byte loads
+    elsewhere, the f32 forward, dq and dk/dv at hd 8 among them);
+    anything else is copied."""
     return [t if t.stride(-1) == 1 and tma_ready(t)
             else t.clone(memory_format=torch.contiguous_format) for t in ts]
 

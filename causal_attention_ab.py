@@ -61,7 +61,10 @@ reversed.  Each prints one JSON line:
   the plain version on the same inputs, and a digest of the bits of m,
   l, o, dk and dv (``digest``) and of dq (``dq_digest``);
 * ``f32_fold_hd8``: the same in f32 (the share of RING_TOL["f32"]), with
-  a digest of dk and dv;
+  a digest of dk and dv, and ``fwd_f64``: the forward's m, l and o
+  against the fold in f64 throughout, [max abs err, share of
+  RING_TOL["f32"]] (the largest over m, l and o) of the kernel and of
+  the plain version;
 * ``dq_digest`` and ``dkdv_digest``: a sha256 of the bytes of dq (the
   causal kernel's with its D) and of dk and dv of those calls (two trees
   that print the same digest computed the same bits);
@@ -75,8 +78,11 @@ reversed.  Each prints one JSON line:
   plain version against the same in f64 throughout, [kernel dq, plain
   dq] and [kernel dk, plain dk, kernel dv, plain dv].
 
-Prints the card's nvidia-smi name and power limit first; exits non-zero
-if a tree's process failed.
+Prints the card's nvidia-smi name and power limit first and, after the
+trees' lines, one line ``f32_fold_hd8_dq_bits_equal_first_tree``: for
+each process in order, whether its f32 hd-8 ``dq_digest`` equals the
+first TREE's (the same dq bits); exits non-zero if a tree's process
+failed.
 """
 
 import hashlib
@@ -185,17 +191,8 @@ def fold_f64_errors(rf, cs) -> dict:
             rf.ring_fold_forward(q, k, v, *kern, q_off, k_off, True, scale)
             plain = [t.clone() for t in (m, l, o)]
             rf.ring_fold_plain(q, k, v, *plain, q_off, k_off, True, scale)
-            s = torch.einsum("bchk,bdhk->bhcd", q.double(),
-                             k.double()) * scale
-            qpos = q_off + torch.arange(C, device="cuda")
-            kpos = k_off + torch.arange(C, device="cuda")
-            s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
-            m64 = torch.maximum(m.double(), s.amax(-1))
-            p = torch.exp(s - m64[..., None])
-            a = torch.exp(m.double() - m64)
-            exact = [m64, l.double() * a + p.sum(-1),
-                     o.double() * a[..., None] + torch.einsum(
-                         "bhcd,bdhk->bhck", p, v.double())]
+            exact = cs._fold_f64((q, k, v), (m, l, o), q_off, k_off, True,
+                                 scale)
             out[f"{name}_hd{hd}"] = [share(kern, exact),
                                      share(plain, exact),
                                      share(kern, plain)]
@@ -345,7 +342,15 @@ def fold_hd8(rf, cs, g, flush, dtype) -> dict:
     q, k, v, do = qkvd
     lse, delta = cs._lse_delta(*want[:3], do)
     acc = [torch.zeros_like(state[2]) for _ in range(3)]
-    return {"shape": list(cs.RING_HD8),
+    fwd_f64 = None
+    if dtype == torch.float32:
+        exact = cs._fold_f64(qkvd, state, 0, 0, True, scale)
+        fwd_f64 = {}
+        for who, outs in (("kernel", got), ("plain", want)):
+            errs = [cs._held(outs[i], exact[i], dt) for i in range(3)]
+            fwd_f64[who] = [max(e[0] for e in errs), max(e[1] for e in errs)]
+        del exact
+    return {"shape": list(cs.RING_HD8), "fwd_f64": fwd_f64,
             "fwd": cs.device_ms(lambda: rf.ring_fold_forward(
                 q, k, v, *state, 0, 0, True, scale), flush),
             "bwd_dq": cs.device_ms(lambda: rf.ring_fold_backward_dq(
@@ -511,10 +516,21 @@ def main(argv) -> int:
                        check=True)
     with ThreadPoolExecutor(len(trees) + 1) as ex:
         list(ex.map(build, trees + [HERE]))
-    rc = 0
+    rc, runs = 0, []
     for tree in trees + [HERE, HERE] + trees[::-1]:
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--measure", tree]).returncode
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--measure", tree], stdout=subprocess.PIPE,
+                           text=True)
+        sys.stdout.write(r.stdout)
+        sys.stdout.flush()
+        rc |= r.returncode
+        lines = [json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.startswith("{")]
+        runs.append((tree, lines[-1]["f32_fold_hd8"]["dq_digest"]
+                     if lines else None))
+    print(json.dumps({"f32_fold_hd8_dq_bits_equal_first_tree": [
+        {"tree": tree, "equal": digest is not None
+         and digest == runs[0][1]} for tree, digest in runs]}), flush=True)
     return rc
 
 

@@ -16,8 +16,10 @@ printing one JSON line; any failure exits non-zero with no result line:
              ptxas_by_kernel key gives each kernel's registers and spills,
              and the f32 CUDA-core kernels (causal forward, dq and dk/dv,
              the fold's forward, dq and dk/dv; 18 instantiations, and the
-             fold's dk/dv at hd 8, ring_fold_f32_hd8.cu) must spill
-             nothing; the fold's bf16 forward, dq and dk/dv at hd 8
+             fold's forward, dq and dk/dv at hd 8, ring_fold_f32_hd8.cu)
+             must spill nothing, and no SIMT fold kernel is left
+             (ring_fold_fwd_kernel<, ring_fold_dq_kernel<); the fold's
+             bf16 forward, dq and dk/dv at hd 8
              (ring_fold_hd8.cu) must have HMMA (mma.sync) instructions
              (sass_hmma) and spill nothing
   plane      the CUDA device plane: h2d -> d2h and d2d round trips of
@@ -125,22 +127,27 @@ printing one JSON line; any failure exits non-zero with no result line:
              fold: its launches are read over each), and the same at hd 8
              (B=8, S=1024, H=64: d_model 512 in heads of 8; in bf16 the
              tensor-core forward, dq and dk/dv of csrc/ring_fold_hd8.cu,
-             in f32 the CUDA-core dk/dv of csrc/ring_fold_f32_hd8.cu and
-             the SIMT forward and dq of csrc/ring_fold.cu);
+             in f32 the CUDA-core forward, dq and dk/dv of
+             csrc/ring_fold_f32_hd8.cu);
              the three ring-fold kernels
              against their plain versions in f32 and bf16, one full-width
              block and blocks of C=256 at (idx, src) (2, 2), (3, 1),
              (1, 3), causal and not, the wholly future (1, 3) block
              skipped with no launch, and at hd 8 the full-width block and
-             a C=256 (3, 1) block (RING_TOL, with the bf16 flip rule);
+             a C=256 (3, 1) block (RING_TOL, with the bf16 flip rule; the
+             f32 forward's state against the fold in f64, the plain
+             version's share of it beside, because the plain f32 GEMM's
+             own error from the exact fold reaches RING_TOL);
              exact scores (integer q and k): the bf16 forward and dk/dv
              (at hd 64 and at hd 8) hold m, l, o and dv within EXACT_TOL
              of the plain version (at hd 8 over 1024 keys, of the same
              in f64), which p rounded once to bf16 leaves; at hd 8 the
              bf16 dq on integer q, k, v and dO holds dq (its dS then the
-             plain version's bits), which dS left unrounded leaves, and
-             the f32 dk/dv holds dk and dv, which P and dS rounded once
-             to bf16 leave;
+             plain version's bits), which dS left unrounded leaves, the
+             f32 dk/dv holds dk and dv, which P and dS rounded once to
+             bf16 leave, and the f32 forward on integer q and k holds m,
+             l and o (over 1024 keys of the same in f64), which p
+             rounded once to bf16 leaves;
              each kernel timed in bf16 and in f32 at the full-width block
              like the others, beside its bound (products of bf16 values
              at the bf16 rate, p's f32 products and every f32 product at
@@ -151,8 +158,8 @@ printing one JSON line; any failure exits non-zero with no result line:
              cold); the kernel names under torch.profiler: bf16 the
              tensor-core forward, dq and dk/dv, f32 the CUDA-core
              forward, dq and dk/dv, hd 8 in bf16 the tensor-core forward,
-             dq and dk/dv, in f32 the CUDA-core dk/dv beside the SIMT
-             forward and dq, each timed as above
+             dq and dk/dv, in f32 the CUDA-core forward, dq and dk/dv,
+             each timed as above
   mesh_train make_train_step(cfg, mesh) at the train phase's width on
              the same world, mesh {"dp": 1, "ep": 1, "sp": 1, "tp": 1}:
              5 steps from the train phase's seeded state, each loss
@@ -450,12 +457,17 @@ def phase_card():
     assert len(f32_cores) == 18 and not any(
         p.get("spill_stores") or p.get("spill_loads")
         for p in f32_cores.values()), f32_cores
-    hd8 = [HD8_KERNELS["bf16"][n][1] for n in ("fwd", "bwd_dq", "bwd_dkdv")]
+    names = ("fwd", "bwd_dq", "bwd_dkdv")
+    hd8 = [HD8_KERNELS["bf16"][n][1] for n in names]
     assert all(hmma.get(k) for k in hd8), hmma
-    hd8.append(HD8_KERNELS["f32"]["bwd_dkdv"][1])
+    hd8 += [HD8_KERNELS["f32"][n][1] for n in names]
     assert not any(line["ptxas_by_kernel"][k].get("spill_stores") or
                    line["ptxas_by_kernel"][k].get("spill_loads")
                    for k in hd8), line["ptxas_by_kernel"]
+    simt = [k for k in line["ptxas_by_kernel"]
+            if k.startswith(("ring_fold_fwd_kernel<",
+                             "ring_fold_dq_kernel<"))]
+    assert not simt, f"SIMT fold kernels left: {simt}"
     return line
 
 
@@ -1466,10 +1478,9 @@ RING_SHAPE = (8, 1024, 8, 64)
 RING_SMALL = (2, 256, 8, 64)
 RING_BLOCKS = ((2, 2), (3, 1), (1, 3))
 # head dim 8, the reference tests' (in bf16 csrc/ring_fold_hd8.cu's
-# forward, dq and dk/dv; in f32 csrc/ring_fold_f32_hd8.cu's dk/dv and
-# csrc/ring_fold.cu's SIMT forward and dq): ModelConfig()'s d_model 512
-# as 64 heads of 8, the full-width causal block and a C=256 block in the
-# past, (3, 1)
+# forward, dq and dk/dv; in f32 csrc/ring_fold_f32_hd8.cu's):
+# ModelConfig()'s d_model 512 as 64 heads of 8, the full-width causal
+# block and a C=256 block in the past, (3, 1)
 RING_HD8 = (8, 1024, 64, 8)
 RING_HD8_SMALL = (2, 256, 64, 8)
 # kernels against the plain version: f32 the same sums in another order;
@@ -1497,15 +1508,16 @@ RING_ROUTES = {"bf16": ["ring_fold_dkdv_sm90_kernel",
                             "ring_fold_dq_hd8_kernel",
                             "ring_fold_fwd_hd8_kernel"],
                "hd8_f32": ["ring_fold_dkdv_f32_hd8_kernel",
-                           "ring_fold_dq_kernel", "ring_fold_fwd_kernel"]}
+                           "ring_fold_dq_f32_hd8_kernel",
+                           "ring_fold_fwd_f32_hd8_kernel"]}
 # the kernel behind each hd-8 row of the kernels line: (source, kernel as
 # ptxas and cuobjdump name it), by dtype and wrapper
 HD8_KERNELS = {
     "bf16": {"fwd": ("ring_fold_hd8.cu", "ring_fold_fwd_hd8_kernel"),
              "bwd_dq": ("ring_fold_hd8.cu", "ring_fold_dq_hd8_kernel"),
              "bwd_dkdv": ("ring_fold_hd8.cu", "ring_fold_dkdv_hd8_kernel")},
-    "f32": {"fwd": ("ring_fold.cu", "ring_fold_fwd_kernel<float, 8>"),
-            "bwd_dq": ("ring_fold.cu", "ring_fold_dq_kernel<float, 8>"),
+    "f32": {"fwd": ("ring_fold_f32_hd8.cu", "ring_fold_fwd_f32_hd8_kernel"),
+            "bwd_dq": ("ring_fold_f32_hd8.cu", "ring_fold_dq_f32_hd8_kernel"),
             "bwd_dkdv": ("ring_fold_f32_hd8.cu",
                          "ring_fold_dkdv_f32_hd8_kernel")}}
 MESH_AXES = {"dp": 1, "ep": 1, "sp": 1, "tp": 1}
@@ -1585,6 +1597,25 @@ def _fold_block(fns, qkvd, state, q_off, k_off, causal, scale):
     return out + grads, ran
 
 
+def _fold_f64(qkvd, state, q_off, k_off, causal, scale):
+    """[m, l, o] of the fold of one block into the state in f64
+    throughout."""
+    import torch
+    q, k, v = (t.double() for t in qkvd[:3])
+    m, l, o = (t.double() for t in state)
+    s = torch.einsum("bchk,bdhk->bhcd", q, k) * scale
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k.shape[1], device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, -1e30)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    del s
+    alpha = torch.exp(m - m_new)
+    return [m_new, l * alpha + p.sum(-1),
+            o * alpha[..., None] + torch.einsum("bhcd,bdhk->bhck", p, v)]
+
+
 def _held(got, want, dt):
     """(max abs error, share of the tolerance used) of one output under
     the RING_TOL / flip rule (held when the share is at most 1)."""
@@ -1652,15 +1683,16 @@ def _bwd_parts(qkvd, lse, delta, args):
 def check_exact_inputs_hd8(g, kernels, plains):
     """At hd 8, the bf16 dq with q, k, v and dO in {-1, 0, 1} (every dP
     exact, so every P and dS the plain version's bits, dq a sum of exact
-    products) and the f32 dk/dv with q and k in {-1, 0, 1} (every score
-    exact), each on the RING_HD8 block from a fresh state against the
-    same sums in f64 (its dS from the plain version's bits; dk and dv
-    from the plain lse and D, everything after them in f64), with the
-    plain version's own share beside (plain_*, held to nothing), and on
-    a RING_HD8_SMALL (3, 1) block against the plain version, within
+    products), the f32 dk/dv with q and k in {-1, 0, 1} (every score
+    exact) and the f32 forward likewise, each on the RING_HD8 block from
+    a fresh state against the same sums in f64 (its dS from the plain
+    version's bits; dk and dv from the plain lse and D, everything after
+    them in f64; m, l and o from the scores in f64), with the plain
+    version's own share beside (plain_*, held to nothing), and on a
+    RING_HD8_SMALL (3, 1) block against the plain version, within
     EXACT_TOL.  Controls: dS left unrounded (dq), dS and P rounded once
-    to bf16 (dk, dv).  Returns {case: {output: [max abs err, share of
-    EXACT_TOL]}}."""
+    to bf16 (dk, dv), p rounded once to bf16 (o).  Returns {case:
+    {output: [max abs err, share of EXACT_TOL]}}."""
     import torch
 
     def share(a, b):
@@ -1668,19 +1700,22 @@ def check_exact_inputs_hd8(g, kernels, plains):
         return [float(diff.max()), float((diff / (
             EXACT_TOL["atol"] + EXACT_TOL["rtol"] * b.double().abs())).max())]
     out = {}
-    for name, shape, dtype, idx, src, fresh, ref in (
-            ("hd8_dq_full_0_0_causal", RING_HD8, torch.bfloat16, 0, 0, True,
-             "f64"),
-            ("hd8_dq_c256_3_1_causal", RING_HD8_SMALL, torch.bfloat16, 3, 1,
-             False, "plain"),
-            ("hd8_f32_full_0_0_causal", RING_HD8, torch.float32, 0, 0, True,
-             "f64"),
-            ("hd8_f32_c256_3_1_causal", RING_HD8_SMALL, torch.float32, 3, 1,
-             False, "plain")):
+    for name, shape, dtype, part, idx, src, fresh, ref in (
+            ("hd8_dq_full_0_0_causal", RING_HD8, torch.bfloat16, "dq", 0, 0,
+             True, "f64"),
+            ("hd8_dq_c256_3_1_causal", RING_HD8_SMALL, torch.bfloat16, "dq",
+             3, 1, False, "plain"),
+            ("hd8_f32_full_0_0_causal", RING_HD8, torch.float32, "dkdv", 0,
+             0, True, "f64"),
+            ("hd8_f32_c256_3_1_causal", RING_HD8_SMALL, torch.float32,
+             "dkdv", 3, 1, False, "plain"),
+            ("hd8_f32_fwd_full_0_0_causal", RING_HD8, torch.float32, "fwd",
+             0, 0, True, "f64"),
+            ("hd8_f32_fwd_c256_3_1_causal", RING_HD8_SMALL, torch.float32,
+             "fwd", 3, 1, False, "plain")):
         C, hd = shape[1], shape[3]
-        bf16 = dtype == torch.bfloat16
         qkvd, state = _fold_inputs(g, shape, dtype, fresh)
-        n_int = 4 if bf16 else 2
+        n_int = 4 if part == "dq" else 2
         qkvd[:n_int] = [torch.randint(-1, 2, shape, generator=g,
                                       device="cuda").to(dtype)
                         for _ in range(n_int)]
@@ -1689,15 +1724,25 @@ def check_exact_inputs_hd8(g, kernels, plains):
         want, _ = _fold_block(plains, qkvd, state, *args)
         # the backward's lse and D, as _fold_block takes them
         lse, delta = _lse_delta(*want[:3], qkvd[3])
-        s, p, dp, ds = _bwd_parts(qkvd, lse, delta, args)
         q, k, v, do = qkvd
-        if bf16:
+        exact = {}
+        if part == "fwd":
+            outs = {"m": (got[0], want[0], None), "l": (got[1], want[1], None),
+                    "o": (got[2], want[2],
+                          _fold_p_bf16(qkvd, state, *args)[0])}
+            if ref == "f64":
+                exact = dict(zip("mlo", _exact_f64(qkvd, state, lse,
+                                                   *args)[:3]))
+        elif part == "dq":
+            s, p, dp, ds = _bwd_parts(qkvd, lse, delta, args)
             outs = {"dq": (got[3], want[3], torch.einsum(
                 "bhcd,bdhk->bhck", ds, k.float()))}
             if ref == "f64":
                 exact = {"dq": torch.einsum(
                     "bhcd,bdhk->bhck", ds.to(dtype).double(), k.double())}
+            del s, p, dp, ds
         else:
+            s, p, dp, ds = _bwd_parts(qkvd, lse, delta, args)
             outs = {"dk": (got[4], want[4], torch.einsum(
                         "bhcd,bchk->bhdk", ds.to(torch.bfloat16).float(), q)),
                     "dv": (got[5], want[5], torch.einsum(
@@ -1713,19 +1758,19 @@ def check_exact_inputs_hd8(g, kernels, plains):
                          "dv": torch.einsum("bhcd,bchk->bhdk", p64,
                                             do.double())}
                 del p64, ds64
+            del s, p
         torch.cuda.synchronize()
         res = {}
         for o, (kern, plain, control) in outs.items():
             want_o = exact[o] if ref == "f64" else plain
             res[o] = share(kern, want_o)
-            res["control_" + o] = share(control, want_o)
+            if control is not None:
+                res["control_" + o] = share(control, want_o)
             if ref == "f64":
                 res["plain_" + o] = share(plain, want_o)
         res["against"] = ref
         out[name] = res
-        del qkvd, state, got, want, s, p, outs
-        if ref == "f64":
-            del exact
+        del qkvd, state, got, want, outs, exact
     return out
 
 
@@ -1785,8 +1830,9 @@ def check_ring_fold(g):
     at hd 8 the RING_HD8 block and a RING_HD8_SMALL (3, 1) block; then
     check_exact_scores.  Returns {case: {kernel: [max abs err, share of
     the tolerance]}} (the forward's error on the normalised output
-    o / l, its share over the state m, l, o), the skip checks and the
-    exact-scores results."""
+    o / l, its share over the state m, l, o; in f32 that share against
+    the fold in f64, and plain_fwd_vs_f64 the plain version's, held to
+    nothing), the skip checks and the exact-scores results."""
     import torch
     from brpc_tpu_torch.ops import ring_fold as rf
     kernels = (rf.ring_fold_forward, rf.ring_fold_backward_dq,
@@ -1829,6 +1875,18 @@ def check_ring_fold(g):
                 held = [_held(got[i], want[i], dt) for i in outs]
                 res[kname] = [max(h[0] for h in held),
                               max(h[1] for h in held)]
+            if dt == "f32":
+                # the f32 forward's state against the fold in f64: the
+                # plain version's f32 GEMM sums in its own order, and its
+                # own error from the exact fold reaches RING_TOL (its
+                # share beside, held to nothing)
+                exact = _fold_f64(qkvd, state, idx * C, src * C, causal,
+                                  hd ** -0.5)
+                for who, outs in (("fwd", got), ("plain_fwd_vs_f64", want)):
+                    held = [_held(outs[i], exact[i], dt) for i in range(3)]
+                    res[who] = [max(h[0] for h in held),
+                                max(h[1] for h in held)]
+                del exact
             # the forward's error as attention reads it: o / l
             res["fwd"][0] = float((got[2] / got[1].clamp(min=1e-30)[..., None]
                                    - want[2] / want[1].clamp(
@@ -1941,8 +1999,8 @@ def phase_ring(smi):
     """ring_attention and ulysses_attention on the NCCL world of one (the
     main path of the fold: the launches are read over it), in bf16 and in
     f32, at hd 64 and at hd 8 (RING_HD8: in bf16 the tensor-core forward,
-    dq and dk/dv of ring_fold_hd8.cu, in f32 the CUDA-core dk/dv of
-    ring_fold_f32_hd8.cu and the SIMT forward and dq); the fold kernels
+    dq and dk/dv of ring_fold_hd8.cu, in f32 the CUDA-core forward, dq
+    and dk/dv of ring_fold_f32_hd8.cu); the fold kernels
     against their plain versions, and their times on the device at the
     full-width block in bf16 and in f32, at both head dims."""
     import torch
@@ -2025,8 +2083,8 @@ def phase_ring(smi):
                        "it rounds its weights as it likes, not the fold's "
                        "f32: a yardstick of time, not of the arithmetic"}
     emit(line)
-    bad = {c: v for c, res in checks.items() for v in res.values()
-           if v[1] > 1}
+    bad = {c: v for c, res in checks.items() for o, v in res.items()
+           if not o.startswith("plain") and v[1] > 1}
     assert not bad, f"the fold kernels differ from the plain version: {bad}"
     bad = {c: o for c, res in exact.items() for o, v in res.items()
            if o != "against" and not o.startswith("plain")

@@ -15,8 +15,8 @@ On the CPU:
   autograd against ``jax.vjp`` of ``_dense_local``: f32 within 1e-5
   forward and backward; bf16 bit-equal but for rare one-step flips.
 * ``fold_model``, the kernels' arithmetic written in torch in their order
-  of work (64-row query tiles, 64-key tiles; the forward in bf16 and at
-  hd 8 in two passes, the block's row max then p, its sum and p . V; in
+  of work (64-row query tiles, 64-key tiles; the forward in bf16 in two
+  passes, the block's row max then p, its sum and p . V; in
   f32 in one pass from the carried m, the sum and p . V rescaled as the
   running max rises; a tile pair with every query before every key
   skipped unless a row of the tile has seen no key, decided in one pass
@@ -57,7 +57,19 @@ On the CPU:
   of the reference's fold (bf16 and f32), the f32 dk/dv against f64 at
   unit and wide range (at most WIDE_ERR_RATIO times the plain version's
   error), and the dq on integer q, k, v, dO over 1024 keys against the
-  same sum in f64 within EXACT_TOL (control: dS unrounded).
+  same sum in f64 within EXACT_TOL (control: dS unrounded).  The hd-8
+  f32 forward of ``csrc/ring_fold_f32_hd8.cu`` (``fold_model_f32_hd8``:
+  one pass, each row's keys split over 8 owners, each tile's p . v
+  summed apart, the row sum's adds TwoSums, the owners' parts summed by
+  a tree) and its dq (``bwd_model``: the SIMT kernel's order, kept)
+  against the plain version on the small blocks (fresh and carried
+  states, from zeros and into a carried dq), over 1024 keys against the
+  jnp fold and the fold in f64 (and the plain version's m, l and o / l:
+  its own unnormalised o lies near CARD_TOL from f64 there) and jax.vjp
+  of the reference's fold, against f64 at unit and wide range (m, l, o at
+  most WIDE_ERR_RATIO times the plain version's error), on exact scores
+  over 1024 keys against the same sums in f64 within EXACT_TOL (control:
+  p rounded to bf16), and the same control of the skip rule.
 * ``split_bf16x3``, the split of p into three bf16 parts (of p 2^32)
   for its products on the tensor cores: their sum is p exactly for
   every f32 p in [0, 1] (a split of p itself loses bits below 2^-109),
@@ -78,22 +90,24 @@ fallback (a head dim the kernels lack raises); the route under
 torch.profiler (bf16 at hd 16, 64 and 128: the tensor-core forward, dq
 and dk/dv; f32 there: the CUDA-core forward, dq and dk/dv; hd 8 in bf16:
 the tensor-core forward, dq and dk/dv of ring_fold_hd8.cu, in f32 the
-CUDA-core dk/dv of ring_fold_f32_hd8.cu beside the SIMT forward and
-dq); dq added into a carried dq; the f32 dq and
+CUDA-core forward, dq and dk/dv of ring_fold_f32_hd8.cu); dq added into
+a carried dq; the f32 dq and
 dk/dv added into a carried dq, dk, dv at C = 65 to 1024, and against
-f64 at unit scale and a wide range, as exact as the plain version (the
-dk/dv at hd 8 too, with its strided, repeated and unaligned legs); and
+f64 at unit scale and a wide range, as exact as the plain version (at
+hd 8 too, with their strided, repeated and unaligned legs; the hd-8 f32
+forward's m, l and o against f64 likewise); and
 exact scores: with integer q and k every score is
 the same bits on both sides, so the kernels' m, l, o and dv hold the
 plain version's f32 products of p within ``EXACT_TOL`` (their sums in
 another order), which p rounded once to bf16 leaves; at hd 8 the same
 for the hd-8 kernels (over 1024 keys against the fold in f64), and on
 integer q, k, v, dO the bf16 dq (every dS the plain version's bits)
-and on integer q, k the f32 dk and dv within ``EXACT_TOL``, which dS
-left unrounded (dq) or P and dS rounded to bf16 (dk, dv) leave.  Every
+and on integer q, k the f32 dk and dv and the f32 forward's m, l and o
+within ``EXACT_TOL``, which dS left unrounded (dq) or P and dS (dk, dv)
+or p (o) rounded to bf16 leave.  Every
 ``KERNEL_HEAD_DIMS`` leg at hd 8 reaches, in bf16, the hd-8
-tensor-core forward, dq and dk/dv, and in f32 the hd-8 CUDA-core dk/dv
-beside the SIMT forward and dq (a view not 16-byte aligned is copied
+tensor-core forward, dq and dk/dv, and in f32 the hd-8 CUDA-core
+forward, dq and dk/dv (a view not 16-byte aligned is copied
 for their 16-byte copies).  They skip without
 a card and run there with ``python -m pytest --noconftest -m cuda
 tests/test_torch_ring_fold.py`` (this file imports jax only inside its
@@ -326,16 +340,17 @@ def fold_model(q, k, v, m, l, o, q_off, k_off, causal, scale,
     tile over the key tiles that are not wholly masked (every tile if a
     row of the tile has seen no key and sees none of the block), then the
     update (m', l a + sum, o a + acc) once, a = exp(m - m').  Two passes
-    (csrc/ring_fold.cu, csrc/ring_fold_sm90.cu): the block's row max m',
+    (csrc/ring_fold_sm90.cu): the block's row max m',
     then p = exp(s - m'), its sum and p . V, the rule read from m'.  One
     pass (``one_pass``; csrc/ring_fold_f32.cu): the rule decided up front
     from m and positions; per key tile m_t = max(m_run, tile max) from
     m_run = m, c = exp(m_run - m_t), sum = sum c + sum exp(s - m_t), acc
-    = acc c + exp(s - m_t) . V.  None: one pass in f32 but at head dim 8,
-    as the kernels.  Returns new (m, l, o)."""
+    = acc c + exp(s - m_t) . V.  None: one pass in f32, as the kernels
+    (at head dim 8 fold_model_f32_hd8 is the kernel's exact order).
+    Returns new (m, l, o)."""
     dtype, (Cq, Ck) = q.dtype, (q.shape[1], k.shape[1])
     if one_pass is None:
-        one_pass = dtype == torch.float32 and q.shape[-1] != 8
+        one_pass = dtype == torch.float32
     qf, kf, vf = q.float(), k.float(), v.float()
     m, l, o = m.clone(), l.clone(), o.clone()
     for q0 in range(0, Cq, TILE):
@@ -392,12 +407,14 @@ def bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
               dq=None, dk=None, dv=None):
     """The dq kernel (per query tile over key tiles) and the dk/dv kernel
     (per key tile over query tiles): (dq, dk, dv), each the carried one
-    (zeros by default) plus the block's.  As the dq kernel orders its
-    work: per query tile the block's dS . K summed over the key tiles it
-    visits (every tile if a row of the query tile has seen no key), then
-    added to the carried dq once.  As the dk/dv kernels order theirs
-    (csrc/ring_fold_f32.cu in f32 at hd 16, 64 and 128, on transposed
-    tiles; the tensor-core and SIMT kernels alike): per 64-key tile the
+    (zeros by default) plus the block's.  As the f32 dq kernels order
+    their work (csrc/ring_fold_f32.cu, and at hd 8 ring_fold_f32_hd8.cu,
+    each row's keys in one thread): per query tile the block's dS . K
+    summed over the key tiles it visits (every tile if a row of the query
+    tile has seen no key), then added to the carried dq once.  As the
+    dk/dv kernels order theirs (csrc/ring_fold_f32.cu in f32 at hd 16, 64
+    and 128, on transposed tiles; the tensor-core kernels alike): per
+    64-key tile the
     block's dS^T . Q and P^T . dO summed over the query tiles it visits
     (every tile if a row of the block has seen no key, else those not
     wholly before the key tile), then added to the carried dk, dv
@@ -1099,6 +1116,90 @@ def dkdv_model_f32_hd8(q, k, v, do, lse, delta, q_off, k_off, causal,
     return dk, dv
 
 
+def _two_sum(a, b):
+    """(s, e): s = a + b rounded, e its rounding error, exactly (TwoSum,
+    each op rounded once in f32)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _oct_sum_compensated(hi, lo):
+    """The sum of 8 owners' hi + lo (owners on dim 3) as the kernel's
+    sum8_compensated adds them: a tree of TwoSums, each level's rounding
+    error added to the carried lo, then hi + lo."""
+    his = [hi[:, :, :, i] for i in range(8)]
+    los = [lo[:, :, :, i] for i in range(8)]
+    while len(his) > 1:
+        pairs = [(_two_sum(his[i], his[i + 1]), los[i] + los[i + 1])
+                 for i in range(0, len(his), 2)]
+        his = [s for (s, _), _ in pairs]
+        los = [c + e for (_, e), c in pairs]
+    return his[0] + los[0]
+
+
+def fold_model_f32_hd8(q, k, v, m, l, o, q_off, k_off, causal, scale,
+                       skip_always=False):
+    """ring_fold_fwd_f32_hd8_kernel in its order of work: per 64-row query
+    tile the skip rule decided up front (every key tile if a row of the
+    tile has a degenerate m and sees no key of the block, else those not
+    wholly masked; with ``skip_always`` never every tile), then one pass
+    over the visited key tiles: m_t = max(m_run, tile row max) from m_run
+    = m, c = exp(m_run - m_t), and per owner cb of a row (keys cb + 8 j
+    of each tile, j < 8) l_own + l_err = (l_own c + l_err c) + (its 8 p
+    summed in j order), a TwoSum carrying each add's rounding error in
+    l_err, and acc = acc c + (its p . v summed apart in j order from 0;
+    each FMA modelled as a product and a sum); at the end the 8 owners'
+    acc added
+    as three xor-shuffles add them and their l_own + l_err by a tree of
+    TwoSums, and (m', l a + l_acc, o a + acc) written once, a = exp(m -
+    m').  Its dq (ring_fold_dq_f32_hd8_kernel) keeps the SIMT kernel's
+    order, which bwd_model models.  Returns new (m, l, o)."""
+    (B, Cq, H, hd), Ck = q.shape, k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m, l, o = m.clone(), l.clone(), o.clone()
+    for q0 in range(0, Cq, TILE):
+        nq = min(TILE, Cq - q0)
+        m_old = m[:, :, q0:q0 + nq].clone()
+        tiles = range(0, Ck, TILE)
+        if skip_always or not bool(_degenerate_up_front(
+                m_old, q0, q_off, k_off, causal).any()):
+            tiles = [k0 for k0 in tiles
+                     if not _all_masked(q_off, q0, Cq, k_off, k0, causal)]
+        m_run = m_old.clone()
+        l_own = torch.zeros(B, H, nq, 8)
+        l_err = torch.zeros(B, H, nq, 8)
+        acc = torch.zeros(B, H, nq, 8, hd)
+        for k0 in tiles:
+            nk = min(TILE, Ck - k0)
+            s = _padded(_tile_scores(qf, kf, q0, k0, nq, nk, q_off, k_off,
+                                     causal, scale, q.dtype), TILE)
+            vt = torch.zeros(B, TILE, H, hd)
+            vt[:, :nk] = vf[:, k0:k0 + nk]
+            m_t = torch.maximum(m_run, s.amax(-1))
+            corr = torch.exp(m_run - m_t)
+            m_run = m_t
+            p = torch.exp(s - m_t[..., None])
+            tile_sum = torch.zeros(B, H, nq, 8)
+            for j in range(8):
+                tile_sum = tile_sum + p[..., 8 * j:8 * j + 8]
+            l_own, e = _two_sum(l_own * corr[..., None], tile_sum)
+            l_err = l_err * corr[..., None] + e
+            part = torch.zeros_like(acc)
+            for j in range(8):
+                cols = slice(8 * j, 8 * j + 8)      # keys cb + 8 j
+                part = part + p[..., cols, None] * vt[:, cols].permute(
+                    0, 2, 1, 3)[:, :, None]
+            acc = acc * corr[..., None, None] + part
+        alpha = torch.exp(m_old - m_run)
+        l[:, :, q0:q0 + nq] = l[:, :, q0:q0 + nq] * alpha + \
+            _oct_sum_compensated(l_own, l_err)
+        o[:, :, q0:q0 + nq] = o[:, :, q0:q0 + nq] * alpha[..., None] + \
+            _oct_sum(acc)
+        m[:, :, q0:q0 + nq] = m_run
+    return m, l, o
+
+
 @pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
                          BLOCKS + [(200, 130, 0, 100, True)])
 def test_hd8_bf16_models_match_plain(Cq, Ck, q_off, k_off, causal):
@@ -1395,6 +1496,136 @@ def test_hd8_f32_dkdv_model_is_as_exact_as_plain_against_f64(C, wide):
         assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
 
 
+@pytest.mark.parametrize("fresh", [False, True], ids=["carried", "fresh"])
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal",
+                         BLOCKS + [(200, 130, 0, 100, True)])
+def test_hd8_f32_fold_and_dq_models_match_plain(Cq, Ck, q_off, k_off,
+                                                causal, fresh):
+    """The hd-8 f32 forward's order of work (one pass, 8 owners a row, a
+    tree of 8) against the plain fold, from a state of an earlier fold and
+    from a fresh one (a block whose first rows see no key weighs their
+    masked scores by 1), and the hd-8 f32 dq's (bwd_model: the SIMT
+    kernel's order) against the plain dq from zeros and into a carried
+    dq, within CARD_TOL."""
+    q, k, v, do, m, l, o = _block(123, 1, Cq, Ck, 2, 8, torch.float32)
+    if fresh:
+        m, l, o = _fresh(m, l, o)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, m, l, o, q_off, k_off,
+                                      causal, scale)
+    got = list(fold_model_f32_hd8(q, k, v, m, l, o, q_off, k_off, causal,
+                                  scale))
+    got.append(bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal,
+                         scale)[0])
+    _close(got, want[:4], torch.float32)
+    carried = torch.from_numpy(_draw(125, (1, 2, Cq, 8))[0])
+    more = carried.clone()
+    ring_fold_bwd_dq_plain(q, k, v, do, lse, delta, more, q_off, k_off,
+                           causal, scale)
+    got = bwd_model(q, k, v, do, lse, delta, q_off, k_off, causal, scale,
+                    dq=carried)[0]
+    assert not torch.equal(got, carried)
+    _close([got], [more], torch.float32)
+
+
+@pytest.mark.parametrize("case", ["fresh", "carried", "off_diagonal"])
+def test_hd8_f32_models_hold_plain_jnp_and_jax_grad_over_1024(case):
+    """At C = 1024 (16 key tiles, so the running max rises past the first
+    tile in many rows), hd 8, f32, within CARD_TOL: the forward's order
+    against the reference's jnp fold and the fold in f64 (m, l, o), and
+    the plain fold (m, l, and the output as attention reads it, o / l:
+    the plain version's own unnormalised o lies near CARD_TOL from the
+    f64 fold here, several times farther than the model's); the dq's
+    order (from the plain fold's lse and D) against the plain dq and
+    jax.vjp of the reference's fold, normalised."""
+    import jax.numpy as jnp
+    q, k, v, do, state, q_off, k_off = _c1024_case(case, 127, hd=8)
+    scale = 8 ** -0.5
+    want, (lse, delta) = _plain_block(q, k, v, do, *state, q_off, k_off,
+                                      True, scale)
+    got = fold_model_f32_hd8(q, k, v, *state, q_off, k_off, True, scale)
+    jnp_fold = _jnp_fold(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                         *(jnp.array(t.numpy()) for t in state),
+                         q_off, k_off, True, scale)
+    _close(got, [torch.from_numpy(np.array(w)) for w in jnp_fold],
+           torch.float32)
+    _close(got, _f64_fold(q, k, v, *state, q_off, k_off, True, scale),
+           torch.float32)
+    _close([*got[:2], got[2] / got[1][..., None]],
+           [*want[:2], want[2] / want[1][..., None]], torch.float32)
+    assert not torch.equal(got[2], want[2])    # another order of sums
+    dq = bwd_model(q, k, v, do, lse, delta, q_off, k_off, True, scale)[0]
+    _close([dq], want[3:4], torch.float32)
+    _close([dq], _jnp_fold_grads(q, k, v, do, *state, q_off, k_off, True,
+                                 scale)[:1], torch.float32)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_hd8_f32_fold_model_is_as_exact_as_plain_against_f64(C, wide):
+    """The hd-8 f32 forward's order (a ring's first, diagonal block from a
+    fresh state, and the same block on a carried state) against the fold
+    in f64 throughout, at unit scale and at a wide range (q, k x 2, v x
+    8): its largest error in m, l and o at most WIDE_ERR_RATIO times the
+    plain version's, as the card leg holds the kernel."""
+    q, k, v, _, m, l, o = _wide_block(129, 1, C, 2, 8, wide)
+    scale = 8 ** -0.5
+    carried = _block(131, 1, C, C, 2, 8, torch.float32)[4:]
+    for state in ((m, l, o), carried):
+        got = fold_model_f32_hd8(q, k, v, *state, 0, 0, True, scale)
+        plain = [t.clone() for t in state]
+        ring_fold_plain(q, k, v, *plain, 0, 0, True, scale)
+        exact = _f64_fold(q, k, v, *state, 0, 0, True, scale)
+        for name, g, p, e in zip("mlo", got, plain, exact):
+            err = float((g.double() - e).abs().max())
+            plain_err = float((p.double() - e).abs().max())
+            assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
+
+
+def test_hd8_f32_fold_model_on_exact_scores_over_1024_keys_holds_f64():
+    """With q and k in {-1, 0, 1} every score is the same bits in the
+    model and the plain version.  Over 1024 keys the hd-8 f32 forward's
+    order (each tile's p . v summed apart, the row sum compensated) holds
+    m, l and o within EXACT_TOL of the same sums in f64, as the card's
+    exact-score case holds the kernel (the plain version's own f32 sums
+    are no nearer them); p rounded once to bf16 (the control) leaves
+    it."""
+    q, k, v, do, m, l, o = _block(85, 2, 1024, 1024, 8, 8, torch.float32)
+    rng = np.random.default_rng(87)
+    q, k = (torch.from_numpy(rng.integers(-1, 2, t.shape).astype(
+        np.float32)) for t in (q, k))
+    state = _fresh(m, l, o)
+    scale = 8 ** -0.5
+    _, (lse, _) = _plain_block(q, k, v, do, *state, 0, 0, True, scale)
+    exact = _exact_f64(q, k, v, do, state, lse, 0, 0, True, scale)[:3]
+    got = fold_model_f32_hd8(q, k, v, *state, 0, 0, True, scale)
+    for g, w in zip(got, exact):
+        torch.testing.assert_close(g.double(), w, **EXACT_TOL)
+    s = scores_plain(q, k, 0, 0, True, scale)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    control = torch.einsum("bhcd,bdhk->bhck", p.to(torch.bfloat16).float(),
+                           v)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(control.double(), exact[2], **EXACT_TOL)
+
+
+def test_hd8_f32_fold_model_skipping_every_masked_tile_fails_a_fresh_block():
+    """Rows 0..63 at q_off 0 see no key at k_off 64: from m = -1e30 the
+    reference weighs their masked scores by exp(0) = 1, so the hd-8 f32
+    forward's up-front rule visits every key tile there; skipping the
+    masked tiles regardless leaves the plain fold."""
+    q, k, v, _, m, l, o = _block(133, 1, 128, 128, 2, 8, torch.float32)
+    state = _fresh(m, l, o)
+    want = [t.clone() for t in state]
+    ring_fold_plain(q, k, v, *want, 0, 64, True, 8 ** -0.5)
+    assert float(want[1][:, :, :64].min()) == 128.0    # p = 1 on every key
+    args = (q, k, v, *state, 0, 64, True, 8 ** -0.5)
+    _close(fold_model_f32_hd8(*args), want, torch.float32)
+    with pytest.raises(AssertionError):
+        _close(fold_model_f32_hd8(*args, skip_always=True), want,
+               torch.float32)
+
+
 def _integer_block(seed, B, Cq, Ck, H, device="cpu"):
     """A bf16 block at hd 8 whose q, k, v and dO have entries in {-1, 0,
     1}, and a fresh state."""
@@ -1454,8 +1685,7 @@ def test_kernels_match_plain_on_the_card(Cq, Ck, q_off, k_off, causal, hd,
     """Every kernel against the plain version: in bf16 at hd 16, 64 and
     128 the tensor-core kernels of ring_fold_sm90.cu, at hd 8 those of
     ring_fold_hd8.cu; in f32 the CUDA-core kernels of ring_fold_f32.cu,
-    at hd 8 the CUDA-core dk/dv of ring_fold_f32_hd8.cu and the SIMT
-    forward and dq."""
+    at hd 8 those of ring_fold_f32_hd8.cu."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do, m, l, o = _block(17, 2, Cq, Ck, 3, hd, dtype, "cuda")
@@ -1509,10 +1739,9 @@ def test_hd8_kernels_read_strided_inputs_and_repeat_their_bits():
 
 @pytest.mark.cuda
 def test_hd8_f32_kernels_read_strided_inputs_and_repeat_their_bits():
-    """The same at hd 8 in f32: the CUDA-core dk/dv of
-    ring_fold_f32_hd8.cu (16-byte copies of q and dO, 16-byte loads of k
-    and v; the fused projection's strides are 16-byte multiples) beside
-    the SIMT forward and dq."""
+    """The same at hd 8 in f32: the CUDA-core forward, dq and dk/dv of
+    ring_fold_f32_hd8.cu (16-byte copies and loads of q, k, v and dO; the
+    fused projection's strides are 16-byte multiples)."""
     _strided_and_repeated(torch.float32, 8)
 
 
@@ -1615,10 +1844,9 @@ def test_hd8_kernels_copy_an_unaligned_view():
 
 @pytest.mark.cuda
 def test_hd8_f32_kernels_copy_an_unaligned_view():
-    """The same at hd 8 in f32 (a k off by 4 bytes), where the dk/dv
-    loads k's rows 16 bytes at a time: the view is copied for every
-    kernel, and the forward, dq and dk/dv give the bits of a contiguous
-    k."""
+    """The same at hd 8 in f32 (a k off by 4 bytes), where the forward
+    and dq copy k's rows 16 bytes at a time and the dk/dv loads them so:
+    the forward, dq and dk/dv give the bits of a contiguous k."""
     _unaligned_k_copied(8, torch.float32)
 
 
@@ -1653,8 +1881,9 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
     ring_fold_dkdv_f32_kernel); hd 8 in bf16 the tensor-core forward, dq
     and dk/dv of ring_fold_hd8.cu (ring_fold_fwd_hd8_kernel,
     ring_fold_dq_hd8_kernel, ring_fold_dkdv_hd8_kernel), and in f32 the
-    CUDA-core dk/dv of ring_fold_f32_hd8.cu
-    (ring_fold_dkdv_f32_hd8_kernel) beside the SIMT forward and dq."""
+    CUDA-core forward, dq and dk/dv of ring_fold_f32_hd8.cu
+    (ring_fold_fwd_f32_hd8_kernel, ring_fold_dq_f32_hd8_kernel,
+    ring_fold_dkdv_f32_hd8_kernel)."""
     _card()
     from torch.profiler import ProfilerActivity, profile
     names = {}
@@ -1687,15 +1916,15 @@ def test_bf16_takes_the_tensor_cores_and_f32_and_hd8_the_simt_kernels():
            "ring_fold_fwd_f32_kernel"]
     assert names["f32"] == names["f32_hd16"] == names["f32_hd128"] == f32, \
         names
-    f32_hd8 = ["ring_fold_dkdv_f32_hd8_kernel", "ring_fold_dq_kernel",
-               "ring_fold_fwd_kernel"]
+    f32_hd8 = ["ring_fold_dkdv_f32_hd8_kernel", "ring_fold_dq_f32_hd8_kernel",
+               "ring_fold_fwd_f32_hd8_kernel"]
     hd8 = ["ring_fold_dkdv_hd8_kernel", "ring_fold_dq_hd8_kernel",
            "ring_fold_fwd_hd8_kernel"]
     assert names["f32_hd8"] == f32_hd8 and names["bf16_hd8"] == hd8, names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 def test_f32_forward_copies_an_unaligned_view_and_repeats_its_bits(hd):
     """An f32 k whose base is off 16 bytes (the rule of the f32 forward's
     16-byte cp.async copies) is copied by the wrapper: m, l and o are the
@@ -1720,6 +1949,33 @@ def test_f32_forward_copies_an_unaligned_view_and_repeats_its_bits(hd):
         torch.cuda.synchronize()
         for a, b, c in zip(*outs):
             assert torch.equal(a, b) and torch.equal(b, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
+@pytest.mark.parametrize("C", [1000, 1024])
+def test_f32_hd8_forward_at_a_wide_range_is_as_exact_as_plain(C, wide):
+    """m, l and o of the hd-8 f32 forward (ring_fold_f32_hd8.cu: one pass,
+    each row's keys split over 8 owners) against the fold in f64, on a
+    ring's first, diagonal block from a fresh state and from a carried
+    one, at unit scale and at a wide range (q, k x 2, v x 8): its largest
+    error at most WIDE_ERR_RATIO times the plain version's."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, _, m, l, o = _wide_block(115, 2, C, 3, 8, wide, "cuda")
+    scale = 8 ** -0.5
+    carried = _block(117, 2, C, C, 3, 8, torch.float32, "cuda")[4:]
+    for state in ((m, l, o), carried):
+        got = [t.clone() for t in state]
+        ring_fold_forward(q, k, v, *got, 0, 0, True, scale)
+        plain = [t.clone() for t in state]
+        ring_fold_plain(q, k, v, *plain, 0, 0, True, scale)
+        exact = _f64_fold(q, k, v, *state, 0, 0, True, scale)
+        torch.cuda.synchronize()
+        for name, g, p, e in zip("mlo", got, plain, exact):
+            err = float((g.double() - e).abs().max())
+            plain_err = float((p.double() - e).abs().max())
+            assert err <= WIDE_ERR_RATIO * plain_err, (name, err, plain_err)
 
 
 @pytest.mark.cuda
@@ -1843,10 +2099,11 @@ def test_f32_dkdv_copies_an_unaligned_view_and_repeats_its_bits(hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 @pytest.mark.parametrize("C", [65, 200, 1000, 1024])
 def test_f32_dq_matches_plain_on_the_card(C, hd):
-    """The f32 dq kernel on a causal diagonal block of a carried state,
+    """The f32 dq kernel (at hd 8 ring_fold_f32_hd8.cu's) on a causal
+    diagonal block of a carried state,
     adding into a dq carried over earlier blocks: within CARD_TOL of
     ring_fold_bwd_dq_plain from the same dq, one launch."""
     _card()
@@ -1868,7 +2125,7 @@ def test_f32_dq_matches_plain_on_the_card(C, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("wide", [False, True], ids=["unit", "wide"])
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 @pytest.mark.parametrize("C", [1000, 1024])
 def test_f32_dq_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
     """dq of the f32 dq kernel (a ring's first, diagonal block) against
@@ -1893,7 +2150,7 @@ def test_f32_dq_at_a_wide_range_is_as_exact_as_plain(C, hd, wide):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (16, 64, 128))
+@pytest.mark.parametrize("hd", (8, 16, 64, 128))
 def test_f32_dq_copies_an_unaligned_view_and_repeats_its_bits(hd):
     """An f32 k and dO whose bases are off 16 bytes (the f32 dq's 16-byte
     cp.async copies) are copied by the wrapper: dq, added to the same
@@ -2092,6 +2349,40 @@ def test_exact_inputs_at_hd8_hold_the_bf16_dq_and_f32_dkdv(Cq, Ck, q_off,
         torch.testing.assert_close(got.double(), ref, **EXACT_TOL)
         with pytest.raises(AssertionError):
             torch.testing.assert_close(control.double(), ref, **EXACT_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Cq,Ck,q_off,k_off,causal,fresh", EXACT_BLOCKS)
+def test_exact_scores_at_hd8_hold_the_f32_forward(Cq, Ck, q_off, k_off,
+                                                  causal, fresh):
+    """The hd-8 f32 forward (ring_fold_fwd_f32_hd8_kernel) with q and k in
+    {-1, 0, 1}: every score is the same bits in the kernel and the plain
+    version, so m, l and o (p's products summed by 8 owners a row) hold
+    the plain version's within EXACT_TOL, and over 1024 keys, where the
+    plain version's own f32 sums are no nearer the truth, the same sums
+    in f64; p rounded once to bf16 (the control) leaves it."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, _, do, m, l, o = _exact_inputs(119, 2, Cq, Ck, 4, 8, fresh)
+    q, k = q.float(), k.float()
+    v = torch.randn(2, Ck, 4, 8, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(121))
+    scale = 8 ** -0.5
+    want = [t.clone() for t in (m, l, o)]
+    ring_fold_plain(q, k, v, *want, q_off, k_off, causal, scale)
+    if Ck == 1024:
+        want = _exact_f64(q, k, v, do, (m, l, o), m, q_off, k_off, causal,
+                          scale)[:3]
+    got = [t.clone() for t in (m, l, o)]
+    ring_fold_forward(q, k, v, *got, q_off, k_off, causal, scale)
+    control = _fold_p_bf16(q, k, v, do, m, l, o, q_off, k_off, causal,
+                           scale)[0]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.double(), w.double(), **EXACT_TOL)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(control.double(), want[2].double(),
+                                   **EXACT_TOL)
 
 
 @pytest.mark.cuda
