@@ -32,6 +32,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from brpc_tpu_torch.models.transformer import (ModelConfig, TransformerLM,
@@ -113,11 +114,16 @@ def make_train_step(cfg: ModelConfig, mesh=None, lr: float = 1e-3,
         if getattr(model.mesh, "shape", None) != getattr(mesh, "shape", None):
             raise ValueError("the state's mesh is not the step's")
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, cfg, mesh)
-        loss.backward()
-        if mesh is not None:
-            sum_gradients(model, mesh)
-        opt.step()
+        # named ranges for torch.profiler; on a CUDA device the backward's
+        # nodes run on autograd's own threads and show under their names
+        with record_function("forward"):
+            loss = loss_fn(model, tokens, cfg, mesh)
+        with record_function("backward"):
+            loss.backward()
+            if mesh is not None:
+                sum_gradients(model, mesh)
+        with record_function("optimizer"):
+            opt.step()
         state.step += 1
         loss = loss.detach()
         if mesh is not None:

@@ -50,13 +50,23 @@ def _push_rpcz_budget(value) -> bool:
     return True
 
 
+def _resize_ring(value) -> bool:
+    """Flag validator doubling as the resize: a new ring size takes
+    effect at once, keeping the newest spans that fit."""
+    if value < 0:
+        return False
+    _store.resize(int(value))
+    return True
+
+
 flags.define_bool("enable_rpcz", False, "collect rpcz spans",
                   validator=_push_rpcz)
 flags.define_int32("rpcz_max_samples_per_second", 16384,
                    "span sampling budget (≙ COLLECTOR_SAMPLING_BASE); "
                    "shared by the Python spans and the native span rings",
                    validator=_push_rpcz_budget)
-flags.define_int32("rpcz_keep_spans", 10000, "ring size of kept spans")
+flags.define_int32("rpcz_keep_spans", 10000, "ring size of kept spans",
+                   validator=_resize_ring)
 flags.define_string("rpcz_persist_dir", "",
                     "directory for rpcz span spill files (recordio, "
                     "rotated + time-indexed + expired); empty = spans "
@@ -83,13 +93,18 @@ class Span:
     trace_id: int
     span_id: int
     parent_span_id: int = 0
-    kind: str = "server"            # "server" | "client"
+    kind: str = "server"            # "server" | "client" | "local"
     method: str = ""
     remote_side: str = ""
-    start_ts: float = 0.0           # wall clock
+    start_ts: float = 0.0           # wall clock (display, spill index)
     latency_us: int = 0
     error_code: int = 0
     annotations: List[str] = field(default_factory=list)
+    # time.monotonic_ns(), i.e. CLOCK_MONOTONIC: the clock a profiler
+    # slice's host anchor is read on, so a span can be placed on the
+    # slice's device timeline; 0 where the span predates them
+    start_ns: int = 0
+    end_ns: int = 0
 
     def annotate(self, text: str) -> None:
         """≙ TRACEPRINTF (traceprintf.h): free text with a timestamp."""
@@ -109,6 +124,8 @@ class Span:
             "latency_us": self.latency_us,
             "error_code": self.error_code,
             "annotations": self.annotations,
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
         }
 
 
@@ -129,6 +146,10 @@ class _Store:
     def add(self, span: Span) -> None:
         with self._lock:
             self._ring.append(span)
+
+    def resize(self, n: int) -> None:
+        with self._lock:
+            self._ring = deque(self._ring, maxlen=n)
 
     def recent(self, n: int, trace_id: Optional[int]) -> List[Span]:
         with self._lock:
@@ -156,6 +177,7 @@ def _span_to_payload(s: Span) -> bytes:
         "method": s.method, "remote_side": s.remote_side,
         "start_ts": s.start_ts, "latency_us": s.latency_us,
         "error_code": s.error_code, "annotations": s.annotations,
+        "start_ns": s.start_ns, "end_ns": s.end_ns,
     }).encode()
 
 
@@ -170,7 +192,9 @@ def _span_from_payload(payload: bytes) -> Optional[Span]:
                     start_ts=float(d.get("start_ts", 0.0)),
                     latency_us=int(d.get("latency_us", 0)),
                     error_code=int(d.get("error_code", 0)),
-                    annotations=list(d.get("annotations", [])))
+                    annotations=list(d.get("annotations", [])),
+                    start_ns=int(d.get("start_ns", 0)),
+                    end_ns=int(d.get("end_ns", 0)))
     except (ValueError, KeyError, TypeError):
         return None  # torn/foreign record: recordio already resynced
 
@@ -404,14 +428,17 @@ def drain_native() -> int:
                 try:
                     fam = int(parts[3])
                     kind, method = _family_view(fam)
+                    start_ns = int(parts[6])
                     s = Span(
                         trace_id=int(parts[0]), span_id=int(parts[1]),
                         parent_span_id=int(parts[2]),
                         kind=kind, method=method,
-                        start_ts=int(parts[6]) / 1e9 + offset,
+                        start_ts=start_ns / 1e9 + offset,
                         latency_us=int(parts[7]),
                         error_code=int(parts[4]),
-                        annotations=[a for a in parts[8].split("|") if a])
+                        annotations=[a for a in parts[8].split("|") if a],
+                        start_ns=start_ns,
+                        end_ns=start_ns + int(parts[7]) * 1000)
                 except (ValueError, IndexError):
                     continue
                 s.remote_side = f"shard{parts[5]}"
@@ -445,14 +472,37 @@ def start_span(kind: str, method: str, trace_id: int = 0,
         return None
     s = Span(trace_id=trace_id or _new_id(), span_id=_new_id(),
              parent_span_id=parent_span_id, kind=kind, method=method,
-             start_ts=time.time())
+             start_ts=time.time(), start_ns=time.monotonic_ns())
     return s
 
 
-def finish_span(span: Optional[Span], error_code: int = 0) -> None:
+def record(parent: Optional[Span], method: str, start_ns: int, end_ns: int,
+           children=(), error_code: int = 0) -> Optional[Span]:
+    """Keep a finished span of work inside this process, timed by the
+    caller's own ``time.monotonic_ns()`` stamps, under a sampled `parent`,
+    with its `children` as (method, start_ns, end_ns[, children]); None
+    without a parent.  A child draws nothing from the sampling budget, so
+    a trace is kept whole or not at all."""
+    if parent is None:
+        return None
+    s = Span(trace_id=parent.trace_id, span_id=_new_id(),
+             parent_span_id=parent.span_id, kind="local", method=method,
+             start_ts=start_ns / 1e9 + (time.time() - time.monotonic()),
+             start_ns=start_ns)
+    for child in children:
+        record(s, *child)
+    finish_span(s, error_code, end_ns)
+    return s
+
+
+def finish_span(span: Optional[Span], error_code: int = 0,
+                end_ns: Optional[int] = None) -> None:
+    """Close `span` now, or at `end_ns` (``time.monotonic_ns()``), and
+    keep it."""
     if span is None:
         return
-    span.latency_us = int((time.time() - span.start_ts) * 1e6)
+    span.end_ns = time.monotonic_ns() if end_ns is None else end_ns
+    span.latency_us = (span.end_ns - span.start_ns) // 1000
     span.error_code = error_code
     _store.add(span)
     if persisting():

@@ -31,6 +31,20 @@ front of this, see `method_cap`).  Each generated token rides the stream
 as 4 little-endian bytes; a clean close is end-of-generation, an RST
 carries the eviction/cancel code.
 
+Where the work happens the leader counts its time, on
+``time.monotonic_ns()``, in microseconds that ``stats()`` reports:
+``queue_wait_us`` (the scheduler's), ``prefill_us`` (the prefill to its
+device work done), ``kv_route_us`` (``KV_ROUTE``, to the install
+returned) and ``kv_route_bytes`` (the route's four host-device
+crossings) of every admit that reaches the install, and a step's
+``step_issue_us`` (to its last launch), ``step_sync_us`` (its ``.cpu()``)
+and ``emit_us`` (the token writes, grown blocks and retirements).  With
+``enable_rpcz`` on the same stamps become rpcz spans: a sampled Generate
+call's server span gets ``queue``, ``admit`` (``prefill``, ``kv_route``
+and its six) and ``first_token``; a sampled step is a trace of its own,
+``LLM.decode_step`` with ``issue``, ``sync`` and ``emit`` (a ``grow`` for
+each block grown).
+
 Every exit path — finish, preemption, slow-consumer timeout, stream RST,
 RPC cancel, client socket death — funnels through `_end()`, which frees
 the sequence's KV blocks exactly once; `assert_drained()` +
@@ -44,6 +58,7 @@ import json
 import os
 import struct
 import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -53,7 +68,7 @@ from brpc_tpu_torch.models import decode as D
 from brpc_tpu_torch.models.transformer import ModelConfig
 from brpc_tpu_torch.models import transformer
 from brpc_tpu_torch.parallel.mesh import Mesh
-from brpc_tpu_torch.rpc import errors
+from brpc_tpu_torch.rpc import errors, span
 from brpc_tpu_torch.rpc.stream import StreamClosed, StreamReset, StreamTimeout
 from brpc_tpu_torch.serving import scheduler as S
 from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
@@ -72,6 +87,9 @@ flags.define_int32(
     "evicted (shed, not queued — engine.py)")
 
 TOKEN_FMT = "<I"  # one generated token = 4 LE bytes on the stream
+# an admit's KV route, one span each, in order
+KV_ROUTE = ("kv_to_bytes", "seq_alloc", "seq_migrate", "seq_fetch",
+            "kv_from_bytes", "install")
 
 
 def tiny_config(**over) -> ModelConfig:
@@ -144,6 +162,14 @@ class ServingEngine:
         self.steps = 0
         self.preemptions = 0
         self.rails = {"local": 0, "host": 0, "none": 0}
+        self.prefill_us = 0
+        self.kv_route_us = 0
+        self.kv_route_bytes = 0
+        self.step_issue_us = 0
+        self.step_sync_us = 0
+        self.emit_us = 0
+        # the grown blocks' spans while a sampled trace emits, else None
+        self._grows: Optional[list] = None
 
     @property
     def cache(self) -> Dict[str, torch.Tensor]:
@@ -200,7 +226,8 @@ class ServingEngine:
             raise errors.RpcError(errors.EREQUEST,
                                   "Generate wants an attached stream")
         seq = S.Sequence(seq_id=next(self._seq_ids), prompt=prompt,
-                         max_new_tokens=max_new, stream=st, cntl=cntl)
+                         max_new_tokens=max_new, stream=st, cntl=cntl,
+                         span=span.current())
         try:
             self.sched.submit(seq)   # sheds ELIMIT before device work
         except errors.RpcError:
@@ -274,6 +301,14 @@ class ServingEngine:
             "preemptions": self.preemptions,
             "rail_local": self.rails["local"],
             "rail_host": self.rails["host"],
+            "rail_none": self.rails["none"],
+            "queue_wait_us": self.sched.queue_wait_us,
+            "prefill_us": self.prefill_us,
+            "kv_route_us": self.kv_route_us,
+            "kv_route_bytes": self.kv_route_bytes,
+            "step_issue_us": self.step_issue_us,
+            "step_sync_us": self.step_sync_us,
+            "emit_us": self.emit_us,
             "submitted": self.sched.submitted,
             "admitted": self.sched.admitted,
             "shed_queue": self.sched.shed_queue,
@@ -312,37 +347,72 @@ class ServingEngine:
     def _admit(self, seq: S.Sequence) -> None:
         """Prefill one admitted sequence: compute K/V, charge blocks,
         migrate prefill→decode device, install, emit the first token."""
+        parent = seq.span
+        span.record(parent, "queue", seq.submit_ns, seq.admit_ns)
         if seq.cntl is not None and seq.cntl.is_canceled():
             self._end(seq, S.CANCELED, "canceled before prefill")
             return
+        clock = time.monotonic_ns
         plen = seq.prompt_len
+        t_admit = clock()
         logits, k, v = self.dev.prefill(seq.prompt)
+        p0, p1 = self.dev.prefill_ns
+        route = [clock()]           # KV_ROUTE's boundaries
         kvb = D.kv_to_bytes(k[:, 0], v[:, 0])
+        route.append(clock())
         try:
             self.kv.seq_alloc(seq.seq_id, kvb)
+            route.append(clock())
             rail = self.kv.seq_migrate(seq.seq_id)
+            route.append(clock())
         except Exception as e:  # PoolExhausted or a plane fault
             self.kv.seq_free(seq.seq_id)
             self._end(seq, S.EVICTED, f"prefill shed: {e}",
                       rst_code=errors.ELIMIT)
+            span.record(parent, "admit", t_admit, clock(),
+                        [("prefill", p0, p1)], errors.ELIMIT)
             return
         self.rails[rail] = self.rails.get(rail, 0) + 1
-        k2, v2 = D.kv_from_bytes(self.kv.seq_fetch(seq.seq_id),
-                                 self.cfg, plen)
+        fetched = self.kv.seq_fetch(seq.seq_id)
+        route.append(clock())
+        k2, v2 = D.kv_from_bytes(fetched, self.cfg, plen)
+        route.append(clock())
         self.dev.install(seq.slot, k2, v2, plen)
+        route.append(clock())
         self.prefills += 1
+        self.prefill_us += (p1 - p0) // 1000
+        self.kv_route_us += (route[-1] - route[0]) // 1000
+        self.kv_route_bytes += (2 * len(kvb) + len(fetched) + k2.nbytes
+                                + v2.nbytes)
+        if parent is not None:
+            span.record(parent, "admit", t_admit, route[-1], [
+                ("prefill", p0, p1),
+                ("kv_route", route[0], route[-1],
+                 list(zip(KV_ROUTE, route, route[1:])))])
+            self._grows = []
         first = int(torch.argmax(logits[0]))
         if self._emit(seq, first) and seq.generated >= seq.max_new_tokens:
             self._end(seq, S.FINISHED, "max_new_tokens")
+        if parent is not None:
+            span.record(parent, "first_token", route[-1], clock(),
+                        self._grows)
+            self._grows = None
 
     def _decode_batch(self, batch) -> None:
+        root = span.start_span("local", "LLM.decode_step")
         tokens = np.zeros((self.n_slots,), np.int32)
         active = np.zeros((self.n_slots,), bool)
         for s in batch:
             tokens[s.slot] = s.last_token
             active[s.slot] = True
         nxt = self.dev.step(tokens, active)
+        t0, t1, t2 = self.dev.step_ns
         self.steps += 1
+        self.step_issue_us += (t1 - t0) // 1000
+        self.step_sync_us += (t2 - t1) // 1000
+        if root is not None:
+            self._grows = []
+        e0 = time.monotonic_ns()
         for s in batch:
             if s.state != S.RUNNING:
                 continue  # evicted by a preemption earlier in this pass
@@ -354,6 +424,15 @@ class ServingEngine:
             if self._emit(s, int(nxt[s.slot])) and \
                     s.generated >= s.max_new_tokens:
                 self._end(s, S.FINISHED, "max_new_tokens")
+        e1 = time.monotonic_ns()
+        self.emit_us += (e1 - e0) // 1000
+        if root is not None:
+            root.annotate(f"batch {len(batch)}")
+            for child in (("issue", t0, t1), ("sync", t1, t2),
+                          ("emit", e0, e1, self._grows)):
+                span.record(root, *child)
+            self._grows = None
+            span.finish_span(root, end_ns=e1)
 
     def _emit(self, seq: S.Sequence, token: int) -> bool:
         """Send one token and keep the block charge covering the
@@ -386,8 +465,11 @@ class ServingEngine:
         needed = self.kv.blocks_needed(
             seq.total_len * self.sched.bytes_per_token)
         while self.kv.seq_blocks(seq.seq_id) < needed:
+            t = time.monotonic_ns()
             try:
                 self.kv.seq_grow(seq.seq_id)
+                if self._grows is not None:
+                    self._grows.append(("grow", t, time.monotonic_ns()))
             except Exception:  # PoolExhausted
                 victim = self.sched.preempt_victim()
                 if victim is None:

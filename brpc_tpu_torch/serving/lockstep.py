@@ -34,6 +34,7 @@ process at a time, on its stream.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -73,6 +74,13 @@ class Lockstep:
         self.cache = D.init_cache(cfg, n_slots, max_len, device, mesh)
         self.ops: Dict[str, int] = {"prefill": 0, "install": 0, "step": 0,
                                     "reset": 0}
+        # time.monotonic_ns() stamps of the last prefill (entry, its device
+        # work done) and step (entry, the last launch returned, the tokens
+        # on the host), for the engine's counters and spans
+        self.prefill_ns: Tuple[int, int] = (0, 0)
+        self.step_ns: Tuple[int, int, int] = (0, 0, 0)
+        self._done = (torch.cuda.Event() if device.type == "cuda" and
+                      self.leader else None)
 
     @property
     def leader(self) -> bool:
@@ -106,12 +114,20 @@ class Lockstep:
 
     def prefill(self, prompt) -> Tuple:
         """(last-position logits [1, vocab], global k, v [L, 1, S, H, hd])
-        of one prompt."""
+        of one prompt.  On a CUDA leader it returns once the prefill's
+        device work is done (the K/V's copy to the host waited for it
+        anyway), so ``prefill_ns`` holds the device time too."""
+        t0 = time.monotonic_ns()
         toks = torch.as_tensor(prompt, dtype=torch.int64,
                                device=self.device).reshape(-1)
         self._send(PREFILL, length=toks.numel(), payload=toks)
         self.ops["prefill"] += 1
-        return D.prefill(self.params, toks[None], self.cfg, self.mesh)
+        out = D.prefill(self.params, toks[None], self.cfg, self.mesh)
+        if self._done is not None:
+            self._done.record(torch.cuda.current_stream(self.device))
+            self._done.synchronize()
+        self.prefill_ns = (t0, time.monotonic_ns())
+        return out
 
     def install(self, slot: int, k, v, length: int) -> None:
         """Install a sequence's global K/V [L, S, H, hd] (host arrays, as
@@ -128,6 +144,7 @@ class Lockstep:
     def step(self, tokens, active) -> np.ndarray:
         """One decode step of every slot: the greedy next token of each
         [N] (global; meaningful for the active slots)."""
+        t0 = time.monotonic_ns()
         both = torch.stack([torch.as_tensor(tokens, dtype=torch.int64),
                             torch.as_tensor(active, dtype=torch.int64)]
                            ).to(self.device)
@@ -139,7 +156,10 @@ class Lockstep:
         nxt = torch.argmax(logits, dim=-1)
         if self.mesh is not None and sharding.axis_size(self.mesh, "dp") > 1:
             nxt = collectives.all_gather(self.mesh, "dp", nxt)
-        return nxt.cpu().numpy()
+        t1 = time.monotonic_ns()
+        out = nxt.cpu().numpy()     # waits for the step's device work
+        self.step_ns = (t0, t1, time.monotonic_ns())
+        return out
 
     def reset(self, slot: int) -> None:
         self._send(RESET, slot)

@@ -59,6 +59,7 @@ class Sequence:
     submit_ns: int = field(default_factory=time.monotonic_ns)
     admit_ns: int = 0
     end_reason: str = ""
+    span: object = None            # the Generate call's sampled rpc.span.Span
 
     @property
     def prompt_len(self) -> int:
@@ -93,6 +94,7 @@ class Scheduler:
         self.finished = 0
         self.evicted = 0
         self.canceled = 0
+        self.queue_wait_us = 0     # submit -> admit, summed over admits
 
     # -- admission (handler threads) ----------------------------------------
 
@@ -140,6 +142,7 @@ class Scheduler:
             seq.admit_ns = time.monotonic_ns()
             self._slots[slot] = seq
             self.admitted += 1
+            self.queue_wait_us += (seq.admit_ns - seq.submit_ns) // 1000
             return seq
 
     def running(self) -> List[Sequence]:

@@ -36,14 +36,14 @@ COPIED = (
      "metrics/default_vars.py", "metrics/dumper.py", "metrics/native.py",
      "builtin/__init__.py", "builtin/flame.py", "builtin/portal.py",
      "utils/checksum.py", "utils/timeutil.py",
-     "serving/kv_cache.py", "serving/scheduler.py",
+     "serving/kv_cache.py",
      "parallel/channels.py"]
     + [f"cluster/{m}.py" for m in (
         "__init__", "circuit_breaker", "cluster_channel", "health_check",
         "limiter", "load_balancer", "membership", "naming")]
     + [f"rpc/{m}.py" for m in (
         "__init__", "errors", "controller", "channel", "server", "stream",
-        "codec", "compress", "dump", "span", "http", "http_client", "auth",
+        "codec", "compress", "dump", "http", "http_client", "auth",
         "_sockutil", "grpc_service", "pb_service", "redis_service",
         "thrift", "altpack", "h2_client", "memcache", "mongo",
         "wire_tags")]
@@ -52,7 +52,9 @@ COPIED = (
         "rpc_view")])
 
 # the port's own modules: rewritten counterparts of reference modules
-# (_native, tpu_plane, models, parallel, serving/engine) and new ones
+# (_native, tpu_plane, models, parallel, serving/engine; rpc/span and
+# serving/scheduler, which time the serving engine's stages on the
+# monotonic clock) and new ones
 PORTED = [
     "_native/__init__.py", "tpu_plane.py", "weights.py", "entry.py",
     "models/__init__.py", "models/transformer.py", "models/decode.py",
@@ -63,6 +65,7 @@ PORTED = [
     "parallel/collectives.py", "parallel/sharding.py",
     "parallel/ring_attention.py",
     "serving/__init__.py", "serving/engine.py", "serving/lockstep.py",
+    "serving/scheduler.py", "rpc/span.py",
 ]
 
 
