@@ -820,6 +820,14 @@ def _declare(L: ctypes.CDLL) -> None:
     L.trpc_cuda_slot_stats.restype = None
     L.trpc_cuda_peer_access.argtypes = [c.POINTER(c.c_uint8), c.c_int]
     L.trpc_cuda_peer_access.restype = c.c_int
+    L.trpc_cuda_fill.argtypes = [c.c_uint64, c.c_size_t, c.c_int]
+    L.trpc_cuda_fill.restype = c.c_uint64
+    L.trpc_cuda_buf_addr.argtypes = [c.c_uint64, c.POINTER(c.c_uint64),
+                                     c.POINTER(c.c_uint64)]
+    L.trpc_cuda_buf_addr.restype = c.c_int
+    L.trpc_cuda_buffer_memory.argtypes = [c.c_int, c.POINTER(c.c_int),
+                                          c.POINTER(c.c_int)]
+    L.trpc_cuda_buffer_memory.restype = c.c_int
     L.trpc_stream_write_device.argtypes = [c.c_uint64, c.c_uint64,
                                            c.c_int64]
     L.trpc_stream_write_device.restype = c.c_int

@@ -21,6 +21,11 @@
 //   TRPC_FAKE_CUDA_NO_HOST_REGISTER=1   cuMemHostRegister_v2 refuses every
 //                             range (CUDA_ERROR_NOT_PERMITTED), as a driver
 //                             that may not page-lock that memory
+//   TRPC_FAKE_CUDA_MEMORY_TYPE  what cuPointerGetAttribute says the
+//                             fake's device memory is: "host" (default,
+//                             CU_MEMORYTYPE_HOST: it is host memory) or
+//                             "device" (CU_MEMORYTYPE_DEVICE, as a real
+//                             card's, which a CPU process cannot view)
 //
 // Besides, for the tests (through ctypes on the same library):
 //   trpc_fake_cuda_calls(name)          how often entry point `name` was
@@ -42,7 +47,10 @@
 // it: cuMemHostRegister_v2 records its range and returns
 // CUDA_ERROR_HOST_MEMORY_ALREADY_REGISTERED on an overlap with one it
 // holds, and cuMemHostUnregister of a base it does not hold returns
-// CUDA_ERROR_HOST_MEMORY_NOT_REGISTERED.
+// CUDA_ERROR_HOST_MEMORY_NOT_REGISTERED.  A device-to-device copy's
+// source may lie outside every allocation of the fake: memory of another
+// allocator in the same context (PyTorch's, which over the fake is host
+// memory), which the fake cannot police; its destination may not.
 //
 // Not a CUDA implementation: no kernels, no modules, no events.
 
@@ -79,6 +87,10 @@ constexpr CUresult kHostNotRegistered = 713;
 constexpr CUresult kNotPermitted = 800;
 constexpr CUresult kInvalidContext = 201;
 constexpr CUresult kInjected = 999;
+constexpr int kAttrMemoryType = 2;     // CU_POINTER_ATTRIBUTE_MEMORY_TYPE
+constexpr int kAttrDeviceOrdinal = 9;  // CU_POINTER_ATTRIBUTE_DEVICE_ORDINAL
+constexpr unsigned kMemoryTypeHost = 1;
+constexpr unsigned kMemoryTypeDevice = 2;
 
 struct FakeCtx {
   int dev = 0;
@@ -93,6 +105,7 @@ struct FakeStream {
 struct Alloc {
   size_t len = 0;
   int pending = 0;  // queued copies that still read or write it
+  int dev = 0;      // device memory: the device of its context
 };
 
 int64_t env_i64(const char* name, int64_t dflt) {
@@ -255,13 +268,20 @@ void schedule(std::function<void()> fn) {
   jobs_cv().notify_one();
 }
 
-// Queue a copy of n bytes from src to dst; `dev_ptrs` are the device
-// allocations it touches, the first of them written when `writes_dev`,
-// and `host` the host side (a page-locked block, or pageable memory,
-// which is not tracked).  Each is held pending until the copy ran.
-CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
-                    std::vector<CUdeviceptr> dev_ptrs, bool writes_dev,
-                    const void* host, bool fail_async) {
+// Whether [p, p+n) lies in a device allocation of the fake.
+bool tracked(CUdeviceptr p, size_t n) {
+  std::lock_guard<std::mutex> lk(mu());
+  return find_alloc(p, n) != nullptr;
+}
+
+// Queue an operation `op` on n bytes (a copy or a fill); `dev_ptrs` are
+// the device allocations it touches, the first of them written when
+// `writes_dev`, and `host` the host side (a page-locked block, or
+// pageable memory, which is not tracked).  Each is held pending until
+// the operation ran.
+CUresult queue_op(FakeStream* s, std::function<void()> op, size_t n,
+                  std::vector<CUdeviceptr> dev_ptrs, bool writes_dev,
+                  const void* host, bool fail_async) {
   Alloc* pinned = nullptr;
   {
     std::lock_guard<std::mutex> lk(mu());
@@ -291,8 +311,8 @@ CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
       pinned->pending++;
     }
   }
-  schedule([s, dst, src, n, dev_ptrs, pinned, fail_async]() {
-    memcpy(dst, src, n);
+  schedule([s, op, n, dev_ptrs, pinned, fail_async]() {
+    op();
     std::lock_guard<std::mutex> lk(mu());
     for (CUdeviceptr p : dev_ptrs) {
       find_alloc(p, n)->pending--;
@@ -305,6 +325,15 @@ CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
     }
   });
   return kOk;
+}
+
+// Queue a copy of n bytes from src to dst (queue_op's rules).
+CUresult queue_copy(FakeStream* s, void* dst, const void* src, size_t n,
+                    std::vector<CUdeviceptr> dev_ptrs, bool writes_dev,
+                    const void* host, bool fail_async) {
+  return queue_op(
+      s, [dst, src, n]() { memcpy(dst, src, n); }, n, std::move(dev_ptrs),
+      writes_dev, host, fail_async);
 }
 
 }  // namespace
@@ -415,7 +444,7 @@ CUresult cuMemAlloc_v2(CUdeviceptr* out, size_t n) {
   }
   void* p = malloc(n == 0 ? 1 : n);
   std::lock_guard<std::mutex> lk(mu());
-  allocs()[(CUdeviceptr)p] = Alloc{n, 0};
+  allocs()[(CUdeviceptr)p] = Alloc{n, 0, tl_current->dev};
   *out = (CUdeviceptr)p;
   return kOk;
 }
@@ -503,8 +532,44 @@ CUresult cuMemcpyDtoDAsync_v2(CUdeviceptr dst, CUdeviceptr src, size_t n,
   if (tl_current == nullptr) {
     return kInvalidContext;
   }
+  std::vector<CUdeviceptr> dev_ptrs{dst};
+  if (tracked(src, n)) {
+    dev_ptrs.push_back(src);
+  }
   return queue_copy((FakeStream*)stream, (void*)dst, (const void*)src, n,
-                    {dst, src}, true, nullptr, false);
+                    std::move(dev_ptrs), true, nullptr, false);
+}
+
+CUresult cuMemsetD8Async(CUdeviceptr dst, unsigned char value, size_t n,
+                         void* stream) {
+  guard("cuMemsetD8Async");
+  if (tl_current == nullptr) {
+    return kInvalidContext;
+  }
+  return queue_op(
+      (FakeStream*)stream, [dst, value, n]() { memset((void*)dst, value, n); },
+      n, {dst}, true, nullptr, false);
+}
+
+CUresult cuPointerGetAttribute(void* data, int attribute, CUdeviceptr p) {
+  guard("cuPointerGetAttribute");
+  std::lock_guard<std::mutex> lk(mu());
+  Alloc* a = find_alloc(p, 1);
+  if (a == nullptr || data == nullptr) {
+    return kInvalidValue;
+  }
+  if (attribute == kAttrMemoryType) {
+    const char* v = getenv("TRPC_FAKE_CUDA_MEMORY_TYPE");
+    *(unsigned*)data = (v != nullptr && strcmp(v, "device") == 0)
+                           ? kMemoryTypeDevice
+                           : kMemoryTypeHost;
+    return kOk;
+  }
+  if (attribute == kAttrDeviceOrdinal) {
+    *(int*)data = a->dev;
+    return kOk;
+  }
+  return kInvalidValue;
 }
 
 CUresult cuMemcpyPeerAsync(CUdeviceptr dst, void* dst_ctx, CUdeviceptr src,

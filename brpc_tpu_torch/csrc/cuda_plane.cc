@@ -28,6 +28,13 @@
 //   CopyToDevice           -> cuMemcpyDtoDAsync_v2 on one device and
 //                             between peers, cuMemcpyPeerAsync across
 //                             devices the driver gives no peer access
+//   (no PJRT counterpart)  -> a block filled on its device: one
+//                             cuMemcpyDtoDAsync_v2 from memory the
+//                             caller's tensors hold, or cuMemsetD8Async
+//                             to zeros; its address and length for the
+//                             caller to view (trpc_cuda_fill,
+//                             trpc_cuda_buf_addr), and what the driver
+//                             says the memory is (cuPointerGetAttribute)
 //   Buffer_Destroy         -> the block back to its device's cache at
 //                             its last use
 //
@@ -160,6 +167,8 @@ constexpr CUresult CUDA_ERROR_PEER_ACCESS_ALREADY_ENABLED = 704;
 constexpr unsigned CU_STREAM_NON_BLOCKING = 1;
 constexpr unsigned CU_MEMHOSTALLOC_PORTABLE = 1;
 constexpr unsigned CU_MEMHOSTREGISTER_PORTABLE = 1;
+constexpr int CU_POINTER_ATTRIBUTE_MEMORY_TYPE = 2;
+constexpr int CU_POINTER_ATTRIBUTE_DEVICE_ORDINAL = 9;
 
 // Size classes and the pools' limits (see the header comment).
 constexpr size_t kMinClass = 4096;
@@ -199,6 +208,8 @@ struct Driver {
   CUresult (*MemcpyDtoDAsync)(CUdeviceptr, CUdeviceptr, size_t, CUstream);
   CUresult (*MemcpyPeerAsync)(CUdeviceptr, CUcontext, CUdeviceptr, CUcontext,
                               size_t, CUstream);
+  CUresult (*MemsetD8Async)(CUdeviceptr, unsigned char, size_t, CUstream);
+  CUresult (*PointerGetAttribute)(void*, int, CUdeviceptr);
   CUresult (*LaunchHostFunc)(CUstream, CUhostFn, void*);
   CUresult (*GetErrorString)(CUresult, const char**);
 };
@@ -785,6 +796,8 @@ int tpu_plane_init(const char* driver_path) {
       {"cuMemcpyDtoHAsync_v2", (void**)&d.MemcpyDtoHAsync},
       {"cuMemcpyDtoDAsync_v2", (void**)&d.MemcpyDtoDAsync},
       {"cuMemcpyPeerAsync", (void**)&d.MemcpyPeerAsync},
+      {"cuMemsetD8Async", (void**)&d.MemsetD8Async},
+      {"cuPointerGetAttribute", (void**)&d.PointerGetAttribute},
       {"cuLaunchHostFunc", (void**)&d.LaunchHostFunc},
       {"cuGetErrorString", (void**)&d.GetErrorString},
   };
@@ -992,6 +1005,114 @@ TpuBufId h2d_staged(size_t len, int device,
   }
   fill(block, len, src);
   return tpu_h2d(block, len, device, release_staging, nullptr);
+}
+
+// A block of `len` bytes on `device` filled on the device, on its
+// stream: one copy from `src` (device memory that the device's primary
+// context addresses, written in full before this call and kept by the
+// caller until the buffer is ready), or zeros when `src` is 0.  No host
+// memory is read or written; the buffer becomes ready as an h2d's does,
+// in the host function after the fill.
+TpuBufId device_fill(CUdeviceptr src, size_t len, int device) {
+  Plane& p = plane();
+  if (!p.up.load(std::memory_order_acquire) || device < 0 ||
+      device >= (int)p.devs.size() || len == 0) {
+    return 0;
+  }
+  CUdeviceptr ptr = 0;
+  CUresult rc = CUDA_SUCCESS;
+  const char* what = "fill: cuMemAlloc_v2";
+  size_t cls = size_class(len);
+  CUstream stream = p.devs[device].stream;
+  CtxScope ctx(device);
+  bool ok = ctx.ok() && (rc = dev_alloc(device, cls, &ptr)) == CUDA_SUCCESS;
+  if (ok) {
+    if (src != 0) {
+      what = "fill: cuMemcpyDtoDAsync_v2";
+      rc = p.d.MemcpyDtoDAsync(ptr, src, len, stream);
+    } else {
+      what = "fill: cuMemsetD8Async";
+      rc = p.d.MemsetD8Async(ptr, 0, len, stream);
+    }
+    ok = rc == CUDA_SUCCESS;
+  }
+  if (!ok) {
+    if (rc != CUDA_SUCCESS) {  // (a context failure counted itself)
+      count_error(what, rc);
+    }
+    if (ptr != 0) {
+      dev_release(device, ptr, cls);
+    }
+    return 0;
+  }
+  DeviceBuf* b = arm_buf(ptr, device, len, cls);
+  TpuBufId id = b->id();
+  p.live_buffers.fetch_add(1, std::memory_order_relaxed);
+  rc = p.d.LaunchHostFunc(stream, on_copy_done, b);
+  if (rc != CUDA_SUCCESS) {
+    fail_unarmed(b, rc);
+  }
+  return id;
+}
+
+// A ready buffer's device address and length; -EINVAL for a buffer that
+// is gone, -EAGAIN for one not ready, -EIO for one that failed.
+int buf_addr(TpuBufId id, uint64_t* ptr, uint64_t* len) {
+  DeviceBuf* b = pin_buf(id);
+  if (b == nullptr) {
+    return -EINVAL;
+  }
+  int rc = 0;
+  if (butex_value(b->ready).load(std::memory_order_acquire) == 0) {
+    rc = -EAGAIN;
+  } else if (b->error.load(std::memory_order_acquire) != 0) {
+    rc = -EIO;
+  } else if (!use_buf(b)) {
+    rc = -EINVAL;
+  } else {
+    *ptr = (uint64_t)b->ptr;
+    *len = (uint64_t)b->len;
+    unuse_buf(b);
+  }
+  unpin_buf(b);
+  return rc;
+}
+
+// What the driver says device `device`'s buffers are, asked of one block
+// of its cache: the CUmemorytype (2 device memory, 1 host memory) and
+// the ordinal of the device that holds it.  0, or -EIO with the reason
+// recorded.
+int buffer_memory(int device, int* memtype, int* ordinal) {
+  Plane& p = plane();
+  if (!p.up.load(std::memory_order_acquire) || device < 0 ||
+      device >= (int)p.devs.size()) {
+    return -EINVAL;
+  }
+  CtxScope ctx(device);
+  CUdeviceptr ptr = 0;
+  CUresult rc = CUDA_SUCCESS;
+  if (!ctx.ok()) {
+    return -EIO;
+  }
+  if ((rc = dev_alloc(device, kMinClass, &ptr)) != CUDA_SUCCESS) {
+    count_error("buffer memory: cuMemAlloc_v2", rc);
+    return -EIO;
+  }
+  unsigned type = 0;
+  int ord = -1;
+  if ((rc = p.d.PointerGetAttribute(&type, CU_POINTER_ATTRIBUTE_MEMORY_TYPE,
+                                    ptr)) != CUDA_SUCCESS ||
+      (rc = p.d.PointerGetAttribute(&ord, CU_POINTER_ATTRIBUTE_DEVICE_ORDINAL,
+                                    ptr)) != CUDA_SUCCESS) {
+    count_error("cuPointerGetAttribute", rc);
+  }
+  dev_release(device, ptr, kMinClass);
+  if (rc != CUDA_SUCCESS) {
+    return -EIO;
+  }
+  *memtype = (int)type;
+  *ordinal = ord;
+  return 0;
 }
 }  // namespace
 
@@ -1287,6 +1408,29 @@ uint64_t trpc_cuda_h2d_staged(const uint8_t* data, size_t len, int device) {
       len, device,
       [](char* dst, size_t n, const void* src) { memcpy(dst, src, n); },
       data);
+}
+
+// A block of `len` bytes on `device` filled on the device: one copy of
+// `len` bytes from device address `src` (written in full before the
+// call; the caller keeps it until the buffer is ready), or zeros when
+// `src` is 0.  Returns the buffer, ready once filled (trpc_tpu_buf_wait);
+// 0 on failure, with the reason in trpc_tpu_plane_error.
+uint64_t trpc_cuda_fill(uint64_t src, size_t len, int device) {
+  return trpc::device_fill((trpc::CUdeviceptr)src, len, device);
+}
+
+// A ready buffer's device address and length into *ptr and *len, valid
+// until the buffer is freed: 0, -EINVAL (gone), -EAGAIN (not ready) or
+// -EIO (its transfer failed).
+int trpc_cuda_buf_addr(uint64_t id, uint64_t* ptr, uint64_t* len) {
+  return trpc::buf_addr(id, ptr, len);
+}
+
+// What device `device`'s buffers are: *memtype the driver's
+// CUmemorytype of its memory (2 device, 1 host) and *ordinal the device
+// that holds it.  0, or a negative errno with the reason recorded.
+int trpc_cuda_buffer_memory(int device, int* memtype, int* ordinal) {
+  return trpc::buffer_memory(device, memtype, ordinal);
 }
 
 // The pools' counters: out[0..4] the device-buffer caches summed over

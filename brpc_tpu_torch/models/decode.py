@@ -51,8 +51,9 @@ from brpc_tpu_torch.ops.decode_attention import decode_attention
 from brpc_tpu_torch.parallel import sharding
 from brpc_tpu_torch.parallel.mesh import Mesh
 
-# K/V serializes host-side as f32 (the wire the KV block plane moves);
-# the cache itself stays in cfg.dtype on the device.
+# K/V serializes as f32 (the wire the KV block plane moves: host bytes, or
+# the same bytes as a device tensor); the cache itself stays in cfg.dtype
+# on the device.
 KV_WIRE_DTYPE = np.float32
 # the cache's layout over a mesh (the reference's P(None, "dp", None, "tp",
 # None)) and that of a sequence's K/V [L, S, H, hd] over tp
@@ -61,8 +62,8 @@ KV_SPEC = (None, None, "tp", None)
 
 
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """Host-wire bytes one token position contributes to a sequence's
-    K/V: 2 (k+v) x L x H x head_dim f32 values."""
+    """Wire bytes one token position contributes to a sequence's K/V:
+    2 (k+v) x L x H x head_dim f32 values."""
     return 2 * cfg.n_layers * cfg.n_heads * cfg.head_dim * \
         KV_WIRE_DTYPE().itemsize
 
@@ -118,21 +119,20 @@ def _local_row(cache: Dict, slot: int, mesh: Optional[Mesh]):
 
 def install(cache: Dict, slot: int, k, v, length: int,
             mesh: Optional[Mesh] = None) -> Dict:
-    """Write a sequence's prefill K/V [L, S, H, hd] (tensors or numpy)
-    into `slot` at positions [0:S] and set the slot's valid length.  Over
-    a mesh k/v are global and `slot` too: the owning dp group keeps its
-    heads, the others leave their shards alone."""
+    """Write a sequence's prefill K/V [L, S, H, hd] (tensors, on any
+    device, or numpy) into `slot` at positions [0:S] and set the slot's
+    valid length.  Over a mesh k/v are global and `slot` too: the owning
+    dp group keeps its heads, the others leave their shards alone."""
     row = _local_row(cache, slot, mesh)
     if row is None:
         return cache
     if mesh is not None:
         k = sharding.local_slice(k, KV_SPEC, mesh)
         v = sharding.local_slice(v, KV_SPEC, mesh)
-    kk = _tensor(k).to(cache["k"].device, cache["k"].dtype)
-    vv = _tensor(v).to(cache["v"].device, cache["v"].dtype)
+    kk, vv = _tensor(k), _tensor(v)
     s = int(kk.shape[1])
-    cache["k"][:, row, :s] = kk
-    cache["v"][:, row, :s] = vv
+    cache["k"][:, row, :s].copy_(kk)
+    cache["v"][:, row, :s].copy_(vv)
     cache["pos"][row] = int(length)
     return cache
 
@@ -241,19 +241,32 @@ def decode_step(model: TransformerLM, cache: Dict, tokens, active,
 
 
 # ---------------------------------------------------------------------------
-# host-wire (de)serialization — the bytes the KV block plane migrates
+# wire (de)serialization — the bytes the KV block plane migrates
 
 
-def kv_to_bytes(k, v) -> bytes:
-    """[L, S, H, hd] k/v pair -> contiguous f32 host bytes (k then v)."""
-    ka = torch.as_tensor(k).detach().to("cpu", torch.float32).contiguous()
-    va = torch.as_tensor(v).detach().to("cpu", torch.float32).contiguous()
-    return ka.numpy().tobytes() + va.numpy().tobytes()
+def kv_to_bytes(k, v, device=None):
+    """[L, S, H, hd] k/v pair -> the f32 wire, k then v: host bytes, or
+    with `device` the same bytes as a flat uint8 tensor there (packed on
+    the device, no host crossing)."""
+    if device is None:
+        ka = torch.as_tensor(k).detach().to("cpu", torch.float32).contiguous()
+        va = torch.as_tensor(v).detach().to("cpu", torch.float32).contiguous()
+        return ka.numpy().tobytes() + va.numpy().tobytes()
+    k, v = torch.as_tensor(k).detach(), torch.as_tensor(v).detach()
+    out = torch.empty((2,) + tuple(k.shape), dtype=torch.float32,
+                      device=device)
+    out[0].copy_(k)
+    out[1].copy_(v)
+    return out.view(-1).view(torch.uint8)
 
 
-def kv_from_bytes(data: bytes, cfg: ModelConfig, length: int) -> Tuple:
-    """Inverse of kv_to_bytes for a `length`-token sequence (numpy)."""
+def kv_from_bytes(data, cfg: ModelConfig, length: int) -> Tuple:
+    """Inverse of kv_to_bytes for a `length`-token sequence: numpy views
+    of host bytes, or f32 tensor views of a device wire."""
     shape = (cfg.n_layers, length, cfg.n_heads, cfg.head_dim)
     n = int(np.prod(shape))
+    if isinstance(data, torch.Tensor):
+        flat = data.view(torch.float32)[:2 * n]
+        return flat[:n].view(shape), flat[n:].view(shape)
     flat = np.frombuffer(data, KV_WIRE_DTYPE, count=2 * n)
     return flat[:n].reshape(shape), flat[n:].reshape(shape)

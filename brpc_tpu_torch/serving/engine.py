@@ -4,9 +4,13 @@ brpc_tpu/serving/engine.py on PyTorch, eager (no jit, no torch.compile):
 the model runs on an explicit device (``cuda`` unless the caller asks
 for ``cpu``), each decode step launches the hand-written
 ``ops.decode_attention`` kernel once per layer and each prefill the
-``ops.causal_attention`` forward once per layer.  The wire format, the
-KV route (f32 host bytes through DeviceBufPool blocks and back) and the
-block accounting are the reference's.
+``ops.causal_attention`` forward once per layer.  The wire format (f32
+K/V through DeviceBufPool blocks and back) and the block accounting are
+the reference's.  Where the plane's blocks are memory the engine's device
+views (``KvBlockPlane.device_route``: one card, or the fake driver's host
+memory and ``cpu``) the route stays on the device: the wire is packed
+there, each block filled by one device copy and read back through a view
+of it; otherwise it crosses as host bytes, as the reference's does.
 
 Over a mesh (``mesh=``, the reference's dp/tp layout) one engine runs on
 every rank of the world, each on its shards of the model and of the
@@ -35,10 +39,13 @@ Where the work happens the leader counts its time, on
 ``time.monotonic_ns()``, in microseconds that ``stats()`` reports:
 ``queue_wait_us`` (the scheduler's), ``prefill_us`` (the prefill to its
 device work done), ``kv_route_us`` (``KV_ROUTE``, to the install
-returned) and ``kv_route_bytes`` (the route's four host-device
-crossings) of every admit that reaches the install, and a step's
+returned) and ``kv_route_bytes`` (the route's four copies of the wire:
+packed, into the blocks, back from them, into the decode cache) of every
+admit that reaches the install, and a step's
 ``step_issue_us`` (to its last launch), ``step_sync_us`` (its ``.cpu()``)
-and ``emit_us`` (the token writes, grown blocks and retirements).  With
+and ``emit_us`` (the token writes, grown blocks and retirements).  The
+KV plane's own ``kv_host_bytes`` and ``kv_device_fills`` join
+``stats()``.  With
 ``enable_rpcz`` on the same stamps become rpcz spans: a sampled Generate
 call's server span gets ``queue``, ``admit`` (``prefill``, ``kv_route``
 and its six) and ``first_token``; a sampled step is a trace of its own,
@@ -358,7 +365,9 @@ class ServingEngine:
         logits, k, v = self.dev.prefill(seq.prompt)
         p0, p1 = self.dev.prefill_ns
         route = [clock()]           # KV_ROUTE's boundaries
-        kvb = D.kv_to_bytes(k[:, 0], v[:, 0])
+        kvb = D.kv_to_bytes(k[:, 0], v[:, 0],
+                            self.device if self.kv.device_route(self.device)
+                            else None)
         route.append(clock())
         try:
             self.kv.seq_alloc(seq.seq_id, kvb)

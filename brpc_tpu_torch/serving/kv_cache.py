@@ -6,10 +6,14 @@ for keeping KV transfer distinct from the collective plane).
 
 Lifecycle of one sequence:
 
-    seq_alloc(id, kv_bytes)   prefill K/V chunked into blocks, DMA'd onto
-                              the PREFILL device (h2d); charged against
-                              the pool budget — PoolExhausted here means
-                              the batcher must shed or preempt
+    seq_alloc(id, kv)         prefill K/V chunked into blocks on the
+                              PREFILL device, charged against the pool
+                              budget — PoolExhausted here means the
+                              batcher must shed or preempt.  Host bytes
+                              are uploaded (h2d); a device tensor fills
+                              each block by one device copy (no host
+                              bytes), where device_route() says the
+                              engine's device views the blocks
     seq_migrate(id)           blocks hop to the DECODE device:
                                 local rail — tpu_d2d per block, no host
                                   landing (both ends share one PJRT
@@ -20,14 +24,26 @@ Lifecycle of one sequence:
                                   (non-shared-PJRT fallback per the
                                   PARITY ruling; the codec mirrors
                                   parallel/quantize.py wire formats)
-    seq_grow(id)              one more block as decode crosses a block
-                              boundary (the preemption trigger)
-    seq_fetch(id)             the migrated bytes, host-side, for
-                              models/decode.install()
+    seq_grow(id)              one more block, zeroed on the device, as
+                              decode crosses a block boundary (the
+                              preemption trigger)
+    seq_fetch(id)             the migrated K/V, for models/decode.install():
+                              host bytes after a host seq_alloc, else one
+                              tensor on the engine's device gathered from
+                              views of the blocks
     seq_free(id)              EVERY block back to the pool — finish,
                               eviction, and cancel all end here;
                               idempotent, and assert_balanced() proves
                               nothing leaked
+
+``stats()`` counts ``kv_host_bytes`` (what the blocks took from or gave
+to the host: uploads, fetches and the host rail) and ``kv_device_fills``
+(blocks filled on the device, by the route or by a grow).  Torch's
+stream and the plane's stream hand the blocks over in order: torch's
+work is waited for once before the plane's copies read its tensor
+(seq_alloc), the plane's copies are waited for before torch reads a
+block, and torch's reads once before a block can go back to the pool
+(seq_fetch).
 """
 
 from __future__ import annotations
@@ -36,6 +52,8 @@ import os
 import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
 
 from brpc_tpu_torch import tpu_plane
 from brpc_tpu_torch.utils import flags
@@ -70,6 +88,24 @@ class _SeqBlocks:
     blocks: List[tpu_plane.DeviceBuffer] = field(default_factory=list)
     device: int = 0                              # where the blocks live
     migrated: bool = False
+    on_device: bool = False                      # filled from a tensor
+
+
+def _device_name(device) -> str:
+    """`device` as a torch device string with its index (cuda's current
+    device where it names none)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
+def _settle(device: torch.device) -> None:
+    """Wait for torch's queued work on `device`: what it wrote is final
+    before the plane's stream reads it, and what it read is done before
+    the plane may write there again."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 class KvBlockPlane:
@@ -100,6 +136,8 @@ class KvBlockPlane:
         self._codec_bytes = 0
         self._grown = 0
         self._freed_seqs = 0
+        self._host_bytes = 0
+        self._device_fills = 0
 
     # -- sizing -------------------------------------------------------------
 
@@ -118,29 +156,74 @@ class KvBlockPlane:
         with self._lock:
             return len(self._seqs)
 
+    def device_route(self, device) -> bool:
+        """Whether the K/V of an engine on torch device `device` can go
+        through the blocks on the device: the blocks of the prefill and
+        of the decode device are memory that `device` views (plane device
+        i and ``cuda:i`` on a card; the fake driver's host memory and
+        ``cpu``)."""
+        want = _device_name(device)
+        return all(self.pool.view_device(d) == want
+                   for d in (self.prefill_device, self.decode_device))
+
     # -- sequence lifecycle -------------------------------------------------
 
-    def seq_alloc(self, seq_id: int, kv_bytes: bytes) -> int:
+    def seq_alloc(self, seq_id: int, kv) -> int:
         """Chunk a sequence's prefill K/V into blocks on the prefill
-        device.  All-or-nothing: a mid-sequence PoolExhausted rolls back
-        the blocks already charged before re-raising."""
+        device: host ``bytes`` uploaded block by block, or a flat uint8
+        tensor on a device that :meth:`device_route` accepts, each block
+        one device copy of its slice (the last zero-padded).
+        All-or-nothing: a failure mid-sequence returns the blocks already
+        charged before re-raising."""
         with self._lock:
             if seq_id in self._seqs:
                 raise KeyError(f"seq {seq_id} already has a block table")
-        table = _SeqBlocks(nbytes=len(kv_bytes),
-                           device=self.prefill_device)
+        on_device = isinstance(kv, torch.Tensor)
+        if on_device and (kv.dtype != torch.uint8 or kv.dim() != 1
+                          or not self.device_route(kv.device)):
+            raise ValueError(f"a device K/V is a flat uint8 tensor on a "
+                             f"device that views the plane's blocks, not "
+                             f"{kv.dtype} {tuple(kv.shape)} on {kv.device}")
+        table = _SeqBlocks(nbytes=len(kv), device=self.prefill_device,
+                           on_device=on_device)
         try:
-            for off in range(0, max(len(kv_bytes), 1), self.block_bytes):
-                table.blocks.append(self.pool.alloc(
-                    kv_bytes[off:off + self.block_bytes],
-                    self.prefill_device))
-        except tpu_plane.PoolExhausted:
+            if on_device:
+                self._fill_blocks(table, kv)
+            else:
+                for off in range(0, max(len(kv), 1), self.block_bytes):
+                    table.blocks.append(self.pool.alloc(
+                        kv[off:off + self.block_bytes],
+                        self.prefill_device))
+                with self._lock:
+                    self._host_bytes += len(table.blocks) * self.block_bytes
+        except Exception:
             for b in table.blocks:
                 self.pool.free(b)
             raise
         with self._lock:
             self._seqs[seq_id] = table
         return len(table.blocks)
+
+    def _fill_blocks(self, table: _SeqBlocks, kv: torch.Tensor) -> None:
+        """Charge `table`'s blocks, each filled by one device copy of a
+        block-sized slice of `kv` (the last from a zero-padded copy of
+        the tail); returns once every copy is done, so `kv` may go."""
+        bb = self.block_bytes
+        whole = kv.numel() // bb
+        srcs = [kv[i * bb:(i + 1) * bb] for i in range(whole)]
+        if kv.numel() % bb or not srcs:
+            last = torch.zeros(bb, dtype=torch.uint8, device=kv.device)
+            last[:kv.numel() - whole * bb] = kv[whole * bb:]
+            srcs.append(last)
+        _settle(kv.device)
+        try:
+            for src in srcs:
+                table.blocks.append(self.pool.alloc_copy(src, table.device))
+                with self._lock:
+                    self._device_fills += 1
+        finally:
+            for b in table.blocks:  # their copies read kv and last
+                b.wait()
 
     def seq_migrate(self, seq_id: int) -> str:
         """Move the sequence's blocks prefill→decode device; returns the
@@ -164,6 +247,8 @@ class KvBlockPlane:
             for i, b in enumerate(table.blocks):
                 b.wait()
                 data = self._transcode(b.to_host())
+                with self._lock:
+                    self._host_bytes += len(data) + self.block_bytes
                 # free-then-alloc so a full pool can still land the hop
                 # (alloc-first would deadlock at the budget edge); on an
                 # alloc failure the engine sheds the sequence and
@@ -176,14 +261,16 @@ class KvBlockPlane:
         table.migrated = True
         return "local" if use_local else "host"
 
-    def seq_grow(self, seq_id: int, tail: bytes = b"") -> int:
-        """Charge one more block (decode crossed a block boundary).
-        PoolExhausted propagates — the batcher preempts on it."""
-        blk = self.pool.alloc(tail[:self.block_bytes], self.decode_device)
+    def seq_grow(self, seq_id: int) -> int:
+        """Charge one more block (decode crossed a block boundary),
+        zeroed on the decode device.  PoolExhausted propagates — the
+        batcher preempts on it."""
+        blk = self.pool.alloc_zeros(self.decode_device)
         with self._lock:
             table = self._seqs[seq_id]
             table.blocks.append(blk)
             self._grown += 1
+            self._device_fills += 1
         return len(table.blocks)
 
     def seq_blocks(self, seq_id: int) -> int:
@@ -192,14 +279,28 @@ class KvBlockPlane:
             table = self._seqs.get(seq_id)
             return len(table.blocks) if table else 0
 
-    def seq_fetch(self, seq_id: int) -> bytes:
-        """The migrated K/V bytes, host-side (feeds decode.install)."""
+    def seq_fetch(self, seq_id: int):
+        """The migrated K/V (feeds decode.install): host bytes after a
+        host seq_alloc; after a device one, a uint8 tensor on the view of
+        the decode device, copied from views of the blocks (the reads
+        done before it returns, so that the blocks may go back to the
+        pool)."""
         with self._lock:
             table = self._seqs[seq_id]
+        blocks = table.blocks[:self.blocks_needed(table.nbytes)]
+        if table.on_device:
+            where = self.pool.view_device(table.device)
+            bb = self.block_bytes
+            out = torch.cat([b.view(where)[:table.nbytes - i * bb]
+                             for i, b in enumerate(blocks)])
+            _settle(out.device)
+            return out
         out = []
-        for b in table.blocks:
+        for b in blocks:
             b.wait()
             out.append(b.to_host())
+        with self._lock:
+            self._host_bytes += len(blocks) * self.block_bytes
         return b"".join(out)[:table.nbytes]
 
     def seq_free(self, seq_id: int) -> int:
@@ -238,7 +339,9 @@ class KvBlockPlane:
                  "kv_migrations_host": self._migrations_host,
                  "kv_codec_bytes": self._codec_bytes,
                  "kv_grown_blocks": self._grown,
-                 "kv_freed_seqs": self._freed_seqs}
+                 "kv_freed_seqs": self._freed_seqs,
+                 "kv_host_bytes": self._host_bytes,
+                 "kv_device_fills": self._device_fills}
         d.update({f"kv_pool_{k}": v
                   for k, v in self.pool.pool_stats().items()})
         return d

@@ -130,12 +130,12 @@ class Lockstep:
         return out
 
     def install(self, slot: int, k, v, length: int) -> None:
-        """Install a sequence's global K/V [L, S, H, hd] (host arrays, as
-        the KV plane hands them back) into `slot`."""
+        """Install a sequence's global K/V [L, S, H, hd] (as the KV plane
+        hands it back: f32 tensors on the device, or host arrays) into
+        `slot`."""
         if self.world > 1 and self.leader:
-            kv = torch.from_numpy(np.stack([np.asarray(x, np.float32)
-                                            for x in (k, v)]))
-            kv = kv.to(self.device)
+            kv = torch.stack([D._tensor(x).to(self.device, torch.float32)
+                              for x in (k, v)])
             self._send(INSTALL, slot, length, kv)
             k, v = kv[0], kv[1]
         self.ops["install"] += 1

@@ -22,6 +22,11 @@ the reference resolve it unchanged):
   reference's plane does.  :func:`pool_stats` counts the pools' hits and
   misses and the slots taken, and says which device pairs have peer
   access.
+* A buffer can also be filled on its device, with no host bytes: one
+  copy from a tensor's memory or zeros (:func:`fill`), and a ready
+  buffer viewed as a ``torch`` tensor over its own memory
+  (:meth:`DeviceBuffer.view`) on the device :func:`torch_device` names:
+  ``cuda:<n>`` on a card, ``cpu`` over the fake driver's host memory.
 * RPC attachments ride this plane zero-copy: a large attachment lands in
   ONE IOBuf block and that block's memory is the copy source —
   ``stats()["zero_copy_sends"]`` counts the pointer-identity transfers,
@@ -116,6 +121,24 @@ class DeviceBuffer:
         finally:
             L.trpc_tpu_buf_release(out)
 
+    def view(self, device: str):
+        """The buffer's bytes as a uint8 tensor over its own memory on
+        `device` (what :func:`torch_device` says of its plane device), no
+        copy.  Waits until the buffer is resident.  The view is valid
+        until the buffer is freed; the caller orders its own reads and
+        writes against the plane's copies."""
+        import torch
+        self.wait()
+        ptr, n = ctypes.c_uint64(), ctypes.c_uint64()
+        rc = lib().trpc_cuda_buf_addr(self._id, ctypes.byref(ptr),
+                                      ctypes.byref(n))
+        if rc != 0:
+            raise IOError(f"device buffer not viewable: rc={rc} ({error()})")
+        if device == "cpu":
+            mem = (ctypes.c_uint8 * n.value).from_address(ptr.value)
+            return torch.frombuffer(mem, dtype=torch.uint8)
+        return torch.as_tensor(_CudaRange(ptr.value, n.value), device=device)
+
     def free(self) -> None:
         lib().trpc_tpu_buf_free(self._id)
 
@@ -136,6 +159,55 @@ def h2d(data: bytes, device: int = 0) -> DeviceBuffer:
     if buf_id == 0:
         raise IOError(f"h2d failed: {error()}")
     return DeviceBuffer(buf_id, len(data))
+
+
+_MEMORY_HOST, _MEMORY_DEVICE = 1, 2     # the driver's CUmemorytype
+
+
+def fill(nbytes: int, device: int = 0, src=None) -> DeviceBuffer:
+    """A buffer of `nbytes` on `device` filled on the device itself, on
+    the plane's stream: one copy of the first `nbytes` of `src` (a
+    contiguous tensor on :func:`torch_device` of `device`, its writes
+    complete, kept by the caller until the buffer is ready), or zeros
+    without one.  Returns at once; ``wait()`` parks until it is filled."""
+    if not available():
+        raise RuntimeError(f"device plane unavailable: {error()}")
+    ptr = 0
+    if src is not None:
+        if not src.is_contiguous() or src.nbytes < nbytes:
+            raise ValueError(f"fill source must be contiguous and hold "
+                             f"{nbytes} bytes")
+        ptr = src.data_ptr()
+    buf_id = lib().trpc_cuda_fill(ptr, nbytes, device)
+    if buf_id == 0:
+        raise IOError(f"device fill failed: {error()}")
+    return DeviceBuffer(buf_id, nbytes)
+
+
+def torch_device(device: int) -> Optional[str]:
+    """The torch device that views plane device `device`'s buffers
+    without a copy: ``"cuda:<n>"`` where the driver says they are device
+    memory of its device n (whose primary context PyTorch shares),
+    ``"cpu"`` where it says they are host memory (the fake driver's);
+    None when the plane is down or the driver says neither."""
+    if not available():
+        return None
+    memtype, ordinal = ctypes.c_int(), ctypes.c_int()
+    if lib().trpc_cuda_buffer_memory(device, ctypes.byref(memtype),
+                                     ctypes.byref(ordinal)) != 0:
+        return None
+    return {_MEMORY_DEVICE: f"cuda:{ordinal.value}",
+            _MEMORY_HOST: "cpu"}.get(memtype.value)
+
+
+class _CudaRange:
+    """A device byte range as ``__cuda_array_interface__`` (version 3,
+    no stream: the caller orders the accesses)."""
+
+    def __init__(self, ptr: int, n: int):
+        self.__cuda_array_interface__ = {
+            "shape": (n,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 3}
 
 
 def stats() -> Dict[str, int]:
@@ -226,6 +298,7 @@ class DeviceBufPool:
         self.max_blocks = max_blocks
         self._lock = threading.Lock()
         self._live: Dict[int, DeviceBuffer] = {}   # handle -> buffer
+        self._views: Dict[int, Optional[str]] = {}  # device -> torch device
         self._allocs = 0
         self._frees = 0
         self._migrations = 0
@@ -264,6 +337,17 @@ class DeviceBufPool:
 
     # -- data path ----------------------------------------------------------
 
+    def view_device(self, device: int) -> Optional[str]:
+        """The torch device that views this pool's blocks on plane
+        device `device` (:func:`torch_device`, asked once a device)."""
+        with self._lock:
+            if device in self._views:
+                return self._views[device]
+        where = torch_device(device)
+        with self._lock:
+            self._views[device] = where
+        return where
+
     def alloc(self, data: bytes, device: int = 0) -> DeviceBuffer:
         """Charge one block and DMA `data` (at most block_bytes, padded
         to the block size so every block is pool-shaped) onto `device`.
@@ -273,15 +357,35 @@ class DeviceBufPool:
             raise ValueError(
                 f"block payload {len(data)} > block_bytes "
                 f"{self.block_bytes}")
+        pad = self.block_bytes - len(data)
+        return self._charge(lambda: h2d(data + b"\x00" * pad, device))
+
+    def alloc_zeros(self, device: int = 0) -> DeviceBuffer:
+        """Charge one block and zero it on `device` (a device memset: no
+        host bytes)."""
+        return self._charge(lambda: fill(self.block_bytes, device))
+
+    def alloc_copy(self, src, device: int = 0) -> DeviceBuffer:
+        """Charge one block and fill it on `device` by one device copy of
+        `src`, a contiguous tensor of block_bytes bytes on the pool's view
+        of `device` (:meth:`view_device`), its writes complete; the caller
+        keeps it until the block is ready."""
+        if src.nbytes != self.block_bytes:
+            raise ValueError(f"block source {src.nbytes} bytes != "
+                             f"block_bytes {self.block_bytes}")
+        return self._charge(lambda: fill(self.block_bytes, device, src))
+
+    def _charge(self, make) -> DeviceBuffer:
+        """Charge one block for the buffer `make()` returns; the charge
+        is undone when it raises."""
         with self._lock:
             if len(self._live) >= self.max_blocks:
                 self._exhausted += 1
                 raise PoolExhausted(
                     f"block budget spent ({self.max_blocks} blocks)")
             self._allocs += 1
-        pad = self.block_bytes - len(data)
         try:
-            buf = h2d(data + b"\x00" * pad, device)
+            buf = make()
         except Exception:
             with self._lock:
                 self._allocs -= 1
@@ -310,14 +414,7 @@ class DeviceBufPool:
         re-upload) against this pool's budget.  Raises PoolExhausted
         rather than over-committing; the buffer is NOT freed on refusal
         (it was never ours)."""
-        with self._lock:
-            if len(self._live) >= self.max_blocks:
-                self._exhausted += 1
-                raise PoolExhausted(
-                    f"block budget spent ({self.max_blocks} blocks)")
-            self._allocs += 1
-            self._live[buf.handle] = buf
-        return buf
+        return self._charge(lambda: buf)
 
     def release(self, buf: DeviceBuffer) -> None:
         """Un-charge a block WITHOUT freeing the underlying buffer —

@@ -36,7 +36,6 @@ COPIED = (
      "metrics/default_vars.py", "metrics/dumper.py", "metrics/native.py",
      "builtin/__init__.py", "builtin/flame.py", "builtin/portal.py",
      "utils/checksum.py", "utils/timeutil.py",
-     "serving/kv_cache.py",
      "parallel/channels.py"]
     + [f"cluster/{m}.py" for m in (
         "__init__", "circuit_breaker", "cluster_channel", "health_check",
@@ -54,7 +53,8 @@ COPIED = (
 # the port's own modules: rewritten counterparts of reference modules
 # (_native, tpu_plane, models, parallel, serving/engine; rpc/span and
 # serving/scheduler, which time the serving engine's stages on the
-# monotonic clock) and new ones
+# monotonic clock; serving/kv_cache, whose blocks are filled and read on
+# the device) and new ones
 PORTED = [
     "_native/__init__.py", "tpu_plane.py", "weights.py", "entry.py",
     "models/__init__.py", "models/transformer.py", "models/decode.py",
@@ -65,7 +65,7 @@ PORTED = [
     "parallel/collectives.py", "parallel/sharding.py",
     "parallel/ring_attention.py",
     "serving/__init__.py", "serving/engine.py", "serving/lockstep.py",
-    "serving/scheduler.py", "rpc/span.py",
+    "serving/scheduler.py", "serving/kv_cache.py", "rpc/span.py",
 ]
 
 

@@ -9,12 +9,21 @@ back over the server's ``/rpcz``.  It wraps the engine's admit and step
 to read the counters around each call, and polls ``engine.stats()``
 while the streams run.  The tests below read that one run.  The spill
 read-back and the ring's resize run in-process (no native library).
+
+The KV route's legs serve the same prompts once on each route: on the
+device (the fake driver's memory is host memory, which the engine's
+``cpu`` views) and on the host (``TRPC_FAKE_CUDA_MEMORY_TYPE=device``:
+the driver calls it device memory, which ``cpu`` cannot view), each with
+the decode device 0 (rail "none") and 1 (rail "local"), and with every
+fake operation delayed, so that a hand-off out of order reads stale
+bytes.  The same run on the card is the ``cuda`` leg.
 """
 
 import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -285,6 +294,220 @@ def test_a_decode_step_is_one_trace_of_issue_sync_and_emit(served):
             assert s["method"] == "grow"
             grows += 1
     assert grows > 0    # 4-token blocks: the streams grow as they decode
+
+
+# argv: the engine's device, its dtype, the KV plane's decode device;
+# prints one JSON line
+ROUTE_CODE = r"""
+import hashlib, json, sys, time
+import torch
+from brpc_tpu_torch import tpu_plane
+from brpc_tpu_torch.rpc import errors
+from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions
+from brpc_tpu_torch.rpc.server import Server
+from brpc_tpu_torch.serving import ServingEngine
+from brpc_tpu_torch.serving.engine import tiny_config
+from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
+
+device, dtype, decode_device = sys.argv[1], sys.argv[2], int(sys.argv[3])
+assert tpu_plane.init(), tpu_plane.error()
+cfg = tiny_config(dtype=getattr(torch, dtype))
+engine = ServingEngine(cfg=cfg, device=device, n_slots=2, max_waiting=4,
+                       kv=KvBlockPlane(block_bytes=4096, n_blocks=32,
+                                       decode_device=decode_device))
+server = Server()
+engine.register(server)
+addr = f"127.0.0.1:{server.start('127.0.0.1:0')}"
+inner_prefill, inner_install = engine.dev.prefill, engine.dev.install
+inner_alloc, inner_admit = engine.kv.seq_alloc, engine._admit
+admits, cur = [], {}
+
+
+def prefill(prompt):
+    out = inner_prefill(prompt)
+    cur["k"], cur["v"] = out[1][:, 0].clone(), out[2][:, 0].clone()
+    return out
+
+
+def seq_alloc(seq_id, kv):
+    cur["blocks"] = inner_alloc(seq_id, kv)
+    return cur["blocks"]
+
+
+def install(slot, k, v, length):
+    inner_install(slot, k, v, length)
+    got_k = engine.cache["k"][:, slot, :length]
+    got_v = engine.cache["v"][:, slot, :length]
+    cur["equal"] = (torch.equal(got_k, cur["k"])
+                    and torch.equal(got_v, cur["v"]))
+    cur["digest"] = hashlib.sha256(
+        got_k.float().cpu().numpy().tobytes()
+        + got_v.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def admit(seq):
+    before = engine.kv_route_bytes
+    inner_admit(seq)
+    admits.append({"plen": seq.prompt_len, "blocks": cur["blocks"],
+                   "equal": cur["equal"], "digest": cur["digest"],
+                   "route_bytes": engine.kv_route_bytes - before})
+
+
+engine.dev.prefill, engine.dev.install = prefill, install
+engine.kv.seq_alloc, engine._admit = seq_alloc, admit
+engine.start()
+p0 = tpu_plane.stats()
+for plen in (5, 10, 12, 7):
+    ch = Channel(addr, ChannelOptions(timeout_ms=60000, max_retry=0))
+    _, st = ch.create_stream("LLM.Generate", json.dumps(
+        {"prompt": [(3 * i + plen) % cfg.vocab + 1 for i in range(plen)],
+         "max_new_tokens": 12}).encode())
+    n = 0
+    while st.read(timeout_s=120) is not None:
+        n += 1
+    assert n == 12, n
+    st.destroy()
+    ch.close()
+# a cancel mid-stream: its blocks, grown ones too, go back
+ch = Channel(addr, ChannelOptions(timeout_ms=60000, max_retry=0))
+_, st = ch.create_stream("LLM.Generate", json.dumps(
+    {"prompt_len": 8, "max_new_tokens": 40}).encode())
+for _ in range(10):
+    assert st.read(timeout_s=120) is not None
+st.rst(errors.ECANCELED)
+st.destroy()
+ch.close()
+deadline = time.monotonic() + 60
+while engine.stats()["canceled"] < 1 and time.monotonic() < deadline:
+    time.sleep(0.02)
+p1, es = tpu_plane.stats(), engine.stats()
+engine.stop()
+engine.assert_drained()
+server.destroy()
+live = tpu_plane.stats()["live_buffers"]
+# a grown block reads back as zeros, on a block the cache held dirty
+kv = KvBlockPlane(block_bytes=4096, n_blocks=4, decode_device=decode_device)
+kv.seq_alloc(1, b"\x07" * 4096)
+kv.seq_migrate(1)
+kv.seq_free(1)
+kv.seq_alloc(2, b"\x01")
+kv.seq_grow(2)
+grown = kv._seqs[2].blocks[-1]
+grown.wait()
+zeros = grown.to_host() == bytes(4096)
+if kv.device_route(device):
+    where = kv.pool.view_device(decode_device)
+    zeros = zeros and int(grown.view(where).count_nonzero()) == 0
+kv.seq_free(2)
+kv.assert_balanced()
+print("RESULT " + json.dumps({
+    "cfg": [cfg.n_layers, cfg.d_model], "admits": admits,
+    "device_route": engine.kv.device_route(device),
+    "h2d_bytes": p1["h2d_bytes"] - p0["h2d_bytes"],
+    "d2h_bytes": p1["d2h_bytes"] - p0["d2h_bytes"],
+    "stats": es, "live": live, "grown_zeros": zeros,
+    "live_after": tpu_plane.stats()["live_buffers"]}))
+"""
+
+ROUTE_CASES = [("device", 0), ("device", 1), ("host", 0), ("host", 1)]
+
+
+def _serve_route(route, decode_device):
+    _native.build_core()
+    env = dict(os.environ, TRPC_CUDA_DRIVER=_native.build_fake_driver(),
+               TRPC_FAKE_CUDA_DELAY_US="200",
+               TRPC_FAKE_CUDA_MEMORY_TYPE="host" if route == "device"
+               else "device")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return _result(subprocess.run(
+        [sys.executable, "-c", ROUTE_CODE, "cpu", "float32",
+         str(decode_device)], env=env, capture_output=True, text=True,
+        timeout=300))
+
+
+def _result(r):
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert r.returncode == 0 and lines, \
+        f"stdout:\n{r.stdout[-4000:]}\nstderr:\n{r.stderr[-4000:]}"
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+@pytest.fixture(scope="module")
+def routes():
+    _native.build_core()
+    _native.build_fake_driver()
+    with ThreadPoolExecutor(len(ROUTE_CASES)) as ex:
+        futs = {case: ex.submit(_serve_route, *case) for case in ROUTE_CASES}
+        return {case: f.result() for case, f in futs.items()}
+
+
+def _blocks(plen):
+    return -(-plen * 1024 // 4096)    # tiny_config: 1,024 wire bytes a token
+
+
+@pytest.mark.parametrize("route,decode_device", ROUTE_CASES)
+def test_both_routes_install_the_same_rows_bytes_and_blocks(
+        routes, route, decode_device):
+    got = routes[(route, decode_device)]
+    other = routes[("host" if route == "device" else "device",
+                    decode_device)]
+    L, d = got["cfg"]
+    assert got["device_route"] is (route == "device")
+    assert [a["plen"] for a in got["admits"][:4]] == [5, 10, 12, 7]
+    for a, b in zip(got["admits"], other["admits"]):
+        assert a["equal"], a               # the prefill's K/V, bit for bit
+        assert a["digest"] == b["digest"]
+        assert a["route_bytes"] == b["route_bytes"] == 32 * L * a["plen"] * d
+        assert a["blocks"] == b["blocks"] == _blocks(a["plen"])
+    st = got["stats"]
+    assert st["kv_grown_blocks"] == other["stats"]["kv_grown_blocks"] > 0
+    assert st["rail_none" if decode_device == 0 else "rail_local"] == 5
+
+
+@pytest.mark.parametrize("route,decode_device", ROUTE_CASES)
+def test_kv_host_bytes_count_the_blocks_host_crossings(
+        routes, route, decode_device):
+    got = routes[(route, decode_device)]
+    st = got["stats"]
+    admitted = sum(a["blocks"] for a in got["admits"])
+    crossings = got["h2d_bytes"] + got["d2h_bytes"]
+    assert st["kv_host_bytes"] == crossings
+    if route == "device":
+        assert crossings == 0
+        assert st["kv_device_fills"] == admitted + st["kv_grown_blocks"]
+    else:   # up and back once each; the grown blocks stay on the device
+        assert crossings == 2 * 4096 * admitted
+        assert st["kv_device_fills"] == st["kv_grown_blocks"]
+
+
+@pytest.mark.parametrize("route,decode_device", ROUTE_CASES)
+def test_a_grown_block_is_zeros_and_a_cancel_drains_the_plane(
+        routes, route, decode_device):
+    got = routes[(route, decode_device)]
+    assert got["grown_zeros"]
+    assert got["stats"]["canceled"] == 1
+    assert got["live"] == 0 and got["live_after"] == 0
+
+
+@pytest.mark.cuda
+def test_an_admit_on_the_card_moves_no_host_bytes():
+    """The route on the real driver: the wire packed in HBM, the blocks
+    filled and read there, the installed bf16 K/V the prefill's bit for
+    bit, no h2d or d2h byte over the whole run, a grown block zeros."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and its driver (libcuda.so.1)")
+    env = dict(os.environ)
+    env.pop("TRPC_CUDA_DRIVER", None)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    got = _result(subprocess.run(
+        [sys.executable, "-c", ROUTE_CODE, "cuda", "bfloat16", "0"],
+        env=env, capture_output=True, text=True, timeout=600))
+    assert got["device_route"] is True
+    assert all(a["equal"] for a in got["admits"]), got["admits"]
+    assert got["h2d_bytes"] == 0 and got["d2h_bytes"] == 0
+    assert got["stats"]["kv_host_bytes"] == 0
+    assert got["grown_zeros"] and got["live"] == 0
 
 
 def test_a_spill_file_without_the_monotonic_stamps_reads_back(tmp_path):
