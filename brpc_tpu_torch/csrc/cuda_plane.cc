@@ -44,12 +44,17 @@
 //   * Device buffers: one cache per device, free lists by size class
 //     (powers of two from 4 KiB up to kExactAbove, exact sizes above it:
 //     a power of two above 32 MiB could waste more than a KV pool holds).
-//     At most kDevCacheBytes (256 MiB) of free blocks stay cached per
-//     device, a constant.  Only the plane's own CUDA_ERROR_OUT_OF_MEMORY
-//     releases them: the device's cached blocks go back to the driver and
-//     the allocation is tried once more.  An out-of-memory error inside
-//     PyTorch's caching allocator never reaches them, so up to that much
-//     stays held while PyTorch runs short.
+//     A device keeps free blocks cached up to the most it ever had live
+//     at once less what is live now, and at least kDevCacheBytes
+//     (256 MiB): what the device once held it may hold again, so a
+//     burst of frees (a KV pool's retirements) waits for the
+//     allocations that follow (the next admits) instead of going back
+//     to the driver, whose cuMemFree waits for the device.  The plane's
+//     own CUDA_ERROR_OUT_OF_MEMORY releases them: the device's cached
+//     blocks go back to the driver, the most live drops to what is live,
+//     and the allocation is tried once more.  An out-of-memory error
+//     inside PyTorch's caching allocator never reaches them, so up to
+//     that much stays held while PyTorch runs short.
 //   * Host landing zones and h2d staging blocks: one pool of page-locked
 //     blocks from cuMemHostAlloc(PORTABLE), by the same classes, at most
 //     kHostCacheBytes cached.  tpu_host_free hands a pool block back (the
@@ -112,6 +117,7 @@
 #include <string.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
 #include <map>
 #include <memory>
@@ -173,7 +179,7 @@ constexpr int CU_POINTER_ATTRIBUTE_DEVICE_ORDINAL = 9;
 // Size classes and the pools' limits (see the header comment).
 constexpr size_t kMinClass = 4096;
 constexpr size_t kExactAbove = 32u << 20;
-constexpr size_t kDevCacheBytes = 256u << 20;   // free blocks, per device
+constexpr size_t kDevCacheBytes = 256u << 20;   // cache floor, per device
 constexpr size_t kHostCacheBytes = 256u << 20;  // free page-locked blocks
 
 size_t size_class(size_t len) {
@@ -227,11 +233,14 @@ struct Dev {
 
 // Free blocks of one pool by size class.  take/put are pushes and pops
 // under a mutex, never a CUDA call; evict hands back the blocks above a
-// byte limit, for the caller to return to the driver.
+// byte limit, for the caller to return to the driver.  A device cache
+// also counts the bytes it lent out (lend, and put's `lent`) and their
+// most, which set its limit (keep).
 struct FreeList {
   std::mutex mu;
   std::map<size_t, std::vector<uint64_t>> by_class;
   size_t cached = 0;
+  size_t live = 0, peak = 0;  // device caches: bytes lent out, their most
   std::atomic<uint64_t> hits{0}, misses{0}, releases{0}, oom_retries{0};
 
   bool take(size_t cls, uint64_t* out) {
@@ -248,12 +257,37 @@ struct FreeList {
     return true;
   }
 
-  // true when the list is now above `limit`
-  bool put(uint64_t block, size_t cls, size_t limit) {
+  // true when the list is now above `limit` (a device cache: above
+  // keep(limit)); `lent` when the block was counted by lend
+  bool put(uint64_t block, size_t cls, size_t limit, bool lent = false) {
     std::lock_guard<std::mutex> lk(mu);
     by_class[cls].push_back(block);
     cached += cls;
+    if (lent) {
+      live -= cls;
+      return cached > keep_locked(limit);
+    }
     return cached > limit;
+  }
+
+  // a block of class `cls` handed out, from the list or the driver
+  void lend(size_t cls) {
+    std::lock_guard<std::mutex> lk(mu);
+    live += cls;
+    peak = std::max(peak, live);
+  }
+
+  // a device cache's limit: the most lent out at once less what is out
+  // now, and at least `floor`
+  size_t keep(size_t floor) {
+    std::lock_guard<std::mutex> lk(mu);
+    return keep_locked(floor);
+  }
+
+  // after an out-of-memory: the most lent out is what is out now
+  void forget_peak() {
+    std::lock_guard<std::mutex> lk(mu);
+    peak = live;
   }
 
   // (block, class) pairs taken off the lists until at most `keep` bytes
@@ -276,6 +310,11 @@ struct FreeList {
   bool over(size_t limit) {
     std::lock_guard<std::mutex> lk(mu);
     return cached > limit;
+  }
+
+ private:
+  size_t keep_locked(size_t floor) const {
+    return std::max(floor, peak - live);
   }
 };
 
@@ -395,19 +434,25 @@ void dev_evict(int dev, size_t keep) {
 CUresult dev_alloc(int dev, size_t cls, CUdeviceptr* out) {
   Plane& p = plane();
   FreeList& f = *p.dev_cache[dev];
-  if (f.over(kDevCacheBytes)) {  // pushed past the limit in a host function
-    dev_evict(dev, kDevCacheBytes);
+  size_t keep = f.keep(kDevCacheBytes);
+  if (f.over(keep)) {  // pushed past the limit in a host function
+    dev_evict(dev, keep);
   }
   uint64_t block = 0;
   if (f.take(cls, &block)) {
     *out = (CUdeviceptr)block;
+    f.lend(cls);
     return CUDA_SUCCESS;
   }
   CUresult rc = p.d.MemAlloc(out, cls);
   if (rc == CUDA_ERROR_OUT_OF_MEMORY) {
     f.oom_retries.fetch_add(1, std::memory_order_relaxed);
+    f.forget_peak();
     dev_evict(dev, 0);
     rc = p.d.MemAlloc(out, cls);
+  }
+  if (rc == CUDA_SUCCESS) {
+    f.lend(cls);
   }
   return rc;
 }
@@ -416,10 +461,11 @@ CUresult dev_alloc(int dev, size_t cls, CUdeviceptr* out) {
 // may do it; above the limit, a caller outside one trims at once.
 void dev_release(int dev, CUdeviceptr ptr, size_t cls) {
   Plane& p = plane();
-  if (p.dev_cache[dev]->put(ptr, cls, kDevCacheBytes) && !tl_in_host_fn) {
+  FreeList& f = *p.dev_cache[dev];
+  if (f.put(ptr, cls, kDevCacheBytes, true) && !tl_in_host_fn) {
     CtxScope ctx(dev);
     if (ctx.ok()) {
-      dev_evict(dev, kDevCacheBytes);
+      dev_evict(dev, f.keep(kDevCacheBytes));
     }
   }
 }

@@ -11,7 +11,8 @@ prefill's the hand-written ``ops.causal_attention`` forward.
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
 cache's tensors and return the same dict.  Dense only, as the reference
-(decode.py:16-18): an MoE config raises ``ValueError``.
+(decode.py:16-18): an MoE config raises ``ValueError``, and so does the
+lfm2 family, whose conv layers would need a conv-state cache.
 
 Over a mesh (``mesh=``, the reference's dp/tp layout, decode.py:64-65)
 every function runs on this rank's shards, with the training forward's
@@ -69,6 +70,11 @@ def kv_bytes_per_token(cfg: ModelConfig) -> int:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "gpt2":
+        raise ValueError(
+            f"the decode path serves the gpt2 family only: {cfg.family}'s "
+            f"short-convolution layers need a conv-state cache beside the "
+            f"KV cache, which it does not have")
     if cfg.n_experts > 0:
         raise ValueError("decode path is dense-only (cfg.n_experts == 0)")
 

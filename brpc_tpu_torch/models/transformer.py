@@ -23,8 +23,9 @@ Numerics the port keeps on purpose:
   the -1e30 causal mask and the softmax; the weights go back to
   ``cfg.dtype`` before the product with V.  On the card this is the
   hand-written kernel ``ops.causal_attention``, forward and backward.
-* MoE blocks are the reference's dense top-k switch: every expert runs
-  on every token, weighted by the renormalised top-k gate.
+* MoE blocks are the reference's top-k switch (softmax gate, top-k
+  renormalised, GELU experts) through the routed expert layer
+  (:mod:`moe`): each expert runs only on the tokens routed to it.
 * The logits use the tied ``embed``.
 
 :func:`apply` carries gradients (training differentiates it); the
@@ -46,18 +47,26 @@ or Ulysses config at sp > 1 runs parallel/ring_attention.py where the
 reference does.  Without a mesh a ring or Ulysses config runs gather
 attention, as the reference does.  Every entry point takes an explicit
 ``device`` and runs on ``cuda`` unless the caller asks for ``cpu``.
+
+``cfg.family`` "lfm2" is another block family (:mod:`lfm2`: gated short
+convolutions, QK-normed GQA with RoPE, SwiGLU and sigmoid-routed MoE
+feed-forwards, leaves held per layer), on one device; :func:`init` and
+:func:`apply` dispatch by family, and the GPT-2 path above is unchanged.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
+from brpc_tpu_torch.models import lfm2
+from brpc_tpu_torch.models import moe
 from brpc_tpu_torch.ops.causal_attention import causal_attention
 from brpc_tpu_torch.parallel import sharding
 from brpc_tpu_torch.parallel.ring_attention import (ring_attention,
@@ -77,18 +86,58 @@ class ModelConfig:
     moe_topk: int = 1
     dtype: Any = torch.bfloat16
     attn_impl: str = "gather"
+    # the block family: "gpt2" (the fields above) or "lfm2" (models/lfm2.py,
+    # which also reads the fields below)
+    family: str = "gpt2"
+    n_kv_heads: int = 0      # 0 = n_heads
+    layer_kinds: Tuple[str, ...] = ()   # lfm2: "conv" or "attn" a layer
+    n_dense_layers: int = 0  # lfm2: leading layers with the dense FFN
+    d_expert: int = 0        # lfm2: an expert's FFN width
+    experts_held: int = 0    # the experts this device holds; 0 = all
+    expert_first: int = 0    # the first of them
+    routed_scale: float = 1.0   # lfm2: the routing weights' scale
+    norm_eps: float = 1e-5   # lfm2: RMSNorm's
+    rope_theta: float = 1e6  # lfm2
+    conv_width: int = 3      # lfm2: the short convolution's
 
     def __post_init__(self):
         if self.attn_impl not in ("gather", "ring", "ulysses"):
             raise ValueError(
                 f"attn_impl must be gather|ring|ulysses, "
                 f"got {self.attn_impl!r}")
+        if self.family not in ("gpt2", "lfm2"):
+            raise ValueError(f"family must be gpt2|lfm2, got {self.family!r}")
+        if self.n_heads % self.kv_heads:
+            raise ValueError(f"{self.n_heads} query heads do not share "
+                             f"{self.kv_heads} KV heads evenly")
+        if self.expert_first < 0 or \
+                self.expert_first + self.held > self.n_experts:
+            raise ValueError(f"experts {self.expert_first} .. "
+                             f"{self.expert_first + self.held} are not "
+                             f"among the {self.n_experts}")
+        if self.family == "lfm2" and (
+                len(self.layer_kinds) != self.n_layers
+                or set(self.layer_kinds) - {"conv", "attn"}):
+            raise ValueError(f"layer_kinds must give conv|attn for each of "
+                             f"the {self.n_layers} layers, got "
+                             f"{self.layer_kinds!r}")
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
 
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def held(self) -> int:
+        """The number of experts this device holds."""
+        return self.experts_held or self.n_experts
+
     def is_moe(self, layer: int) -> bool:
+        if self.family == "lfm2":
+            return self.n_experts > 0 and layer >= self.n_dense_layers
         return self.n_experts > 0 and self.moe_every > 0 and \
             (layer % self.moe_every == self.moe_every - 1)
 
@@ -173,6 +222,18 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, device="cuda", mesh=None):
         super().__init__()
         dev = resolve_device(device)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.expert_stats = moe.ExpertStats(moe_slot(cfg, cfg.n_layers))
+        if cfg.family == "lfm2":
+            if mesh is not None:
+                raise ValueError("the lfm2 family runs on one device")
+            self.embed = nn.Parameter(torch.zeros((cfg.vocab, cfg.d_model),
+                                                  device=dev))
+            self.norm_f = nn.Parameter(torch.zeros(cfg.d_model, device=dev))
+            self.layers = nn.ModuleList(lfm2.Layer(cfg, i, dev)
+                                        for i in range(cfg.n_layers))
+            return
         specs = flat_specs(cfg)
         shapes = _global_shapes(cfg)
 
@@ -185,8 +246,6 @@ class TransformerLM(nn.Module):
         def group(prefix, names):
             return nn.ParameterDict({n: p(f"{prefix}.{n}") for n in names})
 
-        self.cfg = cfg
-        self.mesh = mesh
         self.embed = p("embed")
         self.pos = p("pos")
         self.ln_f = group("ln_f", ("g", "b"))
@@ -194,6 +253,17 @@ class TransformerLM(nn.Module):
                                        "wq", "wk", "wv", "wo", "w1", "w2"))
         if moe_slot(cfg, cfg.n_layers):
             self.moe = group("moe", ("router", "we1", "we2"))
+
+    def stats(self) -> Dict[str, Any]:
+        """The held experts' assignments per MoE layer
+        (``moe_assignments`` [layers][held experts]) and the dropped
+        assignments (``moe_dropped``, 0 for the dropless layer), summed on
+        the device since the last :meth:`reset_stats`; reading them waits
+        for the device."""
+        return self.expert_stats.read()
+
+    def reset_stats(self) -> None:
+        self.expert_stats.reset()
 
 
 def init(generator: torch.Generator, cfg: ModelConfig,
@@ -207,6 +277,9 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     reproduced: to compare with the reference, carry its parameters over
     with ``weights.params_from_jax``."""
     model = TransformerLM(cfg, device, mesh)
+    if cfg.family == "lfm2":
+        lfm2.init_params(model, generator, cfg)
+        return model
     gdev = generator.device
     shapes, specs = _global_shapes(cfg), flat_specs(cfg)
     params = dict(model.named_parameters())
@@ -307,30 +380,34 @@ def _ffn(x, lp, i, cfg: ModelConfig, mesh=None):
     return _reduce(out, mesh, "tp")
 
 
-def _moe_ffn(x, mp, i, cfg: ModelConfig, mesh=None):
-    """Dense top-k switch layer (transformer.py:218-236): every expert
-    runs on every token, weighted by the renormalised top-k gate.  On a
-    mesh this rank's experts (ep) and ffn columns (tp) run on every local
-    token; the gates enter through ``copy_to`` over (ep, tp), since the
-    expert outputs they weigh are partial over tp.  The router and the
-    experts share one cast of x, so that on a mesh of ones the gradient
-    sums are the one-device step's."""
+def _moe_ffn(x, mp, i, cfg: ModelConfig, mesh=None, stats=None):
+    """Top-k switch layer (transformer.py:218-236) through the routed
+    expert layer: softmax gate, top-k renormalised over its sum + 1e-9,
+    GELU experts, each run only on the tokens routed to it.  On a mesh
+    this rank holds its ep block of experts and their ffn columns (tp);
+    the weights and x enter through ``copy_to`` over (ep, tp), since the
+    outputs they make are partial over both.  The router and the experts
+    share one cast of x, so that on a mesh of ones the gradient sums are
+    the one-device step's."""
     xc = x.to(cfg.dtype)
-    logits = torch.einsum("bsd,de->bse", xc, mp["router"][i].to(cfg.dtype))
-    probs = torch.softmax(logits.float(), dim=-1)
-    topv, topi = torch.topk(probs, cfg.moe_topk, dim=-1)
-    oh = F.one_hot(topi, cfg.n_experts).to(probs.dtype)
-    gates = (oh * topv[..., None]).sum(-2)          # [B, S, E]
-    gates = (gates / (gates.sum(-1, keepdim=True) + 1e-9)).to(cfg.dtype)
+    shape = xc.shape
+    with record_function("moe_route"):
+        logits = torch.einsum("bsd,de->bse", xc,
+                              mp["router"][i].to(cfg.dtype))
+        probs = torch.softmax(logits.float(), dim=-1)
+        topv, topi = torch.topk(probs, cfg.moe_topk, dim=-1)
+        topw = (topv / (topv.sum(-1, keepdim=True) + 1e-9)).to(cfg.dtype)
+    e0 = 0
     if mesh is not None:
-        n_local = mp["we1"].shape[1]
-        e0 = sharding.axis_index(mesh, "ep") * n_local
-        gates = _copy(gates, mesh, ("ep", "tp"))[..., e0:e0 + n_local]
+        e0 = sharding.axis_index(mesh, "ep") * mp["we1"].shape[1]
+        topw = _copy(topw, mesh, ("ep", "tp"))
         xc = _copy(xc, mesh, ("ep", "tp"))
-    h = _gelu(torch.einsum("bsd,edf->besf", xc, mp["we1"][i].to(cfg.dtype)))
-    y = torch.einsum("besf,efd->besd", h, mp["we2"][i].to(cfg.dtype))
-    return _reduce(torch.einsum("besd,bse->bsd", y, gates), mesh,
-                   ("ep", "tp"))
+    y = moe.held_experts(
+        xc.reshape(-1, shape[-1]), topw.reshape(-1, cfg.moe_topk),
+        topi.reshape(-1, cfg.moe_topk), e0, moe.gelu,
+        mp["we1"][i].to(cfg.dtype), None, mp["we2"][i].to(cfg.dtype),
+        stats, i)
+    return _reduce(y.view(shape), mesh, ("ep", "tp"))
 
 
 def logits_of(model: TransformerLM, x, cfg: ModelConfig):
@@ -349,6 +426,8 @@ def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None,
     cfg = cfg or model.cfg
     mesh = model.mesh if mesh is None else mesh
     tokens = torch.as_tensor(tokens, device=model.embed.device).long()
+    if cfg.family == "lfm2":
+        return lfm2.apply(model, tokens, cfg)
     S = tokens.shape[1]
     at = 0
     if mesh is not None:
@@ -365,7 +444,8 @@ def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None,
                            lp, i, cfg, mesh)
         h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
         if cfg.is_moe(i):
-            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg, mesh)
+            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg, mesh,
+                             model.expert_stats)
         else:
             x = x + _ffn(h, lp, i, cfg, mesh)
     return logits_of(model, x, cfg)

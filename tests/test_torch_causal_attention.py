@@ -1020,3 +1020,31 @@ def test_kernels_refuse_a_head_dim_they_do_not_take():
     q = torch.zeros(1, 8, 2, 48, device="cuda")
     with pytest.raises(ValueError, match="not 48"):
         causal_attention(q, q, q)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_match_plain_at_8k_and_32_heads():
+    """The three bf16 kernels at the lfm2 pretraining cell's attention,
+    S = 8192 and 32 heads of 64 (one sequence), against autograd of the
+    plain version on the same inputs, taken 8 heads at a time: o, dq, dk
+    and dv within CARD_TOL and, since at this length most values lie
+    below its atol, within 2% of the plain version's norm."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    B, S, H, hd = 1, 8192, 32, 64
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = causal_attention(*leaves)
+    got = [o.detach(), *torch.autograd.grad(o, leaves, do)]
+    for h in range(0, H, 8):
+        heads = slice(h, h + 8)
+        part = [t[:, :, heads].clone().requires_grad_(True) for t in (q, k, v)]
+        want_o = causal_attention_plain(*part)
+        want = [want_o.detach(), *torch.autograd.grad(
+            want_o, part, do[:, :, heads].contiguous())]
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            a, b = a[:, :, heads].float(), b.float()
+            torch.testing.assert_close(a, b, **CARD_TOL[torch.bfloat16])
+            rel = float((a - b).norm() / b.norm())
+            assert rel < 0.02, (name, h, rel)

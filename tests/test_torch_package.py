@@ -58,7 +58,8 @@ COPIED = (
 PORTED = [
     "_native/__init__.py", "tpu_plane.py", "weights.py", "entry.py",
     "models/__init__.py", "models/transformer.py", "models/decode.py",
-    "models/train.py", "models/checkpoint.py",
+    "models/train.py", "models/checkpoint.py", "models/moe.py",
+    "models/lfm2.py",
     "ops/__init__.py", "ops/decode_attention.py", "ops/causal_attention.py",
     "ops/quant_codec.py", "ops/ring_fold.py",
     "parallel/__init__.py", "parallel/quantize.py", "parallel/mesh.py",

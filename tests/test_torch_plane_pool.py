@@ -207,6 +207,44 @@ print("OOM-OK", live)
 """
 
 
+BURST_CODE = PRELUDE + r"""
+assert tpu_plane.init(), tpu_plane.error()
+N, NBYTES = 40, 5 << 20                   # 40 blocks of the 8 MiB class:
+                                          # 320 MiB, above the 256 MiB floor
+
+
+def burst():
+    bufs = [tpu_plane.fill(NBYTES, 0) for _ in range(N)]
+    for b in bufs:
+        b.wait()
+    for b in bufs:
+        b.free()                          # all at once, as retirements do
+
+
+burst()
+p0, c0 = tpu_plane.pool_stats()["device"], calls()
+assert p0["cached_bytes"] == N * (8 << 20), p0
+assert p0["releases"] == 0, p0
+for _ in range(3):
+    burst()
+p1, c1 = tpu_plane.pool_stats()["device"], calls()
+assert c1 == c0, (c0, c1)
+assert p1["misses"] == p0["misses"] and p1["releases"] == 0, (p0, p1)
+assert p1["hits"] == p0["hits"] + 3 * N, (p0, p1)
+
+# an out-of-memory hands the whole burst back to the driver
+fake.trpc_fake_cuda_inject_oom(b"device", 1)
+odd = tpu_plane.fill(3 << 20, 0)          # a 4 MiB class: a miss
+odd.wait()
+odd.free()
+p2 = tpu_plane.pool_stats()["device"]
+assert p2["oom_retries"] == p1["oom_retries"] + 1, (p1, p2)
+assert p2["releases"] == N and p2["cached_bytes"] == 4 << 20, p2
+assert tpu_plane.stats()["live_buffers"] == 0, tpu_plane.stats()
+print("BURST-OK")
+"""
+
+
 PEER_CODE = PRELUDE + r"""
 import sys
 
@@ -304,6 +342,17 @@ def test_steady_state_transfers_allocate_nothing(fake_env):
     r = _run(STEADY_CODE, env_extra=fake_env)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "STEADY-OK" in r.stdout
+
+
+def test_a_burst_of_frees_waits_in_the_cache_for_the_next_allocations(
+        fake_env):
+    """Blocks freed all at once, more than the 256 MiB floor, stay cached
+    up to the most the device had live: the allocations that follow take
+    them back with no miss and no cuMemAlloc_v2 or cuMemFree_v2.  An
+    out-of-memory still hands every cached block back."""
+    r = _run(BURST_CODE, env_extra=fake_env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "BURST-OK" in r.stdout
 
 
 def test_out_of_memory_releases_the_cache_and_retries_once(fake_env):
