@@ -8,6 +8,24 @@ one token each against the slot cache ``k/v [L, N, S, H, hd]`` in
 hand-written kernel ``ops.decode_attention`` (one launch per layer), the
 prefill's the hand-written ``ops.causal_attention`` forward.
 
+On a CUDA device without a mesh ``decode_step`` replays the rest of the
+step as CUDA graphs, split at the attention launches into n_layers + 1
+segments: 0 is the embedding, the write index p and layer 0's LN1 and
+q/k/v products; i (1 <= i < L) is layer i-1's output product, residual,
+LN2, MLP and residual, then layer i's LN1 and q/k/v; the last is layer
+L-1's tail, the final norm, the tied logits and the advance of ``pos``.
+Between segments ``decode_attention`` is looked up in this module and
+launched from Python, and its output copied into the next segment's
+input.  The graphs replay the eager step's kernels (the same weight
+casts, products, f32 norms and logits, in the same dtypes: the same
+bits).  A set is captured for one cache, on its first step there (the
+serving engine's ``Lockstep`` takes one all-inactive step when built),
+and again when an address it reads changes (cache, weights), or the
+configuration or the matmul precision flags do; it goes with its cache.
+``step_graph_counts(cache)`` gives the sets captured and the steps that
+replayed one.  On the CPU and over a mesh every operation is launched
+from Python (``_step_eager``).
+
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
 cache's tensors and return the same dict.  Dense only, as the reference
@@ -40,6 +58,7 @@ whose axes are all of size one runs no collective and gives its bits.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -200,6 +219,186 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig,
 # decode
 
 
+def _embed(model: TransformerLM, tokens, pos, S: int) -> Tuple:
+    """The write index p = min(pos, S-1) [N] int32 and the step's input
+    x = token + position embedding [N, D]."""
+    p = torch.clamp(pos, max=S - 1).to(torch.int32)   # write index per slot
+    return p, model.embed[tokens] + model.pos[p.long()]
+
+
+def _qkv(x, lp, i: int, dt, mesh: Optional[Mesh]) -> Tuple:
+    """Layer i's LN1 and q/k/v products: [N, H, hd] each, contiguous."""
+    hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
+               mesh, "tp")
+    q = torch.einsum("nd,dhk->nhk", hc, lp["wq"][i].to(dt)).contiguous()
+    k_new = torch.einsum("nd,dhk->nhk", hc, lp["wk"][i].to(dt)).contiguous()
+    v_new = torch.einsum("nd,dhk->nhk", hc, lp["wv"][i].to(dt)).contiguous()
+    return q, k_new, v_new
+
+
+def _tail(x, o, lp, i: int, dt, mesh: Optional[Mesh]):
+    """Layer i after its attention: the output product and residual, LN2,
+    the MLP and its residual."""
+    x = x + _reduce(torch.einsum("nhk,hkd->nd", o.to(dt),
+                                 lp["wo"][i].to(dt)), mesh, "tp")
+    h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
+              mesh, "tp")
+    hf = _gelu(torch.einsum("nd,df->nf", h, lp["w1"][i].to(dt)))
+    return x + _reduce(torch.einsum("nf,fd->nd", hf, lp["w2"][i].to(dt)),
+                       mesh, "tp")
+
+
+def _finish(model: TransformerLM, x, pos, active, cfg: ModelConfig):
+    """Advance the active slots' `pos` and give the logits [N, vocab]."""
+    pos += active.to(torch.int32)
+    return logits_of(model, x, cfg)
+
+
+def _step_eager(model: TransformerLM, cache: Dict, tokens, active,
+                cfg: ModelConfig, mesh: Optional[Mesh]):
+    """decode_step's body, every operation launched from Python: the
+    CPU's and a mesh's path, and the graphs' twin in the tests."""
+    k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
+    lp, dt = model.blocks, cfg.dtype
+    p, x = _embed(model, tokens, pos, k_cache.shape[2])
+    for i in range(cfg.n_layers):
+        q, k_new, v_new = _qkv(x, lp, i, dt, mesh)
+        o = decode_attention(q, k_new, v_new, k_cache[i], v_cache[i], p)
+        x = _tail(x, o, lp, i, dt, mesh)
+    return _finish(model, x, pos, active, cfg)
+
+
+def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
+              tokens, active, o) -> list:
+    """The step's work between its attention launches, as n_layers + 1
+    functions of the previous one's outputs: 0 gives (x, q, k, v) of
+    layer 0 and the write index p; i gives (x, q, k, v) of layer i after
+    layer i-1's tail, its attention's output read from `o`; the last
+    gives the logits after layer n_layers-1's tail and the advance of
+    `pos` by `active`."""
+    lp, dt, L = model.blocks, cfg.dtype, cfg.n_layers
+    pos = cache["pos"]
+
+    def first():
+        p, x = _embed(model, tokens, pos, cache["k"].shape[2])
+        return (x,) + _qkv(x, lp, 0, dt, None) + (p,)
+
+    def layer(i):
+        def seg(x, *_):
+            x = _tail(x, o, lp, i - 1, dt, None)
+            return (x,) + _qkv(x, lp, i, dt, None)
+        return seg
+
+    def last(x, *_):
+        return _finish(model, _tail(x, o, lp, L - 1, dt, None), pos,
+                       active, cfg)
+
+    return [first] + [layer(i) for i in range(1, L)] + [last]
+
+
+class _StepGraphs:
+    """decode_step's work between its attention launches, captured as
+    n_layers + 1 CUDA graphs for one cache (see :func:`decode_step`).
+    The graphs share one memory pool and hold their static inputs
+    (tokens, active, the attention's output) and outputs for their
+    lifetime; they read the cache's ``pos`` and the weights by address,
+    so ``key`` holds those addresses."""
+
+    def __init__(self, model: TransformerLM, cache: Dict, cfg: ModelConfig,
+                 key: tuple):
+        self.key = key
+        dev = cache["pos"].device
+        _, N, _, H, hd = cache["k"].shape
+        self.tokens = torch.zeros(N, dtype=torch.int64, device=dev)
+        self.active = torch.zeros(N, dtype=torch.int32, device=dev)
+        self.o = torch.zeros((N, H, hd), dtype=cfg.dtype, device=dev)
+        self.kv = [(cache["k"][i], cache["v"][i])
+                   for i in range(cfg.n_layers)]
+        segs = _segments(model, cache, cfg, self.tokens, self.active, self.o)
+        side = torch.cuda.Stream(dev)
+        # warm up on the capture's stream (cuBLAS's handle and workspace):
+        # `active` is 0, so `pos` keeps its values, and no attention runs
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            outs = ()
+            for seg in segs:
+                outs = seg(*outs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs, self.outs = [], []
+        with torch.cuda.stream(side):
+            outs = ()
+            for seg in segs:
+                g = torch.cuda.CUDAGraph()
+                # thread-local: the KV plane's threads may call the driver
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    outs = seg(*outs)
+                finally:
+                    g.capture_end()
+                self.graphs.append(g)
+                self.outs.append(outs)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.p = self.outs[0][4]
+
+    def run(self, tokens, active):
+        """One step: the graphs replayed in order, the module's
+        ``decode_attention`` launched between them; a copy of the
+        logits."""
+        self.tokens.copy_(tokens)
+        self.active.copy_(active)
+        graphs, outs, kv, p = self.graphs, self.outs, self.kv, self.p
+        graphs[0].replay()
+        for i in range(len(kv)):
+            _, q, k_new, v_new = outs[i][:4]
+            self.o.copy_(decode_attention(q, k_new, v_new, kv[i][0],
+                                          kv[i][1], p))
+            graphs[i + 1].replay()
+        return outs[-1].clone()
+
+
+class _CacheGraphs:
+    """A cache's captured set, if any, and its counters: sets captured,
+    steps that replayed one."""
+
+    def __init__(self):
+        self.graphs: Optional[_StepGraphs] = None
+        self.captures = 0
+        self.graphed = 0
+
+
+# id(cache["pos"]) -> its _CacheGraphs; an entry goes with its pos tensor
+_CACHE_GRAPHS: Dict[int, _CacheGraphs] = {}
+
+
+def _graph_key(model: TransformerLM, cache: Dict, cfg: ModelConfig) -> tuple:
+    """What a captured set depends on: the configuration, the matmul
+    precision flags, and the address, shape and dtype of every tensor
+    its graphs and its attention launches read or write."""
+    read = (cache["k"], cache["v"], cache["pos"], model.embed, model.pos,
+            model.ln_f["g"], model.ln_f["b"], *model.blocks.values())
+    m = torch.backends.cuda.matmul
+    return (cfg, m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
+            m.allow_fp16_reduced_precision_reduction) + tuple(
+        (t.data_ptr(), t.shape, t.dtype) for t in read)
+
+
+def _cache_graphs(cache: Dict) -> _CacheGraphs:
+    pos = cache["pos"]
+    entry = _CACHE_GRAPHS.get(id(pos))
+    if entry is None:
+        entry = _CACHE_GRAPHS[id(pos)] = _CacheGraphs()
+        weakref.finalize(pos, _CACHE_GRAPHS.pop, id(pos), None)
+    return entry
+
+
+def step_graph_counts(cache: Dict) -> Tuple[int, int]:
+    """(graph sets captured, steps replayed through one) for `cache`."""
+    entry = _CACHE_GRAPHS.get(id(cache["pos"]))
+    return (0, 0) if entry is None else (entry.captures, entry.graphed)
+
+
 @torch.no_grad()
 def decode_step(model: TransformerLM, cache: Dict, tokens, active,
                 cfg: ModelConfig, mesh: Optional[Mesh] = None) -> Tuple:
@@ -211,39 +410,34 @@ def decode_step(model: TransformerLM, cache: Dict, tokens, active,
     row the next install overwrites — and only active slots advance
     `pos`.  The cache is updated in place.  Over a mesh (default: the
     model's) tokens and active stay global [N] and the logits are this
-    rank's dp block [N/dp, vocab]."""
+    rank's dp block [N/dp, vocab].
+
+    On a CUDA device without a mesh the work between the attention
+    launches replays CUDA graphs, captured on the cache's first such step
+    and again whenever an address they read changes: the same kernels as
+    the eager step, in the same order; ``decode_attention`` is still
+    launched from Python once a layer.  Elsewhere every operation is
+    launched from Python."""
     _check_dense(cfg)
     mesh = model.mesh if mesh is None else mesh
     dev = model.embed.device
-    k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
-    S = k_cache.shape[2]
     tokens = torch.as_tensor(tokens, device=dev).long()
     active = torch.as_tensor(active, device=dev)
-    if mesh is not None:
-        tokens = sharding.local_slice(tokens, ("dp",), mesh)
-        active = sharding.local_slice(active, ("dp",), mesh)
-    lp = model.blocks
-    dt = cfg.dtype
-    p = torch.clamp(pos, max=S - 1).to(torch.int32)   # write index per slot
-    x = model.embed[tokens] + model.pos[p.long()]     # [N, D]
-    for i in range(cfg.n_layers):
-        hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
-                   mesh, "tp")
-        q = torch.einsum("nd,dhk->nhk", hc, lp["wq"][i].to(dt)).contiguous()
-        k_new = torch.einsum("nd,dhk->nhk", hc,
-                             lp["wk"][i].to(dt)).contiguous()
-        v_new = torch.einsum("nd,dhk->nhk", hc,
-                             lp["wv"][i].to(dt)).contiguous()
-        o = decode_attention(q, k_new, v_new, k_cache[i], v_cache[i], p)
-        x = x + _reduce(torch.einsum("nhk,hkd->nd", o.to(dt),
-                                     lp["wo"][i].to(dt)), mesh, "tp")
-        h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
-                  mesh, "tp")
-        hf = _gelu(torch.einsum("nd,df->nf", h, lp["w1"][i].to(dt)))
-        x = x + _reduce(torch.einsum("nf,fd->nd", hf, lp["w2"][i].to(dt)),
-                        mesh, "tp")
-    pos += active.to(torch.int32)
-    return logits_of(model, x, cfg), cache
+    if mesh is not None or dev.type != "cuda":
+        if mesh is not None:
+            tokens = sharding.local_slice(tokens, ("dp",), mesh)
+            active = sharding.local_slice(active, ("dp",), mesh)
+        return _step_eager(model, cache, tokens, active, cfg, mesh), cache
+    entry = _cache_graphs(cache)
+    key = _graph_key(model, cache, cfg)
+    with torch.cuda.device(dev):
+        if entry.graphs is None or entry.graphs.key != key:
+            entry.graphs = None          # its pool goes before the next
+            entry.graphs = _StepGraphs(model, cache, cfg, key)
+            entry.captures += 1
+        logits = entry.graphs.run(tokens, active)
+    entry.graphed += 1
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,15 @@ memory and ``cpu``) the route stays on the device: the wire is packed
 there, each block filled by one device copy and read back through a view
 of it; otherwise it crosses as host bytes, as the reference's does.
 
+On one card (no mesh) the decode step's work between its attention
+launches replays CUDA graphs (``decode.decode_step``: n_layers + 1 of
+them, split at each layer's ``decode_attention``, which is still
+launched from Python), captured by one all-inactive step when the
+engine's ``Lockstep`` is built, before any traffic, so the capture lands
+in set-up; ``stats()`` counts the steps that replayed them
+(``step_graphed``) and the graph sets captured (``step_captures``).  On
+the CPU and over a mesh every operation is launched from Python.
+
 Over a mesh (``mesh=``, the reference's dp/tp layout) one engine runs on
 every rank of the world, each on its shards of the model and of the
 decode cache, and the device operations go through
@@ -316,6 +325,8 @@ class ServingEngine:
             "step_issue_us": self.step_issue_us,
             "step_sync_us": self.step_sync_us,
             "emit_us": self.emit_us,
+            "step_graphed": self.dev.ops["step_graphed"],
+            "step_captures": self.dev.ops["step_captures"],
             "submitted": self.sched.submitted,
             "admitted": self.sched.admitted,
             "shed_queue": self.sched.shed_queue,

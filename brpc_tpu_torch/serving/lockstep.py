@@ -72,8 +72,12 @@ class Lockstep:
         self.device = device
         self.world, self.rank = world_rank() if mesh is not None else (1, 0)
         self.cache = D.init_cache(cfg, n_slots, max_len, device, mesh)
+        # the operations run, and of the steps those whose work between
+        # the attention launches replayed CUDA graphs (``step_graphed``)
+        # and the graph sets captured (``step_captures``)
         self.ops: Dict[str, int] = {"prefill": 0, "install": 0, "step": 0,
-                                    "reset": 0}
+                                    "reset": 0, "step_graphed": 0,
+                                    "step_captures": 0}
         # time.monotonic_ns() stamps of the last prefill (entry, its device
         # work done) and step (entry, the last launch returned, the tokens
         # on the host), for the engine's counters and spans
@@ -81,6 +85,16 @@ class Lockstep:
         self.step_ns: Tuple[int, int, int] = (0, 0, 0)
         self._done = (torch.cuda.Event() if device.type == "cuda" and
                       self.leader else None)
+        if device.type == "cuda" and mesh is None:
+            # capture the step's graphs now, before traffic: an all-inactive
+            # step writes only rows the next install overwrites, and no
+            # `pos` moves
+            D.decode_step(params, self.cache,
+                          torch.zeros(n_slots, dtype=torch.int64,
+                                      device=device),
+                          torch.zeros(n_slots, dtype=torch.bool,
+                                      device=device), cfg)
+            self.ops["step_captures"] = D.step_graph_counts(self.cache)[0]
 
     @property
     def leader(self) -> bool:
@@ -150,15 +164,20 @@ class Lockstep:
                            ).to(self.device)
         self._send(STEP, payload=both)
         self.ops["step"] += 1
+        before = D.step_graph_counts(self.cache)
         logits, self.cache = D.decode_step(self.params, self.cache, both[0],
                                            both[1].bool(), self.cfg,
                                            self.mesh)
+        after = D.step_graph_counts(self.cache)
         nxt = torch.argmax(logits, dim=-1)
         if self.mesh is not None and sharding.axis_size(self.mesh, "dp") > 1:
             nxt = collectives.all_gather(self.mesh, "dp", nxt)
         t1 = time.monotonic_ns()
         out = nxt.cpu().numpy()     # waits for the step's device work
         self.step_ns = (t0, t1, time.monotonic_ns())
+        # counted as the step returns, beside the engine's own count of it
+        self.ops["step_captures"] += after[0] - before[0]
+        self.ops["step_graphed"] += after[1] - before[1]
         return out
 
     def reset(self, slot: int) -> None:

@@ -1,0 +1,272 @@
+"""decode_step's CUDA graphs (brpc_tpu_torch/models/decode.py).
+
+On a CUDA device without a mesh, ``decode_step`` replays its work
+between the attention launches as n_layers + 1 captured graphs and
+launches ``decode_attention`` from Python between them; elsewhere it runs
+its eager body, ``_step_eager``.
+
+On the CPU: the split itself (``_segments`` run in order, the attention
+between them, its output copied into the next one's input) gives the
+eager body's bits at tiny_config and at a bf16 hd-64 shape; the CPU step
+and a mesh of one never capture, in ``decode_step`` and in ``Lockstep``'s
+counters; the serving engine's ``stats()`` carries ``step_graphed`` and
+``step_captures`` (a subprocess over the fake CUDA driver).
+
+The ``cuda`` legs run the graphs on the card against the eager body on a
+twin cache, bit for bit (tokens, logits, ``pos``, cache rows), at
+tiny_config (hd 16, f32) and at a 4-layer hd-64 GPT-2 shape in bf16, 8
+slots with some inactive, an install and a reset between steps; they
+count the kernel's launches, hold logits returned at one step through
+the next, and give each cache, and each change of a weight's address,
+its own capture.  On the card:
+``python -m pytest --noconftest -m cuda tests/test_torch_decode_graph.py``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from brpc_tpu_torch import _native
+from brpc_tpu_torch.models import decode as D
+from brpc_tpu_torch.models import transformer as T
+from brpc_tpu_torch.models.transformer import ModelConfig
+from brpc_tpu_torch.ops.decode_attention import decode_attention
+from brpc_tpu_torch.parallel import make_mesh
+from brpc_tpu_torch.serving.engine import tiny_config
+from brpc_tpu_torch.serving.lockstep import Lockstep
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLOTS = 8
+# (slot, prompt length) installed before the first step; slots 6 and 7
+# stay empty, and slot 2 reaches p = S-1
+PROMPTS = ((0, 1), (1, 9), (2, 60), (3, 17), (4, 30), (5, 3))
+INACTIVE = (3, 6, 7)
+CONFIGS = {
+    "tiny_hd16": lambda: tiny_config(),
+    "gpt2_hd64_bf16": lambda: ModelConfig(
+        vocab=512, d_model=256, n_heads=4, n_layers=4, d_ff=1024,
+        max_seq=64, n_experts=0, dtype=torch.bfloat16),
+}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and its driver (libcuda.so.1)")
+
+
+def _served(cfg, dev, seed=0):
+    """A model and a cache of SLOTS slots with PROMPTS installed, and the
+    active mask."""
+    gen = torch.Generator().manual_seed(seed)
+    model = T.init(gen, cfg, dev)
+    cache = D.init_cache(cfg, SLOTS, cfg.max_seq, dev)
+    for slot, plen in PROMPTS:
+        toks = torch.randint(0, cfg.vocab, (1, plen), generator=gen)
+        _, k, v = D.prefill(model, toks, cfg)
+        D.install(cache, slot, k[:, 0], v[:, 0], plen)
+    active = torch.ones(SLOTS, dtype=torch.bool, device=dev)
+    active[list(INACTIVE)] = False
+    return model, cache, active, gen
+
+
+def _twin(cache):
+    return {key: t.clone() for key, t in cache.items()}
+
+
+def _same_state(a, b):
+    for key in ("k", "v", "pos"):
+        assert torch.equal(a[key], b[key]), key
+
+
+@torch.no_grad()
+def _split_step(model, cache, tokens, active, cfg):
+    """The graphs' order of work run eagerly: each segment of
+    ``_segments`` in turn, ``decode_attention`` between them."""
+    tokens_in = tokens.clone()
+    active_in = active.to(torch.int32)
+    _, N, _, H, hd = cache["k"].shape
+    o = torch.zeros((N, H, hd), dtype=cfg.dtype)
+    segs = D._segments(model, cache, cfg, tokens_in, active_in, o)
+    outs = segs[0]()
+    p = outs[4]
+    for i in range(cfg.n_layers):
+        _, q, k_new, v_new = outs[:4]
+        o.copy_(decode_attention(q, k_new, v_new, cache["k"][i],
+                                 cache["v"][i], p))
+        outs = segs[i + 1](*outs)
+    return outs
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_the_split_gives_the_eager_bits_on_the_cpu(name):
+    cfg = CONFIGS[name]()
+    model, cache, active, gen = _served(cfg, "cpu")
+    twin = _twin(cache)
+    for step in range(3):
+        tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
+        got = _split_step(model, cache, tokens, active, cfg)
+        want = D._step_eager(model, twin, tokens, active, cfg, None)
+        assert torch.equal(got, want), step
+        _same_state(cache, twin)
+
+
+def test_the_cpu_step_never_captures():
+    cfg = tiny_config()
+    model, cache, active, gen = _served(cfg, "cpu")
+    twin = _twin(cache)
+    for _ in range(2):
+        tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
+        got, _ = D.decode_step(model, cache, tokens, active, cfg)
+        want = D._step_eager(model, twin, tokens, active, cfg, None)
+        assert torch.equal(got, want)
+    assert D.step_graph_counts(cache) == (0, 0)
+    assert D._CACHE_GRAPHS.get(id(cache["pos"])) is None
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["one_device",
+                                                     "mesh_of_one"])
+def test_lockstep_on_the_cpu_counts_no_graphed_step(mesh):
+    cfg = tiny_config()
+    m = (make_mesh({"dp": 1, "tp": 1}, devices=[0], device_type="cpu")
+         if mesh else None)
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cpu", m)
+    dev = Lockstep(params, cfg, 4, cfg.max_seq, torch.device("cpu"), m)
+    assert dev.ops["step_captures"] == 0
+    for _ in range(3):
+        dev.step([1, 2, 3, 4], [True, True, False, True])
+    assert dev.ops["step"] == 3
+    assert dev.ops["step_graphed"] == 0 and dev.ops["step_captures"] == 0
+    assert D.step_graph_counts(dev.cache) == (0, 0)
+    assert dev.cache["pos"].tolist() == [3, 3, 0, 3]
+
+
+ENGINE_CODE = r"""
+import json
+from brpc_tpu_torch import tpu_plane
+from brpc_tpu_torch.rpc.channel import Channel, ChannelOptions
+from brpc_tpu_torch.rpc.server import Server, ServerOptions
+from brpc_tpu_torch.serving import ServingEngine
+from brpc_tpu_torch.serving.engine import tiny_config
+from brpc_tpu_torch.serving.kv_cache import KvBlockPlane
+
+assert tpu_plane.init(), tpu_plane.error()
+engine = ServingEngine(cfg=tiny_config(), device="cpu",
+                       kv=KvBlockPlane(block_bytes=4096, n_blocks=32),
+                       n_slots=2, max_waiting=4)
+server = Server(ServerOptions(
+    method_max_concurrency={"LLM.Generate": engine.method_cap}))
+engine.register(server)
+addr = f"127.0.0.1:{server.start('127.0.0.1:0')}"
+engine.start()
+before = engine.stats()
+ch = Channel(addr, ChannelOptions(timeout_ms=60000, max_retry=0))
+_, st = ch.create_stream("LLM.Generate", json.dumps(
+    {"prompt_len": 6, "max_new_tokens": 5}).encode())
+tokens = 0
+while st.read(timeout_s=60) is not None:
+    tokens += 1
+st.destroy()
+ch.close()
+engine.stop()
+after = engine.stats()
+server.destroy()
+print("RESULT " + json.dumps({"before": before, "after": after,
+                              "tokens": tokens}))
+"""
+
+
+def test_the_engine_stats_carry_both_counters():
+    _native.build_core()
+    env = dict(os.environ, TRPC_CUDA_DRIVER=_native.build_fake_driver())
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", ENGINE_CODE], env=env,
+                       capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    assert r.returncode == 0 and lines, \
+        f"stdout:\n{r.stdout[-4000:]}\nstderr:\n{r.stderr[-4000:]}"
+    out = json.loads(lines[-1][len("RESULT "):])
+    assert out["tokens"] == 5
+    for when in ("before", "after"):
+        assert out[when]["step_graphed"] == 0
+        assert out[when]["step_captures"] == 0
+    assert out["after"]["steps"] >= 4
+
+
+# ---------------------------------------------------------------------------
+# on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_graphed_steps_match_the_eager_body_on_the_card(name):
+    """Eight graphed steps against the eager body on a twin cache: the
+    same logits, tokens, pos and cache rows, bit for bit; an install and
+    a reset between steps reach the next replay; n_layers launches of
+    the kernel a step; logits returned at one step survive the next."""
+    _card()
+    cfg = CONFIGS[name]()
+    model, cache, active, gen = _served(cfg, "cuda")
+    twin = _twin(cache)
+    kept = None
+    for step in range(8):
+        if step == 4:      # a new sequence in slot 6, slot 1 retired
+            toks = torch.randint(0, cfg.vocab, (1, 23), generator=gen)
+            _, k, v = D.prefill(model, toks, cfg)
+            for c in (cache, twin):
+                D.install(c, 6, k[:, 0], v[:, 0], 23)
+                D.reset_slot(c, 1)
+            active[6], active[1] = True, False
+        tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
+        before = decode_attention.launches
+        got, _ = D.decode_step(model, cache, tokens, active, cfg)
+        assert decode_attention.launches == before + cfg.n_layers
+        want = D._step_eager(model, twin, tokens.cuda(), active, cfg, None)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            (step, float((got - want).abs().max()))
+        assert torch.equal(got.argmax(-1), want.argmax(-1)), step
+        _same_state(cache, twin)
+        if kept is not None:
+            assert torch.equal(kept[0], kept[1]), step
+        kept = (got, got.clone())
+    assert D.step_graph_counts(cache) == (1, 8)
+    assert D.step_graph_counts(twin) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_each_cache_and_each_weight_address_gets_its_own_capture():
+    """Two Locksteps on the card capture once each when built (the warm
+    step leaves pos at 0) and replay from their first step; moving a
+    weight to a new address captures again, to the eager body's bits."""
+    _card()
+    cfg = CONFIGS["gpt2_hd64_bf16"]()
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cuda")
+    dev = torch.device("cuda")
+    a = Lockstep(params, cfg, SLOTS, cfg.max_seq, dev)
+    b = Lockstep(params, cfg, SLOTS, cfg.max_seq, dev)
+    for ls in (a, b):
+        assert ls.ops["step_captures"] == 1 and ls.ops["step_graphed"] == 0
+        assert int(ls.cache["pos"].abs().sum()) == 0
+        assert D.step_graph_counts(ls.cache) == (1, 1)
+    tokens, active = [5] * SLOTS, [True] * (SLOTS - 1) + [False]
+    twin = _twin(a.cache)
+    nxt = a.step(tokens, active)
+    b.step(tokens, active)
+    for ls in (a, b):
+        assert ls.ops["step_captures"] == 1 and ls.ops["step_graphed"] == 1
+    want = D._step_eager(params, twin, torch.tensor(tokens, device=dev),
+                         torch.tensor(active, device=dev), cfg, None)
+    assert nxt.tolist() == want.argmax(-1).tolist()
+    _same_state(a.cache, twin)
+
+    params.blocks["w1"].data = params.blocks["w1"].data.clone()
+    nxt = a.step(tokens, active)
+    want = D._step_eager(params, twin, torch.tensor(tokens, device=dev),
+                         torch.tensor(active, device=dev), cfg, None)
+    assert a.ops["step_captures"] == 2 and a.ops["step_graphed"] == 2
+    assert nxt.tolist() == want.argmax(-1).tolist()
+    _same_state(a.cache, twin)
