@@ -8,23 +8,24 @@ one token each against the slot cache ``k/v [L, N, S, H, hd]`` in
 hand-written kernel ``ops.decode_attention`` (one launch per layer), the
 prefill's the hand-written ``ops.causal_attention`` forward.
 
-On a CUDA device without a mesh ``decode_step`` replays the rest of the
-step as CUDA graphs, split at the attention launches into n_layers + 1
-segments: 0 is the embedding, the write index p and layer 0's LN1 and
-q/k/v products; i (1 <= i < L) is layer i-1's output product, residual,
-LN2, MLP and residual, then layer i's LN1 and q/k/v; the last is layer
-L-1's tail, the final norm, the tied logits and the advance of ``pos``.
-Between segments ``decode_attention`` is looked up in this module and
-launched from Python, and its output copied into the next segment's
-input.  The graphs replay the eager step's kernels (the same weight
-casts, products, f32 norms and logits, in the same dtypes: the same
-bits).  A set is captured for one cache, on its first step there (the
-serving engine's ``Lockstep`` takes one all-inactive step when built),
-and again when an address it reads changes (cache, weights), or the
-configuration or the matmul precision flags do; it goes with its cache.
-``step_graph_counts(cache)`` gives the sets captured and the steps that
-replayed one.  On the CPU and over a mesh every operation is launched
-from Python (``_step_eager``).
+``decode_step`` launches every operation from Python.  ``StepGraphs``
+is the same step for one cache on one CUDA device without a mesh, the
+work between the attention launches replayed as CUDA graphs, split at
+those launches into n_layers + 1 segments: 0 is the embedding, the
+write index p and layer 0's LN1 and q/k/v products; i (1 <= i < L) is
+layer i-1's output product, residual, LN2, MLP and residual, then layer
+i's LN1 and q/k/v; the last is layer L-1's tail, the final norm, the
+tied logits and the advance of ``pos``.  Between segments
+``decode_attention`` is looked up in this module and launched from
+Python, and its output copied into the next segment's input.  Both run
+the GPT-2 block of ``transformer._block_in``/``_block_out``, as
+``prefill`` and the training forward do, so the graphs replay the eager
+step's kernels (the same weight casts, products, f32 norms and logits,
+in the same dtypes: the same bits).  A ``StepGraphs`` captures when
+built and again when an address it reads changes (cache, weights), or
+the configuration or the matmul precision flags do, and counts its
+``captures`` and ``steps``.  The serving engine's ``Lockstep``, which
+owns the cache, holds one.
 
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
@@ -58,15 +59,14 @@ whose axes are all of size one runs no collective and gives its bits.
 
 from __future__ import annotations
 
-import weakref
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from brpc_tpu_torch.models.transformer import (
-    ModelConfig, TransformerLM, _causal_attention, _copy, _gelu, _layernorm,
-    _reduce, logits_of, resolve_device)
+    ModelConfig, TransformerLM, _block_in, _block_out, _causal_attention,
+    logits_of, resolve_device)
 from brpc_tpu_torch.ops.decode_attention import decode_attention
 from brpc_tpu_torch.parallel import sharding
 from brpc_tpu_torch.parallel.mesh import Mesh
@@ -188,25 +188,12 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig,
     tokens = torch.as_tensor(tokens, device=dev).long()
     S = tokens.shape[1]
     x = model.embed[tokens] + model.pos[:S][None]
-    lp = model.blocks
-    dt = cfg.dtype
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
-                   mesh, "tp")
-        q = torch.einsum("bsd,dhk->bshk", hc, lp["wq"][i].to(dt))
-        k = torch.einsum("bsd,dhk->bshk", hc, lp["wk"][i].to(dt))
-        v = torch.einsum("bsd,dhk->bshk", hc, lp["wv"][i].to(dt))
+        q, k, v = _block_in(x, model.blocks, i, cfg, mesh)
         ks.append(k)
         vs.append(v)
-        o = _causal_attention(q, k, v)
-        x = x + _reduce(torch.einsum("bshk,hkd->bsd", o.to(dt),
-                                     lp["wo"][i].to(dt)), mesh, "tp")
-        h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
-                  mesh, "tp")
-        hf = _gelu(torch.einsum("bsd,df->bsf", h, lp["w1"][i].to(dt)))
-        x = x + _reduce(torch.einsum("bsf,fd->bsd", hf, lp["w2"][i].to(dt)),
-                        mesh, "tp")
+        x = _block_out(model, x, _causal_attention(q, k, v), i, cfg, mesh)
     k, v = torch.stack(ks), torch.stack(vs)
     if mesh is not None:
         spec = (None, None) + KV_SPEC[1:]          # [L, B, S, H, hd]
@@ -226,46 +213,40 @@ def _embed(model: TransformerLM, tokens, pos, S: int) -> Tuple:
     return p, model.embed[tokens] + model.pos[p.long()]
 
 
-def _qkv(x, lp, i: int, dt, mesh: Optional[Mesh]) -> Tuple:
-    """Layer i's LN1 and q/k/v products: [N, H, hd] each, contiguous."""
-    hc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt),
-               mesh, "tp")
-    q = torch.einsum("nd,dhk->nhk", hc, lp["wq"][i].to(dt)).contiguous()
-    k_new = torch.einsum("nd,dhk->nhk", hc, lp["wk"][i].to(dt)).contiguous()
-    v_new = torch.einsum("nd,dhk->nhk", hc, lp["wv"][i].to(dt)).contiguous()
-    return q, k_new, v_new
-
-
-def _tail(x, o, lp, i: int, dt, mesh: Optional[Mesh]):
-    """Layer i after its attention: the output product and residual, LN2,
-    the MLP and its residual."""
-    x = x + _reduce(torch.einsum("nhk,hkd->nd", o.to(dt),
-                                 lp["wo"][i].to(dt)), mesh, "tp")
-    h = _copy(_layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i]).to(dt),
-              mesh, "tp")
-    hf = _gelu(torch.einsum("nd,df->nf", h, lp["w1"][i].to(dt)))
-    return x + _reduce(torch.einsum("nf,fd->nd", hf, lp["w2"][i].to(dt)),
-                       mesh, "tp")
-
-
 def _finish(model: TransformerLM, x, pos, active, cfg: ModelConfig):
     """Advance the active slots' `pos` and give the logits [N, vocab]."""
     pos += active.to(torch.int32)
     return logits_of(model, x, cfg)
 
 
-def _step_eager(model: TransformerLM, cache: Dict, tokens, active,
-                cfg: ModelConfig, mesh: Optional[Mesh]):
-    """decode_step's body, every operation launched from Python: the
-    CPU's and a mesh's path, and the graphs' twin in the tests."""
+@torch.no_grad()
+def decode_step(model: TransformerLM, cache: Dict, tokens, active,
+                cfg: ModelConfig, mesh: Optional[Mesh] = None) -> Tuple:
+    """One token for every slot: tokens [N] int (last emitted token per
+    slot), active [N] bool -> (logits [N, vocab] f32, cache).
+
+    Every slot flows through the math (the reference's static shapes):
+    each writes its K/V at p = min(pos, S-1), inactive slots too — on a
+    row the next install overwrites — and only active slots advance
+    `pos`.  The cache is updated in place.  Over a mesh (default: the
+    model's) tokens and active stay global [N] and the logits are this
+    rank's dp block [N/dp, vocab].  Every operation is launched from
+    Python; :class:`StepGraphs` replays the same step as CUDA graphs."""
+    _check_dense(cfg)
+    mesh = model.mesh if mesh is None else mesh
+    dev = model.embed.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    active = torch.as_tensor(active, device=dev)
+    if mesh is not None:
+        tokens = sharding.local_slice(tokens, ("dp",), mesh)
+        active = sharding.local_slice(active, ("dp",), mesh)
     k_cache, v_cache, pos = cache["k"], cache["v"], cache["pos"]
-    lp, dt = model.blocks, cfg.dtype
     p, x = _embed(model, tokens, pos, k_cache.shape[2])
     for i in range(cfg.n_layers):
-        q, k_new, v_new = _qkv(x, lp, i, dt, mesh)
+        q, k_new, v_new = _block_in(x, model.blocks, i, cfg, mesh)
         o = decode_attention(q, k_new, v_new, k_cache[i], v_cache[i], p)
-        x = _tail(x, o, lp, i, dt, mesh)
-    return _finish(model, x, pos, active, cfg)
+        x = _block_out(model, x, o, i, cfg, mesh)
+    return _finish(model, x, pos, active, cfg), cache
 
 
 def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
@@ -276,100 +257,23 @@ def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
     layer i-1's tail, its attention's output read from `o`; the last
     gives the logits after layer n_layers-1's tail and the advance of
     `pos` by `active`."""
-    lp, dt, L = model.blocks, cfg.dtype, cfg.n_layers
-    pos = cache["pos"]
+    L, pos = cfg.n_layers, cache["pos"]
 
     def first():
         p, x = _embed(model, tokens, pos, cache["k"].shape[2])
-        return (x,) + _qkv(x, lp, 0, dt, None) + (p,)
+        return (x,) + _block_in(x, model.blocks, 0, cfg) + (p,)
 
     def layer(i):
         def seg(x, *_):
-            x = _tail(x, o, lp, i - 1, dt, None)
-            return (x,) + _qkv(x, lp, i, dt, None)
+            x = _block_out(model, x, o, i - 1, cfg)
+            return (x,) + _block_in(x, model.blocks, i, cfg)
         return seg
 
     def last(x, *_):
-        return _finish(model, _tail(x, o, lp, L - 1, dt, None), pos,
+        return _finish(model, _block_out(model, x, o, L - 1, cfg), pos,
                        active, cfg)
 
     return [first] + [layer(i) for i in range(1, L)] + [last]
-
-
-class _StepGraphs:
-    """decode_step's work between its attention launches, captured as
-    n_layers + 1 CUDA graphs for one cache (see :func:`decode_step`).
-    The graphs share one memory pool and hold their static inputs
-    (tokens, active, the attention's output) and outputs for their
-    lifetime; they read the cache's ``pos`` and the weights by address,
-    so ``key`` holds those addresses."""
-
-    def __init__(self, model: TransformerLM, cache: Dict, cfg: ModelConfig,
-                 key: tuple):
-        self.key = key
-        dev = cache["pos"].device
-        _, N, _, H, hd = cache["k"].shape
-        self.tokens = torch.zeros(N, dtype=torch.int64, device=dev)
-        self.active = torch.zeros(N, dtype=torch.int32, device=dev)
-        self.o = torch.zeros((N, H, hd), dtype=cfg.dtype, device=dev)
-        self.kv = [(cache["k"][i], cache["v"][i])
-                   for i in range(cfg.n_layers)]
-        segs = _segments(model, cache, cfg, self.tokens, self.active, self.o)
-        side = torch.cuda.Stream(dev)
-        # warm up on the capture's stream (cuBLAS's handle and workspace):
-        # `active` is 0, so `pos` keeps its values, and no attention runs
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            outs = ()
-            for seg in segs:
-                outs = seg(*outs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        pool = torch.cuda.graph_pool_handle()
-        self.graphs, self.outs = [], []
-        with torch.cuda.stream(side):
-            outs = ()
-            for seg in segs:
-                g = torch.cuda.CUDAGraph()
-                # thread-local: the KV plane's threads may call the driver
-                g.capture_begin(pool=pool, capture_error_mode="thread_local")
-                try:
-                    outs = seg(*outs)
-                finally:
-                    g.capture_end()
-                self.graphs.append(g)
-                self.outs.append(outs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.p = self.outs[0][4]
-
-    def run(self, tokens, active):
-        """One step: the graphs replayed in order, the module's
-        ``decode_attention`` launched between them; a copy of the
-        logits."""
-        self.tokens.copy_(tokens)
-        self.active.copy_(active)
-        graphs, outs, kv, p = self.graphs, self.outs, self.kv, self.p
-        graphs[0].replay()
-        for i in range(len(kv)):
-            _, q, k_new, v_new = outs[i][:4]
-            self.o.copy_(decode_attention(q, k_new, v_new, kv[i][0],
-                                          kv[i][1], p))
-            graphs[i + 1].replay()
-        return outs[-1].clone()
-
-
-class _CacheGraphs:
-    """A cache's captured set, if any, and its counters: sets captured,
-    steps that replayed one."""
-
-    def __init__(self):
-        self.graphs: Optional[_StepGraphs] = None
-        self.captures = 0
-        self.graphed = 0
-
-
-# id(cache["pos"]) -> its _CacheGraphs; an entry goes with its pos tensor
-_CACHE_GRAPHS: Dict[int, _CacheGraphs] = {}
 
 
 def _graph_key(model: TransformerLM, cache: Dict, cfg: ModelConfig) -> tuple:
@@ -384,60 +288,90 @@ def _graph_key(model: TransformerLM, cache: Dict, cfg: ModelConfig) -> tuple:
         (t.data_ptr(), t.shape, t.dtype) for t in read)
 
 
-def _cache_graphs(cache: Dict) -> _CacheGraphs:
-    pos = cache["pos"]
-    entry = _CACHE_GRAPHS.get(id(pos))
-    if entry is None:
-        entry = _CACHE_GRAPHS[id(pos)] = _CacheGraphs()
-        weakref.finalize(pos, _CACHE_GRAPHS.pop, id(pos), None)
-    return entry
+class StepGraphs:
+    """:func:`decode_step` on one CUDA device without a mesh, its work
+    between the attention launches captured as n_layers + 1 CUDA graphs
+    for one cache, when built.  The graphs share one memory pool and
+    hold their static inputs (tokens, active, the attention's output)
+    and outputs for their lifetime; they read the cache's ``pos`` and
+    the weights by address, so :meth:`run` captures again when an
+    address, the configuration or the matmul precision flags change.
+    ``captures`` counts the sets captured, ``steps`` the steps run."""
 
+    def __init__(self, model: TransformerLM, cache: Dict, cfg: ModelConfig):
+        _check_dense(cfg)
+        self.model, self.cache, self.cfg = model, cache, cfg
+        self.device = cache["pos"].device
+        self.captures = self.steps = 0
+        self._capture()
 
-def step_graph_counts(cache: Dict) -> Tuple[int, int]:
-    """(graph sets captured, steps replayed through one) for `cache`."""
-    entry = _CACHE_GRAPHS.get(id(cache["pos"]))
-    return (0, 0) if entry is None else (entry.captures, entry.graphed)
+    @torch.no_grad()
+    def _capture(self):
+        model, cache, cfg = self.model, self.cache, self.cfg
+        # the old set's pool goes before the new one is taken
+        self.graphs = self.outs = self.p = None
+        self.key = _graph_key(model, cache, cfg)
+        dev = self.device
+        _, N, _, H, hd = cache["k"].shape
+        self.tokens = torch.zeros(N, dtype=torch.int64, device=dev)
+        self.active = torch.zeros(N, dtype=torch.int32, device=dev)
+        self.o = torch.zeros((N, H, hd), dtype=cfg.dtype, device=dev)
+        self.kv = [(cache["k"][i], cache["v"][i])
+                   for i in range(cfg.n_layers)]
+        segs = _segments(model, cache, cfg, self.tokens, self.active, self.o)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            # warm up on the capture's stream (cuBLAS's handle and
+            # workspace): `active` is 0, so `pos` keeps its values, and no
+            # attention runs
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                outs = ()
+                for seg in segs:
+                    outs = seg(*outs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            pool = torch.cuda.graph_pool_handle()
+            self.graphs, self.outs = [], []
+            with torch.cuda.stream(side):
+                outs = ()
+                for seg in segs:
+                    g = torch.cuda.CUDAGraph()
+                    # thread-local: the KV plane's threads may make CUDA
+                    # calls meanwhile
+                    g.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                    try:
+                        outs = seg(*outs)
+                    finally:
+                        g.capture_end()
+                    self.graphs.append(g)
+                    self.outs.append(outs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+        self.p = self.outs[0][4]
+        self.captures += 1
 
-
-@torch.no_grad()
-def decode_step(model: TransformerLM, cache: Dict, tokens, active,
-                cfg: ModelConfig, mesh: Optional[Mesh] = None) -> Tuple:
-    """One token for every slot: tokens [N] int (last emitted token per
-    slot), active [N] bool -> (logits [N, vocab] f32, cache).
-
-    Every slot flows through the math (the reference's static shapes):
-    each writes its K/V at p = min(pos, S-1), inactive slots too — on a
-    row the next install overwrites — and only active slots advance
-    `pos`.  The cache is updated in place.  Over a mesh (default: the
-    model's) tokens and active stay global [N] and the logits are this
-    rank's dp block [N/dp, vocab].
-
-    On a CUDA device without a mesh the work between the attention
-    launches replays CUDA graphs, captured on the cache's first such step
-    and again whenever an address they read changes: the same kernels as
-    the eager step, in the same order; ``decode_attention`` is still
-    launched from Python once a layer.  Elsewhere every operation is
-    launched from Python."""
-    _check_dense(cfg)
-    mesh = model.mesh if mesh is None else mesh
-    dev = model.embed.device
-    tokens = torch.as_tensor(tokens, device=dev).long()
-    active = torch.as_tensor(active, device=dev)
-    if mesh is not None or dev.type != "cuda":
-        if mesh is not None:
-            tokens = sharding.local_slice(tokens, ("dp",), mesh)
-            active = sharding.local_slice(active, ("dp",), mesh)
-        return _step_eager(model, cache, tokens, active, cfg, mesh), cache
-    entry = _cache_graphs(cache)
-    key = _graph_key(model, cache, cfg)
-    with torch.cuda.device(dev):
-        if entry.graphs is None or entry.graphs.key != key:
-            entry.graphs = None          # its pool goes before the next
-            entry.graphs = _StepGraphs(model, cache, cfg, key)
-            entry.captures += 1
-        logits = entry.graphs.run(tokens, active)
-    entry.graphed += 1
-    return logits, cache
+    @torch.no_grad()
+    def run(self, tokens, active):
+        """One step, as :func:`decode_step` (tokens [N] int, active [N],
+        on any device) -> a copy of the logits [N, vocab] f32: the graphs
+        replayed in order, this module's ``decode_attention`` launched
+        between them."""
+        with torch.cuda.device(self.device):
+            if _graph_key(self.model, self.cache, self.cfg) != self.key:
+                self._capture()
+            self.tokens.copy_(tokens)
+            self.active.copy_(active)
+            graphs, outs, kv, p = self.graphs, self.outs, self.kv, self.p
+            graphs[0].replay()
+            for i in range(len(kv)):
+                _, q, k_new, v_new = outs[i][:4]
+                self.o.copy_(decode_attention(q, k_new, v_new, kv[i][0],
+                                              kv[i][1], p))
+                graphs[i + 1].replay()
+            logits = outs[-1].clone()
+        self.steps += 1
+        return logits
 
 
 # ---------------------------------------------------------------------------

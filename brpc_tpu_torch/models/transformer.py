@@ -28,10 +28,15 @@ Numerics the port keeps on purpose:
   (:mod:`moe`): each expert runs only on the tokens routed to it.
 * The logits use the tied ``embed``.
 
-:func:`apply` carries gradients (training differentiates it); the
-inference paths (``decode.prefill``, ``decode.decode_step``) run under
-``torch.no_grad()``.  The reference's per-block ``jax.checkpoint`` is a
-memory policy that changes no number and is not ported.
+The GPT-2 block is written once, as two halves over any leading dims:
+``_block_in`` (LN1, the q/k/v products) and ``_block_out`` (the output
+product, LN2, the dense or routed FFN, both residuals).  :func:`apply`,
+``decode.prefill`` and the decode step (``decode.decode_step`` and the
+segments of ``decode.StepGraphs``) each put their own attention between
+them.  :func:`apply` carries gradients (training differentiates it);
+the inference paths run under ``torch.no_grad()``.  The reference's
+per-block ``jax.checkpoint`` is a memory policy that changes no number
+and is not ported.
 
 Over a mesh (``mesh=``, parallel/mesh.py) the model holds this rank's
 shards under the same names and shapes cut by :func:`param_specs` (the
@@ -350,34 +355,49 @@ def _sp(mesh) -> int:
     return 1 if mesh is None else sharding.axis_size(mesh, "sp")
 
 
-def _attention(x, lp, i, cfg: ModelConfig, mesh=None):
-    xc = _copy(x.to(cfg.dtype), mesh, "tp")
-    q = torch.einsum("bsd,dhk->bshk", xc, lp["wq"][i].to(cfg.dtype))
-    kk = torch.einsum("bsd,dhk->bshk", xc, lp["wk"][i].to(cfg.dtype))
-    v = torch.einsum("bsd,dhk->bshk", xc, lp["wv"][i].to(cfg.dtype))
+def _block_in(x, lp, i, cfg: ModelConfig, mesh=None):
+    """Layer i up to its attention, over any leading dims of x [..., D]:
+    LN1 in f32, the cast to cfg.dtype entering the tp-sharded products,
+    and q, k, v [..., H, hd], contiguous."""
+    dt = cfg.dtype
+    xc = _copy(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]).to(dt), mesh,
+               "tp")
+    q = torch.einsum("...d,dhk->...hk", xc, lp["wq"][i].to(dt)).contiguous()
+    k = torch.einsum("...d,dhk->...hk", xc, lp["wk"][i].to(dt)).contiguous()
+    v = torch.einsum("...d,dhk->...hk", xc, lp["wv"][i].to(dt)).contiguous()
+    return q, k, v
+
+
+def _block_out(model: TransformerLM, x, o, i, cfg: ModelConfig, mesh=None):
+    """Layer i after its attention's output o [..., H, hd]: the output
+    product and residual, LN2 in f32, then the dense GELU FFN or, where
+    ``cfg.is_moe(i)``, the routed experts, and the residual."""
+    lp, dt = model.blocks, cfg.dtype
+    x = x + _reduce(torch.einsum("...hk,hkd->...d", o.to(dt),
+                                 lp["wo"][i].to(dt)), mesh, "tp")
+    h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
+    if cfg.is_moe(i):
+        return x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg, mesh,
+                            model.expert_stats)
+    hf = _gelu(torch.einsum("...d,df->...f", _copy(h.to(dt), mesh, "tp"),
+                            lp["w1"][i].to(dt)))
+    return x + _reduce(torch.einsum("...f,fd->...d", hf, lp["w2"][i].to(dt)),
+                       mesh, "tp")
+
+
+def _attend(q, k, v, cfg: ModelConfig, mesh=None):
+    """Causal attention of this rank's sequence chunk [B, S/sp, H, hd]:
+    the kernel at sp 1, else ring or Ulysses, or gather (the whole
+    sequence's attention on every sp rank, this rank's rows kept)."""
     if _sp(mesh) == 1:
-        o = _causal_attention(q, kk, v)
-    elif cfg.attn_impl != "gather":
-        fn = (ring_attention if cfg.attn_impl == "ring"
-              else ulysses_attention)
-        o = fn(q, kk, v, mesh, axis="sp", causal=True)
-    else:
-        # all-gather context parallelism: the whole sequence's attention
-        # on every sp rank, this rank's rows kept
-        C = q.shape[1]
-        at = sharding.axis_index(mesh, "sp") * C
-        full = [sharding.gather_seq(t, mesh, "sp") for t in (q, kk, v)]
-        o = _causal_attention(*full)[:, at:at + C]
-    out = torch.einsum("bshk,hkd->bsd", o.to(cfg.dtype),
-                       lp["wo"][i].to(cfg.dtype))
-    return _reduce(out, mesh, "tp")
-
-
-def _ffn(x, lp, i, cfg: ModelConfig, mesh=None):
-    xc = _copy(x.to(cfg.dtype), mesh, "tp")
-    h = _gelu(torch.einsum("bsd,df->bsf", xc, lp["w1"][i].to(cfg.dtype)))
-    out = torch.einsum("bsf,fd->bsd", h, lp["w2"][i].to(cfg.dtype))
-    return _reduce(out, mesh, "tp")
+        return _causal_attention(q, k, v)
+    if cfg.attn_impl != "gather":
+        fn = ring_attention if cfg.attn_impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, axis="sp", causal=True)
+    C = q.shape[1]
+    at = sharding.axis_index(mesh, "sp") * C
+    full = [sharding.gather_seq(t, mesh, "sp") for t in (q, k, v)]
+    return _causal_attention(*full)[:, at:at + C]
 
 
 def _moe_ffn(x, mp, i, cfg: ModelConfig, mesh=None, stats=None):
@@ -438,14 +458,7 @@ def apply(model: TransformerLM, tokens, cfg: Optional[ModelConfig] = None,
         at = sharding.axis_index(mesh, "sp") * S
         tokens = tokens[:, at:at + S]
     x = model.embed[tokens] + model.pos[at:at + S][None]
-    lp = model.blocks
     for i in range(cfg.n_layers):
-        x = x + _attention(_layernorm(x, lp["ln1_g"][i], lp["ln1_b"][i]),
-                           lp, i, cfg, mesh)
-        h = _layernorm(x, lp["ln2_g"][i], lp["ln2_b"][i])
-        if cfg.is_moe(i):
-            x = x + _moe_ffn(h, model.moe, moe_slot(cfg, i), cfg, mesh,
-                             model.expert_stats)
-        else:
-            x = x + _ffn(h, lp, i, cfg, mesh)
+        q, k, v = _block_in(x, model.blocks, i, cfg, mesh)
+        x = _block_out(model, x, _attend(q, k, v, cfg, mesh), i, cfg, mesh)
     return logits_of(model, x, cfg)

@@ -13,13 +13,14 @@ there, each block filled by one device copy and read back through a view
 of it; otherwise it crosses as host bytes, as the reference's does.
 
 On one card (no mesh) the decode step's work between its attention
-launches replays CUDA graphs (``decode.decode_step``: n_layers + 1 of
+launches replays CUDA graphs (``decode.StepGraphs``: n_layers + 1 of
 them, split at each layer's ``decode_attention``, which is still
-launched from Python), captured by one all-inactive step when the
-engine's ``Lockstep`` is built, before any traffic, so the capture lands
-in set-up; ``stats()`` counts the steps that replayed them
-(``step_graphed``) and the graph sets captured (``step_captures``).  On
-the CPU and over a mesh every operation is launched from Python.
+launched from Python).  The engine's ``Lockstep`` owns the cache and
+holds its ``StepGraphs``, captured when the ``Lockstep`` is built,
+before any traffic, so the capture lands in set-up; ``stats()`` counts
+the steps that replayed them (``step_graphed``) and the graph sets
+captured (``step_captures``).  On the CPU and over a mesh every
+operation is launched from Python (``decode.decode_step``).
 
 Over a mesh (``mesh=``, the reference's dp/tp layout) one engine runs on
 every rank of the world, each on its shards of the model and of the

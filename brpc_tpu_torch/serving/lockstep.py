@@ -63,7 +63,9 @@ class Lockstep:
     """The model and this rank's cache, and the four device operations
     of serving.  On the leader each operation is broadcast and then run;
     a follower runs them as :meth:`follow` receives them.  Without a mesh
-    it is the one-device engine's device half and broadcasts nothing."""
+    it is the one-device engine's device half and broadcasts nothing; on
+    a card it holds the cache's ``decode.StepGraphs`` (``graphs``), which
+    run its steps."""
 
     def __init__(self, params: TransformerLM, cfg: ModelConfig,
                  n_slots: int, max_len: int, device: torch.device,
@@ -72,12 +74,17 @@ class Lockstep:
         self.device = device
         self.world, self.rank = world_rank() if mesh is not None else (1, 0)
         self.cache = D.init_cache(cfg, n_slots, max_len, device, mesh)
-        # the operations run, and of the steps those whose work between
-        # the attention launches replayed CUDA graphs (``step_graphed``)
-        # and the graph sets captured (``step_captures``)
+        # on one card the step replays CUDA graphs, captured now, before
+        # traffic; over a mesh and on the CPU it runs eagerly
+        self.graphs = (D.StepGraphs(params, self.cache, cfg)
+                       if device.type == "cuda" and mesh is None else None)
+        # the operations run, and of the steps those that replayed CUDA
+        # graphs (``step_graphed``) and the graph sets captured
+        # (``step_captures``): the StepGraphs' counts
         self.ops: Dict[str, int] = {"prefill": 0, "install": 0, "step": 0,
                                     "reset": 0, "step_graphed": 0,
                                     "step_captures": 0}
+        self._count_graphs()
         # time.monotonic_ns() stamps of the last prefill (entry, its device
         # work done) and step (entry, the last launch returned, the tokens
         # on the host), for the engine's counters and spans
@@ -85,16 +92,11 @@ class Lockstep:
         self.step_ns: Tuple[int, int, int] = (0, 0, 0)
         self._done = (torch.cuda.Event() if device.type == "cuda" and
                       self.leader else None)
-        if device.type == "cuda" and mesh is None:
-            # capture the step's graphs now, before traffic: an all-inactive
-            # step writes only rows the next install overwrites, and no
-            # `pos` moves
-            D.decode_step(params, self.cache,
-                          torch.zeros(n_slots, dtype=torch.int64,
-                                      device=device),
-                          torch.zeros(n_slots, dtype=torch.bool,
-                                      device=device), cfg)
-            self.ops["step_captures"] = D.step_graph_counts(self.cache)[0]
+
+    def _count_graphs(self) -> None:
+        if self.graphs is not None:
+            self.ops["step_captures"] = self.graphs.captures
+            self.ops["step_graphed"] = self.graphs.steps
 
     @property
     def leader(self) -> bool:
@@ -164,11 +166,12 @@ class Lockstep:
                            ).to(self.device)
         self._send(STEP, payload=both)
         self.ops["step"] += 1
-        before = D.step_graph_counts(self.cache)
-        logits, self.cache = D.decode_step(self.params, self.cache, both[0],
-                                           both[1].bool(), self.cfg,
-                                           self.mesh)
-        after = D.step_graph_counts(self.cache)
+        if self.graphs is not None:
+            logits = self.graphs.run(both[0], both[1].bool())
+        else:
+            logits, self.cache = D.decode_step(self.params, self.cache,
+                                               both[0], both[1].bool(),
+                                               self.cfg, self.mesh)
         nxt = torch.argmax(logits, dim=-1)
         if self.mesh is not None and sharding.axis_size(self.mesh, "dp") > 1:
             nxt = collectives.all_gather(self.mesh, "dp", nxt)
@@ -176,8 +179,7 @@ class Lockstep:
         out = nxt.cpu().numpy()     # waits for the step's device work
         self.step_ns = (t0, t1, time.monotonic_ns())
         # counted as the step returns, beside the engine's own count of it
-        self.ops["step_captures"] += after[0] - before[0]
-        self.ops["step_graphed"] += after[1] - before[1]
+        self._count_graphs()
         return out
 
     def reset(self, slot: int) -> None:

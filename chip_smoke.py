@@ -2395,8 +2395,11 @@ def phase_mesh_serving(smi):
             D.install(caches[n], slot, k[:, 0], v[:, 0], plen, m)
     tokens = torch.randint(0, cfg.vocab, (4,), generator=gen)
     active = torch.ones(4, dtype=torch.bool)
-    logits = {n: D.decode_step(params[n], caches[n], tokens, active, cfg,
-                               m)[0] for n, m in meshes.items()}
+    # the one-card side through the serving engine's graphed step
+    logits = {n: D.StepGraphs(params[n], caches[n], cfg).run(tokens, active)
+              if m is None else
+              D.decode_step(params[n], caches[n], tokens, active, cfg, m)[0]
+              for n, m in meshes.items()}
     step_bit_equal = torch.equal(logits["mesh"], logits["one_device"])
     step_err = float((logits["mesh"] - logits["one_device"]).abs().max())
 
@@ -2955,7 +2958,8 @@ def phase_serving():
     tokens = torch.randint(0, cfg.vocab, (4,), generator=gen)
     active = torch.ones(4, dtype=torch.bool)
     twin = {key: t.clone() for key, t in cache.items()}
-    got, _ = D.decode_step(engine.params, cache, tokens, active, cfg)
+    # the kernel's side through the serving engine's graphed step
+    got = D.StepGraphs(engine.params, cache, cfg).run(tokens, active)
     saved = D.decode_attention
     D.decode_attention = decode_attention_plain
     try:

@@ -1,24 +1,27 @@
-"""decode_step's CUDA graphs (brpc_tpu_torch/models/decode.py).
+"""The decode step's CUDA graphs (brpc_tpu_torch/models/decode.py).
 
-On a CUDA device without a mesh, ``decode_step`` replays its work
-between the attention launches as n_layers + 1 captured graphs and
-launches ``decode_attention`` from Python between them; elsewhere it runs
-its eager body, ``_step_eager``.
+``decode_step`` launches every operation from Python.  ``StepGraphs``
+is the same step for one cache on one card: its work between the
+attention launches replayed as n_layers + 1 captured graphs, with
+``decode_attention`` launched from Python between them.  The serving
+engine's ``Lockstep`` holds one on a card without a mesh.
 
 On the CPU: the split itself (``_segments`` run in order, the attention
-between them, its output copied into the next one's input) gives the
-eager body's bits at tiny_config and at a bf16 hd-64 shape; the CPU step
-and a mesh of one never capture, in ``decode_step`` and in ``Lockstep``'s
-counters; the serving engine's ``stats()`` carries ``step_graphed`` and
-``step_captures`` (a subprocess over the fake CUDA driver).
+between them, its output copied into the next one's input) gives
+``decode_step``'s bits at tiny_config and at a bf16 hd-64 shape; a CPU
+``Lockstep``, on one device or a mesh of one, holds no ``StepGraphs``
+and counts no graphed step; the serving engine's ``stats()`` carries
+``step_graphed`` and ``step_captures`` (a subprocess over the fake
+libcuda); and ``prefill``'s last-position logits are the training
+forward's, the three paths sharing one block.
 
-The ``cuda`` legs run the graphs on the card against the eager body on a
-twin cache, bit for bit (tokens, logits, ``pos``, cache rows), at
+The ``cuda`` legs run ``StepGraphs`` on the card against ``decode_step``
+on a twin cache, bit for bit (tokens, logits, ``pos``, cache rows), at
 tiny_config (hd 16, f32) and at a 4-layer hd-64 GPT-2 shape in bf16, 8
 slots with some inactive, an install and a reset between steps; they
 count the kernel's launches, hold logits returned at one step through
-the next, and give each cache, and each change of a weight's address,
-its own capture.  On the card:
+the next, and give each Lockstep's cache, and each change of a weight's
+address, its own capture.  On the card:
 ``python -m pytest --noconftest -m cuda tests/test_torch_decode_graph.py``.
 """
 
@@ -109,7 +112,7 @@ def test_the_split_gives_the_eager_bits_on_the_cpu(name):
     for step in range(3):
         tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
         got = _split_step(model, cache, tokens, active, cfg)
-        want = D._step_eager(model, twin, tokens, active, cfg, None)
+        want, _ = D.decode_step(model, twin, tokens, active, cfg)
         assert torch.equal(got, want), step
         _same_state(cache, twin)
 
@@ -117,14 +120,15 @@ def test_the_split_gives_the_eager_bits_on_the_cpu(name):
 def test_the_cpu_step_never_captures():
     cfg = tiny_config()
     model, cache, active, gen = _served(cfg, "cpu")
+    dev = Lockstep(model, cfg, SLOTS, cfg.max_seq, torch.device("cpu"))
+    assert dev.graphs is None
     twin = _twin(cache)
     for _ in range(2):
         tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
         got, _ = D.decode_step(model, cache, tokens, active, cfg)
-        want = D._step_eager(model, twin, tokens, active, cfg, None)
+        want = _split_step(model, twin, tokens, active, cfg)
         assert torch.equal(got, want)
-    assert D.step_graph_counts(cache) == (0, 0)
-    assert D._CACHE_GRAPHS.get(id(cache["pos"])) is None
+        _same_state(cache, twin)
 
 
 @pytest.mark.parametrize("mesh", [False, True], ids=["one_device",
@@ -140,8 +144,22 @@ def test_lockstep_on_the_cpu_counts_no_graphed_step(mesh):
         dev.step([1, 2, 3, 4], [True, True, False, True])
     assert dev.ops["step"] == 3
     assert dev.ops["step_graphed"] == 0 and dev.ops["step_captures"] == 0
-    assert D.step_graph_counts(dev.cache) == (0, 0)
+    assert dev.graphs is None
     assert dev.cache["pos"].tolist() == [3, 3, 0, 3]
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_prefill_gives_the_training_forwards_last_logits(name):
+    """prefill, the training forward and the decode step share one GPT-2
+    block: prefill's last-position logits are ``apply``'s."""
+    cfg = CONFIGS[name]()
+    gen = torch.Generator().manual_seed(3)
+    model = T.init(gen, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 37), generator=gen)
+    got, _, _ = D.prefill(model, toks, cfg)
+    with torch.no_grad():
+        want = T.apply(model, toks, cfg)[:, -1]
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
 ENGINE_CODE = r"""
@@ -203,14 +221,16 @@ def test_the_engine_stats_carry_both_counters():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_graphed_steps_match_the_eager_body_on_the_card(name):
-    """Eight graphed steps against the eager body on a twin cache: the
-    same logits, tokens, pos and cache rows, bit for bit; an install and
-    a reset between steps reach the next replay; n_layers launches of
-    the kernel a step; logits returned at one step survive the next."""
+    """Eight graphed steps against decode_step on a twin cache: the same
+    logits, tokens, pos and cache rows, bit for bit; an install and a
+    reset between steps reach the next replay; n_layers launches of the
+    kernel a step; logits returned at one step survive the next."""
     _card()
     cfg = CONFIGS[name]()
     model, cache, active, gen = _served(cfg, "cuda")
     twin = _twin(cache)
+    graphs = D.StepGraphs(model, cache, cfg)
+    _same_state(cache, twin)        # the capture moves no state
     kept = None
     for step in range(8):
         if step == 4:      # a new sequence in slot 6, slot 1 retired
@@ -222,9 +242,9 @@ def test_graphed_steps_match_the_eager_body_on_the_card(name):
             active[6], active[1] = True, False
         tokens = torch.randint(0, cfg.vocab, (SLOTS,), generator=gen)
         before = decode_attention.launches
-        got, _ = D.decode_step(model, cache, tokens, active, cfg)
+        got = graphs.run(tokens, active)
         assert decode_attention.launches == before + cfg.n_layers
-        want = D._step_eager(model, twin, tokens.cuda(), active, cfg, None)
+        want, _ = D.decode_step(model, twin, tokens, active, cfg)
         torch.cuda.synchronize()
         assert torch.equal(got, want), \
             (step, float((got - want).abs().max()))
@@ -233,40 +253,38 @@ def test_graphed_steps_match_the_eager_body_on_the_card(name):
         if kept is not None:
             assert torch.equal(kept[0], kept[1]), step
         kept = (got, got.clone())
-    assert D.step_graph_counts(cache) == (1, 8)
-    assert D.step_graph_counts(twin) == (0, 0)
+    assert (graphs.captures, graphs.steps) == (1, 8)
 
 
 @pytest.mark.cuda
 def test_each_cache_and_each_weight_address_gets_its_own_capture():
-    """Two Locksteps on the card capture once each when built (the warm
-    step leaves pos at 0) and replay from their first step; moving a
-    weight to a new address captures again, to the eager body's bits."""
+    """Two Locksteps on the card capture once each when built (the
+    capture leaves pos at 0) and replay from their first step; moving a
+    weight to a new address captures again, to decode_step's bits."""
     _card()
     cfg = CONFIGS["gpt2_hd64_bf16"]()
     params = T.init(torch.Generator().manual_seed(0), cfg, "cuda")
     dev = torch.device("cuda")
     a = Lockstep(params, cfg, SLOTS, cfg.max_seq, dev)
     b = Lockstep(params, cfg, SLOTS, cfg.max_seq, dev)
+    assert a.graphs is not b.graphs
     for ls in (a, b):
         assert ls.ops["step_captures"] == 1 and ls.ops["step_graphed"] == 0
         assert int(ls.cache["pos"].abs().sum()) == 0
-        assert D.step_graph_counts(ls.cache) == (1, 1)
+        assert (ls.graphs.captures, ls.graphs.steps) == (1, 0)
     tokens, active = [5] * SLOTS, [True] * (SLOTS - 1) + [False]
     twin = _twin(a.cache)
     nxt = a.step(tokens, active)
     b.step(tokens, active)
     for ls in (a, b):
         assert ls.ops["step_captures"] == 1 and ls.ops["step_graphed"] == 1
-    want = D._step_eager(params, twin, torch.tensor(tokens, device=dev),
-                         torch.tensor(active, device=dev), cfg, None)
+    want, _ = D.decode_step(params, twin, tokens, active, cfg)
     assert nxt.tolist() == want.argmax(-1).tolist()
     _same_state(a.cache, twin)
 
     params.blocks["w1"].data = params.blocks["w1"].data.clone()
     nxt = a.step(tokens, active)
-    want = D._step_eager(params, twin, torch.tensor(tokens, device=dev),
-                         torch.tensor(active, device=dev), cfg, None)
+    want, _ = D.decode_step(params, twin, tokens, active, cfg)
     assert a.ops["step_captures"] == 2 and a.ops["step_graphed"] == 2
     assert nxt.tolist() == want.argmax(-1).tolist()
     _same_state(a.cache, twin)

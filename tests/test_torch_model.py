@@ -87,7 +87,7 @@ def test_erf_gelu_would_fail_the_prefill_tolerance(models, monkeypatch):
     ref_cfg, tree, cfg, model = models
     toks = _tokens(3, (1, 20))
     wl, _, _ = ref_decode.prefill(tree, jnp.asarray(toks), ref_cfg)
-    monkeypatch.setattr(D, "_gelu", torch.nn.functional.gelu)
+    monkeypatch.setattr(T, "_gelu", torch.nn.functional.gelu)
     gl, _, _ = D.prefill(model, torch.from_numpy(toks), cfg)
     gap = np.abs(np.asarray(gl) - np.asarray(wl))
     bound = LOGITS_TOL["atol"] + LOGITS_TOL["rtol"] * np.abs(np.asarray(wl))
