@@ -8,24 +8,38 @@ one token each against the slot cache ``k/v [L, N, S, H, hd]`` in
 hand-written kernel ``ops.decode_attention`` (one launch per layer), the
 prefill's the hand-written ``ops.causal_attention`` forward.
 
-``decode_step`` launches every operation from Python.  ``StepGraphs``
-is the same step for one cache on one CUDA device without a mesh, the
-work between the attention launches replayed as CUDA graphs, split at
-those launches into n_layers + 1 segments: 0 is the embedding, the
-write index p and layer 0's LN1 and q/k/v products; i (1 <= i < L) is
-layer i-1's output product, residual, LN2, MLP and residual, then layer
-i's LN1 and q/k/v; the last is layer L-1's tail, the final norm, the
-tied logits and the advance of ``pos``.  Between segments
-``decode_attention`` is looked up in this module and launched from
-Python, and its output copied into the next segment's input.  Both run
-the GPT-2 block of ``transformer._block_in``/``_block_out``, as
-``prefill`` and the training forward do, so the graphs replay the eager
-step's kernels (the same weight casts, products, f32 norms and logits,
-in the same dtypes: the same bits).  A ``StepGraphs`` captures when
-built and again when an address it reads changes (cache, weights), or
-the configuration or the matmul precision flags do, and counts its
-``captures`` and ``steps``.  The serving engine's ``Lockstep``, which
-owns the cache, holds one.
+``prefill`` and ``decode_step`` launch every operation from Python.
+``StepGraphs`` and ``PrefillGraphs`` are the same two on one CUDA device
+without a mesh, the work between the attention launches replayed as CUDA
+graphs, split at those launches into n_layers + 1 segments, with the
+attention looked up in this module (``decode_attention``) or in
+``transformer`` (``causal_attention``, through ``_causal_attention``) and
+launched from Python between them, its output copied into the next
+segment's input.  Every segment runs the GPT-2 block of
+``transformer._block_in``/``_block_out``, as the eager paths and the
+training forward do, so the graphs replay the eager kernels (the same
+weight casts, products, f32 norms and logits, in the same dtypes).
+
+* The step (``StepGraphs``, one cache): segment 0 is the embedding, the
+  write index p and layer 0's LN1 and q/k/v products; i (1 <= i < L) is
+  layer i-1's output product, residual, LN2, MLP and residual, then layer
+  i's LN1 and q/k/v; the last is layer L-1's tail, the final norm, the
+  tied logits and the advance of ``pos``: ``decode_step``'s bits.
+* The prefill (``PrefillGraphs``): one set of segments for each padded
+  length 128, 256, ... up to ``max_len``; a prompt of n tokens replays
+  the smallest that holds it, the causal kernel running at n between
+  the segments.  Padding is exact: everything inside a segment (the
+  embedding, the norms, the products, GELU, the residuals) works row by
+  row, so the padding rows reach no valid row, and the only operation
+  that mixes rows, the attention, sees the prompt's own n rows.  The
+  valid rows are those of the eager segments run at the same padded
+  length, bit for bit, and ``prefill``'s up to the products' rounding at
+  another row count.
+
+A set captures when built and again when an address it reads changes
+(cache, weights), or the configuration or the matmul precision flags do,
+and counts its ``captures``.  The serving engine's ``Lockstep``, which
+owns the cache, holds one of each.
 
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
@@ -181,7 +195,9 @@ def prefill(model: TransformerLM, tokens, cfg: ModelConfig,
     """tokens [B, S] int -> (last-position logits [B, vocab] f32,
     k [L, B, S, H, hd], v [L, B, S, H, hd]) in cfg.dtype.  Over a mesh
     (default: the model's) each rank computes its H/tp heads of the whole
-    batch; the logits and the gathered K/V are global on every rank."""
+    batch; the logits and the gathered K/V are global on every rank.
+    Every operation is launched from Python; :class:`PrefillGraphs`
+    replays the same work for one prompt at a padded length."""
     _check_dense(cfg)
     mesh = model.mesh if mesh is None else mesh
     dev = model.embed.device
@@ -276,16 +292,53 @@ def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
     return [first] + [layer(i) for i in range(1, L)] + [last]
 
 
-def _graph_key(model: TransformerLM, cache: Dict, cfg: ModelConfig) -> tuple:
+def _graph_key(model: TransformerLM, cfg: ModelConfig, *read) -> tuple:
     """What a captured set depends on: the configuration, the matmul
-    precision flags, and the address, shape and dtype of every tensor
-    its graphs and its attention launches read or write."""
-    read = (cache["k"], cache["v"], cache["pos"], model.embed, model.pos,
-            model.ln_f["g"], model.ln_f["b"], *model.blocks.values())
+    precision flags, and the address, shape and dtype of the weights and
+    of every other tensor `read` that its graphs and its attention
+    launches read or write."""
+    read += (model.embed, model.pos, model.ln_f["g"], model.ln_f["b"],
+             *model.blocks.values())
     m = torch.backends.cuda.matmul
     return (cfg, m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
             m.allow_fp16_reduced_precision_reduction) + tuple(
         (t.data_ptr(), t.shape, t.dtype) for t in read)
+
+
+def _capture(segs: list, side: torch.cuda.Stream, pool) -> Tuple[list, list]:
+    """Run `segs` in order once on the side stream `side` (cuBLAS's
+    handle and workspace for that stream), then capture each there, fed
+    the previous one's outputs, as one CUDA graph into `pool` -> (the
+    graphs, the outputs each holds).  Nothing is launched between the
+    segments: the caller's segments must leave its state as they found
+    it without their attention.  Captures that share a pool share their
+    stream too: the allocator reuses a freed block only on the stream
+    that freed it."""
+    device = side.device
+    with torch.cuda.device(device):
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            outs = ()
+            for seg in segs:
+                outs = seg(*outs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        graphs, held = [], []
+        with torch.cuda.stream(side):
+            outs = ()
+            for seg in segs:
+                g = torch.cuda.CUDAGraph()
+                # thread-local: the KV plane's threads may make CUDA
+                # calls meanwhile
+                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                try:
+                    outs = seg(*outs)
+                finally:
+                    g.capture_end()
+                graphs.append(g)
+                held.append(outs)
+        torch.cuda.current_stream(device).wait_stream(side)
+    return graphs, held
 
 
 class StepGraphs:
@@ -305,49 +358,27 @@ class StepGraphs:
         self.captures = self.steps = 0
         self._capture()
 
+    def _key(self) -> tuple:
+        c = self.cache
+        return _graph_key(self.model, self.cfg, c["k"], c["v"], c["pos"])
+
     @torch.no_grad()
     def _capture(self):
         model, cache, cfg = self.model, self.cache, self.cfg
         # the old set's pool goes before the new one is taken
         self.graphs = self.outs = self.p = None
-        self.key = _graph_key(model, cache, cfg)
+        self.key = self._key()
         dev = self.device
         _, N, _, H, hd = cache["k"].shape
         self.tokens = torch.zeros(N, dtype=torch.int64, device=dev)
+        # 0 while the segments are warmed up, so `pos` keeps its values
         self.active = torch.zeros(N, dtype=torch.int32, device=dev)
         self.o = torch.zeros((N, H, hd), dtype=cfg.dtype, device=dev)
         self.kv = [(cache["k"][i], cache["v"][i])
                    for i in range(cfg.n_layers)]
         segs = _segments(model, cache, cfg, self.tokens, self.active, self.o)
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            # warm up on the capture's stream (cuBLAS's handle and
-            # workspace): `active` is 0, so `pos` keeps its values, and no
-            # attention runs
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                outs = ()
-                for seg in segs:
-                    outs = seg(*outs)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            pool = torch.cuda.graph_pool_handle()
-            self.graphs, self.outs = [], []
-            with torch.cuda.stream(side):
-                outs = ()
-                for seg in segs:
-                    g = torch.cuda.CUDAGraph()
-                    # thread-local: the KV plane's threads may make CUDA
-                    # calls meanwhile
-                    g.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                    try:
-                        outs = seg(*outs)
-                    finally:
-                        g.capture_end()
-                    self.graphs.append(g)
-                    self.outs.append(outs)
-            torch.cuda.current_stream(dev).wait_stream(side)
+        self.graphs, self.outs = _capture(segs, torch.cuda.Stream(dev),
+                                          torch.cuda.graph_pool_handle())
         self.p = self.outs[0][4]
         self.captures += 1
 
@@ -358,7 +389,7 @@ class StepGraphs:
         replayed in order, this module's ``decode_attention`` launched
         between them."""
         with torch.cuda.device(self.device):
-            if _graph_key(self.model, self.cache, self.cfg) != self.key:
+            if self._key() != self.key:
                 self._capture()
             self.tokens.copy_(tokens)
             self.active.copy_(active)
@@ -372,6 +403,149 @@ class StepGraphs:
             logits = outs[-1].clone()
         self.steps += 1
         return logits
+
+
+# the prefill's padded lengths are the multiples of this, then max_len
+PREFILL_BUCKET = 128
+
+
+def prefill_buckets(max_len: int) -> list:
+    """The padded lengths a :class:`PrefillGraphs` captures: 128, 256,
+    ... below `max_len`, then `max_len`."""
+    return list(range(PREFILL_BUCKET, max_len, PREFILL_BUCKET)) + [max_len]
+
+
+def prefill_bucket(n: int, max_len: int) -> Optional[int]:
+    """The padded length a prompt of n tokens replays: the smallest of
+    :func:`prefill_buckets` that holds it; None above `max_len`."""
+    if n > max_len:
+        return None
+    return min(-(-n // PREFILL_BUCKET) * PREFILL_BUCKET, max_len)
+
+
+def prefill_buffers(model: TransformerLM, cfg: ModelConfig,
+                    max_len: int) -> Dict[str, torch.Tensor]:
+    """The static buffers of :func:`_prefill_segments`, at `max_len` on
+    the model's device, zeros: the prompt ``tokens`` [1, max_len] int64,
+    the ``row`` whose logits are taken [1] int64, the residual stream
+    ``x`` [1, max_len, D] in the weights' dtype, ``q`` and the
+    attention's output ``o`` [1, max_len, H, hd] and the K/V store
+    ``k``, ``v`` [L, 1, max_len, H, hd] in cfg.dtype."""
+    dev, dt = model.embed.device, cfg.dtype
+    heads = (1, max_len, cfg.n_heads, cfg.head_dim)
+    return {
+        "tokens": torch.zeros((1, max_len), dtype=torch.int64, device=dev),
+        "row": torch.zeros(1, dtype=torch.int64, device=dev),
+        "x": torch.zeros((1, max_len, cfg.d_model), dtype=model.embed.dtype,
+                         device=dev),
+        "q": torch.zeros(heads, dtype=dt, device=dev),
+        "o": torch.zeros(heads, dtype=dt, device=dev),
+        "k": torch.zeros((cfg.n_layers,) + heads, dtype=dt, device=dev),
+        "v": torch.zeros((cfg.n_layers,) + heads, dtype=dt, device=dev)}
+
+
+def _prefill_segments(model: TransformerLM, cfg: ModelConfig, bufs: Dict,
+                      S: int) -> list:
+    """The prefill's work between its attention launches at the padded
+    length S, over the first S positions of :func:`prefill_buffers`, as
+    n_layers + 1 functions: 0 embeds ``tokens`` and runs layer 0's
+    ``_block_in``; i (1 <= i < L) runs layer i-1's ``_block_out`` on the
+    attention's output read from ``o``, then layer i's ``_block_in``;
+    the last runs layer L-1's ``_block_out`` and gives the logits
+    [1, vocab] f32 of position ``row``.  Each ``_block_in`` leaves the
+    residual stream in ``x``, its q in ``q`` and its k, v in layer i of
+    the store; the others return nothing."""
+    L = cfg.n_layers
+    tokens, x, q, o = (bufs[n][:, :S] for n in ("tokens", "x", "q", "o"))
+    k, v = bufs["k"][:, :, :S], bufs["v"][:, :, :S]
+
+    def block_in(h, i):
+        x.copy_(h)
+        qi, ki, vi = _block_in(h, model.blocks, i, cfg)
+        q.copy_(qi)
+        k[i].copy_(ki)
+        v[i].copy_(vi)
+        return ()
+
+    def first():
+        return block_in(model.embed[tokens] + model.pos[:S][None], 0)
+
+    def layer(i):
+        return lambda: block_in(_block_out(model, x, o, i - 1, cfg), i)
+
+    def last():
+        h = _block_out(model, x, o, L - 1, cfg)
+        return logits_of(model, h.index_select(1, bufs["row"])[:, 0], cfg)
+
+    return [first] + [layer(i) for i in range(1, L)] + [last]
+
+
+class PrefillGraphs:
+    """:func:`prefill` of one prompt on one CUDA device without a mesh,
+    its work between the attention launches captured, when built, as
+    n_layers + 1 CUDA graphs (:func:`_prefill_segments`) at each padded
+    length of :func:`prefill_buckets` up to `max_len` (at most the
+    model's ``max_seq``).  One set of static buffers at `max_len`
+    (:func:`prefill_buffers`) serves every length, and every set shares
+    one memory pool, replayed one at a time.  The graphs read the
+    weights by address, so :meth:`run` captures again when an address,
+    the configuration or the matmul precision flags change.
+    ``captures`` counts the captures of every set, ``prefills`` the
+    prompts run."""
+
+    def __init__(self, model: TransformerLM, cfg: ModelConfig,
+                 max_len: int):
+        _check_dense(cfg)
+        self.model, self.cfg = model, cfg
+        self.max_len = min(max_len, cfg.max_seq)
+        self.device = model.embed.device
+        self.bufs = prefill_buffers(model, cfg, self.max_len)
+        self.captures = self.prefills = 0
+        self._capture()
+
+    @torch.no_grad()
+    def _capture(self):
+        # the old sets' pool goes before the new one is taken
+        self.sets = None
+        self.key = _graph_key(self.model, self.cfg)
+        # a row every padded length holds, for the warm-ups' logits
+        self.bufs["row"].zero_()
+        side = torch.cuda.Stream(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        # the longest first: each shorter length's temporaries then fit in
+        # the pool's blocks that the longer ones freed
+        self.sets = {S: _capture(_prefill_segments(self.model, self.cfg,
+                                                   self.bufs, S), side, pool)
+                     for S in reversed(prefill_buckets(self.max_len))}
+        self.captures += 1
+
+    @torch.no_grad()
+    def run(self, tokens) -> Tuple:
+        """One prompt, tokens [n] int64 on this device with n <=
+        ``max_len`` -> (a copy of the last position's logits [1, vocab]
+        f32, k, v [L, 1, n, H, hd] in cfg.dtype), as :func:`prefill`: the
+        set of the smallest padded length S >= n replayed in order, the
+        prompt's tokens in the first n positions (the padding positions
+        keep whatever they held), ``_causal_attention`` launched at n
+        between the graphs.  k and v are views of the K/V store, valid
+        until the next prefill."""
+        n = tokens.numel()
+        b = self.bufs
+        with torch.cuda.device(self.device):
+            if _graph_key(self.model, self.cfg) != self.key:
+                self._capture()
+            graphs, held = self.sets[prefill_bucket(n, self.max_len)]
+            b["tokens"][0, :n].copy_(tokens)
+            b["row"].fill_(n - 1)
+            q, o = b["q"][:, :n], b["o"][:, :n]
+            k, v = b["k"][:, :, :n], b["v"][:, :, :n]
+            graphs[0].replay()
+            for i in range(self.cfg.n_layers):
+                o.copy_(_causal_attention(q, k[i], v[i]))
+                graphs[i + 1].replay()
+            logits = held[-1].clone()
+        self.prefills += 1
+        return logits, k, v
 
 
 # ---------------------------------------------------------------------------

@@ -15,12 +15,19 @@ of it; otherwise it crosses as host bytes, as the reference's does.
 On one card (no mesh) the decode step's work between its attention
 launches replays CUDA graphs (``decode.StepGraphs``: n_layers + 1 of
 them, split at each layer's ``decode_attention``, which is still
-launched from Python).  The engine's ``Lockstep`` owns the cache and
-holds its ``StepGraphs``, captured when the ``Lockstep`` is built,
-before any traffic, so the capture lands in set-up; ``stats()`` counts
-the steps that replayed them (``step_graphed``) and the graph sets
-captured (``step_captures``).  On the CPU and over a mesh every
-operation is launched from Python (``decode.decode_step``).
+launched from Python), and so does the admit's prefill
+(``decode.PrefillGraphs``: a set of n_layers + 1 for each padded length
+128, 256, ... up to ``max_len``; the prompt takes the smallest that
+holds it and the causal kernel runs between the graphs at the prompt's
+own length, so the padding rows, which only row-wise work touches,
+reach no valid row).  The engine's ``Lockstep`` owns the cache and
+holds both, captured when the ``Lockstep`` is built, before any
+traffic, so the captures land in set-up; ``stats()`` counts the steps
+that replayed them (``step_graphed``), the installed admits whose
+prefill did (``prefill_graphed``, beside ``prefills``) and the graph
+sets captured (``step_captures``, ``prefill_captures``).  On the CPU
+and over a mesh every operation is launched from Python
+(``decode.decode_step``, ``decode.prefill``).
 
 Over a mesh (``mesh=``, the reference's dp/tp layout) one engine runs on
 every rank of the world, each on its shards of the model and of the
@@ -176,6 +183,7 @@ class ServingEngine:
         # counters
         self.tokens_out = 0
         self.prefills = 0
+        self.prefill_graphed = 0    # of the prefills, those replayed
         self.steps = 0
         self.preemptions = 0
         self.rails = {"local": 0, "host": 0, "none": 0}
@@ -328,6 +336,8 @@ class ServingEngine:
             "emit_us": self.emit_us,
             "step_graphed": self.dev.ops["step_graphed"],
             "step_captures": self.dev.ops["step_captures"],
+            "prefill_graphed": self.prefill_graphed,
+            "prefill_captures": self.dev.ops["prefill_captures"],
             "submitted": self.sched.submitted,
             "admitted": self.sched.admitted,
             "shed_queue": self.sched.shed_queue,
@@ -401,6 +411,7 @@ class ServingEngine:
         self.dev.install(seq.slot, k2, v2, plen)
         route.append(clock())
         self.prefills += 1
+        self.prefill_graphed += self.dev.prefill_replayed
         self.prefill_us += (p1 - p0) // 1000
         self.kv_route_us += (route[-1] - route[0]) // 1000
         self.kv_route_bytes += (2 * len(kvb) + len(fetched) + k2.nbytes

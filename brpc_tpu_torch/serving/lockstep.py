@@ -26,6 +26,15 @@ N ints a step, not N x vocab logits.  A world of one broadcasts nothing,
 and a mesh whose axes are all of size one runs no collective, so it
 runs the one-device engine's arithmetic.
 
+On one CUDA device without a mesh the step and the prefill replay CUDA
+graphs (``decode.StepGraphs``, ``decode.PrefillGraphs``), captured when
+the ``Lockstep`` is built; the prefill's pads the prompt to the next of
+its lengths (128, 256, ... up to ``max_len``) and runs the causal kernel
+at the prompt's own length between its graphs, which keeps the valid
+rows exact.  Over a mesh
+(followers too) and on the CPU both run eagerly (``decode.prefill``,
+``decode.decode_step``).
+
 Only the leader's decode-loop thread (and, after it has joined, the
 thread that stops the engine) and each follower's loop thread call a
 collective; handler threads never do.  On NCCL that is one thread a
@@ -65,7 +74,8 @@ class Lockstep:
     a follower runs them as :meth:`follow` receives them.  Without a mesh
     it is the one-device engine's device half and broadcasts nothing; on
     a card it holds the cache's ``decode.StepGraphs`` (``graphs``), which
-    run its steps."""
+    run its steps, and a ``decode.PrefillGraphs`` (``prefill_graphs``),
+    which runs every prompt of up to ``max_len`` tokens."""
 
     def __init__(self, params: TransformerLM, cfg: ModelConfig,
                  n_slots: int, max_len: int, device: torch.device,
@@ -74,17 +84,24 @@ class Lockstep:
         self.device = device
         self.world, self.rank = world_rank() if mesh is not None else (1, 0)
         self.cache = D.init_cache(cfg, n_slots, max_len, device, mesh)
-        # on one card the step replays CUDA graphs, captured now, before
-        # traffic; over a mesh and on the CPU it runs eagerly
-        self.graphs = (D.StepGraphs(params, self.cache, cfg)
-                       if device.type == "cuda" and mesh is None else None)
-        # the operations run, and of the steps those that replayed CUDA
-        # graphs (``step_graphed``) and the graph sets captured
-        # (``step_captures``): the StepGraphs' counts
+        # on one card the step and the prefill replay CUDA graphs,
+        # captured now, before traffic; over a mesh and on the CPU they
+        # run eagerly
+        card = device.type == "cuda" and mesh is None
+        self.graphs = D.StepGraphs(params, self.cache, cfg) if card else None
+        self.prefill_graphs = (D.PrefillGraphs(params, cfg, max_len)
+                               if card else None)
+        # the operations run; of the steps and of the prefills those that
+        # replayed CUDA graphs (``step_graphed``, ``prefill_graphed``) and
+        # the graph sets captured (``step_captures``, ``prefill_captures``):
+        # the StepGraphs' and PrefillGraphs' counts
         self.ops: Dict[str, int] = {"prefill": 0, "install": 0, "step": 0,
                                     "reset": 0, "step_graphed": 0,
-                                    "step_captures": 0}
+                                    "step_captures": 0, "prefill_graphed": 0,
+                                    "prefill_captures": 0}
         self._count_graphs()
+        # whether the last prefill replayed the PrefillGraphs
+        self.prefill_replayed = False
         # time.monotonic_ns() stamps of the last prefill (entry, its device
         # work done) and step (entry, the last launch returned, the tokens
         # on the host), for the engine's counters and spans
@@ -97,6 +114,9 @@ class Lockstep:
         if self.graphs is not None:
             self.ops["step_captures"] = self.graphs.captures
             self.ops["step_graphed"] = self.graphs.steps
+        if self.prefill_graphs is not None:
+            self.ops["prefill_captures"] = self.prefill_graphs.captures
+            self.ops["prefill_graphed"] = self.prefill_graphs.prefills
 
     @property
     def leader(self) -> bool:
@@ -130,15 +150,24 @@ class Lockstep:
 
     def prefill(self, prompt) -> Tuple:
         """(last-position logits [1, vocab], global k, v [L, 1, S, H, hd])
-        of one prompt.  On a CUDA leader it returns once the prefill's
-        device work is done (the K/V's copy to the host waited for it
-        anyway), so ``prefill_ns`` holds the device time too."""
+        of one prompt: replayed by ``prefill_graphs`` where it holds the
+        prompt (k and v then views valid until the next prefill), else
+        ``decode.prefill``.  On a CUDA leader it returns once the
+        prefill's device work is done (the K/V's copy to the host waited
+        for it anyway), so ``prefill_ns`` holds the device time too."""
         t0 = time.monotonic_ns()
         toks = torch.as_tensor(prompt, dtype=torch.int64,
                                device=self.device).reshape(-1)
         self._send(PREFILL, length=toks.numel(), payload=toks)
         self.ops["prefill"] += 1
-        out = D.prefill(self.params, toks[None], self.cfg, self.mesh)
+        graphs = self.prefill_graphs
+        self.prefill_replayed = (graphs is not None
+                                 and toks.numel() <= graphs.max_len)
+        if self.prefill_replayed:
+            out = graphs.run(toks)
+            self._count_graphs()
+        else:
+            out = D.prefill(self.params, toks[None], self.cfg, self.mesh)
         if self._done is not None:
             self._done.record(torch.cuda.current_stream(self.device))
             self._done.synchronize()
