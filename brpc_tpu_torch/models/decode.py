@@ -11,7 +11,8 @@ prefill's the hand-written ``ops.causal_attention`` forward.
 ``prefill`` and ``decode_step`` launch every operation from Python.
 ``StepGraphs`` and ``PrefillGraphs`` are the same two on one CUDA device
 without a mesh, the work between the attention launches replayed as CUDA
-graphs, split at those launches into n_layers + 1 segments, with the
+graphs, split at those launches into one segment more than the
+attention layers (GPT-2: n_layers + 1), with the
 attention looked up in this module (``decode_attention``) or in
 ``transformer`` (``causal_attention``, through ``_causal_attention``) and
 launched from Python between them, its output copied into the next
@@ -26,7 +27,9 @@ weight casts, products, f32 norms and logits, in the same dtypes).
   i's LN1 and q/k/v; the last is layer L-1's tail, the final norm, the
   tied logits and the advance of ``pos``: ``decode_step``'s bits.
 * The prefill (``PrefillGraphs``): one set of segments for each padded
-  length 128, 256, ... up to ``max_len``; a prompt of n tokens replays
+  length of :func:`prefill_buckets` up to ``max_len`` (128, 256, ...
+  1024, then an eighth of the power of two below the length apart);
+  a prompt of n tokens replays
   the smallest that holds it, the causal kernel running at n between
   the segments.  Padding is exact: everything inside a segment (the
   embedding, the norms, the products, GELU, the residuals) works row by
@@ -43,9 +46,35 @@ owns the cache, holds one of each.
 
 Unlike the reference's pure functions, the port updates the cache IN
 PLACE: ``install``, ``reset_slot`` and ``decode_step`` write into the
-cache's tensors and return the same dict.  Dense only, as the reference
-(decode.py:16-18): an MoE config raises ``ValueError``, and so does the
-lfm2 family, whose conv layers would need a conv-state cache.
+cache's tensors and return the same dict.  The gpt2 family is dense
+only, as the reference (decode.py:16-18): its MoE config raises
+``ValueError``.
+
+The lfm2 family (models/lfm2.py: gated short convolutions, grouped-query
+attention, routed experts) serves on one device through the same
+functions and graph sets, with ``lfm2.apply``'s layer halves:
+
+* The cache holds K/V of the attention layers alone at the KV heads,
+  ``k``/``v`` [attention layers, slots, max_len, KV, hd], and beside it
+  each conv layer's state ``conv`` [conv layers, slots, conv_width - 1,
+  D] in cfg.dtype: the last conv_width - 1 rows of B*u, the only history
+  a short convolution reads, a fixed size a sequence.  ``install``
+  replaces a slot's state whole and ``reset_slot`` zeroes it; a prompt
+  shorter than conv_width - 1 sees zeros before it, as HF's padded
+  Conv1d does.
+* ``prefill`` also returns the conv state after the prompt's last row;
+  the step shifts each conv layer's state by one, rotates q and k at
+  each slot's own position, and runs ``decode_attention`` with query
+  head h reading KV head h // (H // KV).
+* The routed experts run at the step's and the prefill's shapes; the
+  step's inactive slots and the padded prefill's rows past the prompt
+  route to no expert (an id outside the held range), so they are
+  neither computed nor counted.
+* The graphs split at the attention layers: one more segment than
+  attention layers (7 at LFM2-8B-A1B's 6), the conv layers, the FFNs
+  and the experts inside them.
+* The wire carries the conv state after K/V (``kv_to_bytes``,
+  ``kv_from_bytes``), in f32 like them.
 
 Over a mesh (``mesh=``, the reference's dp/tp layout, decode.py:64-65)
 every function runs on this rank's shards, with the training forward's
@@ -77,7 +106,9 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from brpc_tpu_torch.models import lfm2
 from brpc_tpu_torch.models.transformer import (
     ModelConfig, TransformerLM, _block_in, _block_out, _causal_attention,
     logits_of, resolve_device)
@@ -95,21 +126,46 @@ CACHE_SPEC = (None, "dp", None, "tp", None)
 KV_SPEC = (None, None, "tp", None)
 
 
+def _is_lfm2(cfg: ModelConfig) -> bool:
+    return cfg.family == "lfm2"
+
+
+def cached_layers(cfg: ModelConfig) -> int:
+    """The layers whose K/V the cache holds: every GPT-2 layer, LFM2's
+    attention layers."""
+    return cfg.layer_kinds.count("attn") if _is_lfm2(cfg) else cfg.n_layers
+
+
 def kv_bytes_per_token(cfg: ModelConfig) -> int:
     """Wire bytes one token position contributes to a sequence's K/V:
-    2 (k+v) x L x H x head_dim f32 values."""
-    return 2 * cfg.n_layers * cfg.n_heads * cfg.head_dim * \
+    2 (k+v) x the cached layers x the KV heads x head_dim f32 values."""
+    return 2 * cached_layers(cfg) * cfg.kv_heads * cfg.head_dim * \
         KV_WIRE_DTYPE().itemsize
 
 
+def conv_state_bytes(cfg: ModelConfig) -> int:
+    """Wire bytes of one sequence's conv state beside its K/V: the last
+    conv_width - 1 rows of B*u, d_model f32 values each, a conv layer (0
+    for the gpt2 family)."""
+    if not _is_lfm2(cfg):
+        return 0
+    return cfg.layer_kinds.count("conv") * (cfg.conv_width - 1) * \
+        cfg.d_model * KV_WIRE_DTYPE().itemsize
+
+
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "gpt2":
+    if cfg.family == "gpt2" and cfg.n_experts > 0:
         raise ValueError(
-            f"the decode path serves the gpt2 family only: {cfg.family}'s "
-            f"short-convolution layers need a conv-state cache beside the "
-            f"KV cache, which it does not have")
-    if cfg.n_experts > 0:
-        raise ValueError("decode path is dense-only (cfg.n_experts == 0)")
+            "decode path is dense-only for the gpt2 family (cfg.n_experts "
+            "== 0); it serves the lfm2 family's routed experts, with a "
+            "cache of its attention layers' K/V at the KV heads beside a "
+            "conv state (the last conv_width - 1 rows of B*u) of each conv "
+            "layer")
+
+
+def _one_device(cfg: ModelConfig, mesh: Optional[Mesh]) -> None:
+    if mesh is not None and _is_lfm2(cfg):
+        raise ValueError("the lfm2 family serves on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -119,13 +175,17 @@ def _check_dense(cfg: ModelConfig) -> None:
 def init_cache(cfg: ModelConfig, slots: int, max_len: int,
                device="cuda", mesh: Optional[Mesh] = None
                ) -> Dict[str, torch.Tensor]:
-    """Slot cache: k/v [L, slots, max_len, H, hd] in cfg.dtype and the
-    valid lengths ``pos`` [slots] int32; over a mesh this rank's shard
-    [L, slots/dp, max_len, H/tp, hd] and ``pos`` [slots/dp], allocated
-    at that size (each layer's rows stay contiguous for the kernel)."""
+    """Slot cache: k/v [L, slots, max_len, KV, hd] in cfg.dtype (L the
+    cached layers, KV the KV heads) and the valid lengths ``pos`` [slots]
+    int32; over a mesh this rank's shard [L, slots/dp, max_len, H/tp, hd]
+    and ``pos`` [slots/dp], allocated at that size (each layer's rows stay
+    contiguous for the kernel).  The lfm2 family (one device) also holds
+    ``conv`` [conv layers, slots, conv_width - 1, d_model] in cfg.dtype,
+    each slot's conv state, zeros until a sequence is installed."""
     _check_dense(cfg)
+    _one_device(cfg, mesh)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, slots, max_len, cfg.n_heads, cfg.head_dim)
+    shape = (cached_layers(cfg), slots, max_len, cfg.kv_heads, cfg.head_dim)
     if mesh is not None:
         for axis, n, what in (("dp", slots, "slots"),
                               ("tp", cfg.n_heads, "n_heads")):
@@ -134,9 +194,14 @@ def init_cache(cfg: ModelConfig, slots: int, max_len: int,
                 raise ValueError(f"{what} = {n} does not split over the "
                                  f"mesh axis {axis!r} of {parts}")
         shape = sharding.local_shape(shape, CACHE_SPEC, mesh)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "pos": torch.zeros(shape[1:2], dtype=torch.int32, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+             "pos": torch.zeros(shape[1:2], dtype=torch.int32, device=dev)}
+    if _is_lfm2(cfg):
+        cache["conv"] = torch.zeros(
+            (cfg.layer_kinds.count("conv"), slots, cfg.conv_width - 1,
+             cfg.d_model), dtype=cfg.dtype, device=dev)
+    return cache
 
 
 def _tensor(x) -> torch.Tensor:
@@ -157,14 +222,21 @@ def _local_row(cache: Dict, slot: int, mesh: Optional[Mesh]):
 
 
 def install(cache: Dict, slot: int, k, v, length: int,
-            mesh: Optional[Mesh] = None) -> Dict:
-    """Write a sequence's prefill K/V [L, S, H, hd] (tensors, on any
+            mesh: Optional[Mesh] = None, conv=None) -> Dict:
+    """Write a sequence's prefill K/V [L, S, KV, hd] (tensors, on any
     device, or numpy) into `slot` at positions [0:S] and set the slot's
-    valid length.  Over a mesh k/v are global and `slot` too: the owning
-    dp group keeps its heads, the others leave their shards alone."""
+    valid length; an lfm2 cache takes the sequence's conv state ``conv``
+    [conv layers, conv_width - 1, d_model] too, which replaces the slot's
+    whole.  Over a mesh k/v are global and `slot` too: the owning dp
+    group keeps its heads, the others leave their shards alone."""
     row = _local_row(cache, slot, mesh)
     if row is None:
         return cache
+    if "conv" in cache:
+        if conv is None:
+            raise ValueError("an lfm2 sequence installs its conv state "
+                             "beside its K/V")
+        cache["conv"][:, row].copy_(_tensor(conv))
     if mesh is not None:
         k = sharding.local_slice(k, KV_SPEC, mesh)
         v = sharding.local_slice(v, KV_SPEC, mesh)
@@ -178,10 +250,13 @@ def install(cache: Dict, slot: int, k, v, length: int,
 
 def reset_slot(cache: Dict, slot: int, mesh: Optional[Mesh] = None) -> Dict:
     """Retire a slot: its row stops advancing; the stale K/V is dead
-    weight the next install overwrites."""
+    weight the next install overwrites.  A conv state, which a step reads
+    whole, is zeroed."""
     row = _local_row(cache, slot, mesh)
     if row is not None:
         cache["pos"][row] = 0
+        if "conv" in cache:
+            cache["conv"][:, row].zero_()
     return cache
 
 
@@ -193,15 +268,32 @@ def reset_slot(cache: Dict, slot: int, mesh: Optional[Mesh] = None) -> Dict:
 def prefill(model: TransformerLM, tokens, cfg: ModelConfig,
             mesh: Optional[Mesh] = None) -> Tuple:
     """tokens [B, S] int -> (last-position logits [B, vocab] f32,
-    k [L, B, S, H, hd], v [L, B, S, H, hd]) in cfg.dtype.  Over a mesh
+    k [L, B, S, KV, hd], v [L, B, S, KV, hd]) in cfg.dtype, and for the
+    lfm2 family also the conv state after the last position, conv [conv
+    layers, B, conv_width - 1, d_model] in cfg.dtype.  Over a mesh
     (default: the model's) each rank computes its H/tp heads of the whole
-    batch; the logits and the gathered K/V are global on every rank.
-    Every operation is launched from Python; :class:`PrefillGraphs`
-    replays the same work for one prompt at a padded length."""
+    batch; the logits and the gathered K/V are global on every rank.  The
+    lfm2 family takes one prompt (B = 1) and runs the segments of
+    :func:`_lfm2_prefill_segments` at S.  Every operation is launched from
+    Python; :class:`PrefillGraphs` replays the same work for one prompt at
+    a padded length."""
     _check_dense(cfg)
     mesh = model.mesh if mesh is None else mesh
+    _one_device(cfg, mesh)
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
+    if _is_lfm2(cfg):
+        # the segments PrefillGraphs replays, run at S = n over fresh
+        # buffers
+        if tokens.shape[0] != 1:
+            raise ValueError("the lfm2 family prefills one prompt at a time")
+        n = tokens.shape[1]
+        b = prefill_buffers(model, cfg, n)
+        b["tokens"].copy_(tokens)
+        b["row"].fill_(n - 1)
+        logits = _prefill_launches(_lfm2_prefill_segments(model, cfg, b, n),
+                                   cfg, b, n)
+        return logits, b["k"], b["v"], b["conv"]
     S = tokens.shape[1]
     x = model.embed[tokens] + model.pos[:S][None]
     ks, vs = [], []
@@ -244,15 +336,19 @@ def decode_step(model: TransformerLM, cache: Dict, tokens, active,
     Every slot flows through the math (the reference's static shapes):
     each writes its K/V at p = min(pos, S-1), inactive slots too — on a
     row the next install overwrites — and only active slots advance
-    `pos`.  The cache is updated in place.  Over a mesh (default: the
-    model's) tokens and active stay global [N] and the logits are this
-    rank's dp block [N/dp, vocab].  Every operation is launched from
+    `pos`.  The lfm2 family's inactive slots route to no expert and keep
+    their conv states.  The cache is updated in place.  Over a mesh (default:
+    the model's) tokens and active stay global [N] and the logits are
+    this rank's dp block [N/dp, vocab].  Every operation is launched from
     Python; :class:`StepGraphs` replays the same step as CUDA graphs."""
     _check_dense(cfg)
     mesh = model.mesh if mesh is None else mesh
+    _one_device(cfg, mesh)
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     active = torch.as_tensor(active, device=dev)
+    if _is_lfm2(cfg):
+        return _lfm2_step(model, cache, tokens, active, cfg), cache
     if mesh is not None:
         tokens = sharding.local_slice(tokens, ("dp",), mesh)
         active = sharding.local_slice(active, ("dp",), mesh)
@@ -263,6 +359,24 @@ def decode_step(model: TransformerLM, cache: Dict, tokens, active,
         o = decode_attention(q, k_new, v_new, k_cache[i], v_cache[i], p)
         x = _block_out(model, x, o, i, cfg, mesh)
     return _finish(model, x, pos, active, cfg), cache
+
+
+def _lfm2_step(model: TransformerLM, cache: Dict, tokens, active,
+               cfg: ModelConfig):
+    """The lfm2 step: :func:`_lfm2_segments` in order, ``decode_attention``
+    at the KV heads between them -> the logits [N, vocab] f32."""
+    N = cache["pos"].shape[0]
+    o = torch.zeros((N, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype,
+                    device=cache["pos"].device)
+    segs = _lfm2_segments(model, cache, cfg, tokens, active, o)
+    outs = segs[0]()
+    p = outs[4]
+    for a in range(cache["k"].shape[0]):
+        _, q, k_new, v_new = outs[:4]
+        o.copy_(decode_attention(q, k_new, v_new, cache["k"][a],
+                                 cache["v"][a], p))
+        outs = segs[a + 1](*outs)
+    return outs
 
 
 def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
@@ -292,13 +406,86 @@ def _segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
     return [first] + [layer(i) for i in range(1, L)] + [last]
 
 
+def _write_index(pos, S: int):
+    """p = min(pos, S-1) [N] int32: the row each slot writes."""
+    return torch.clamp(pos, max=S - 1).to(torch.int32)
+
+
+def _lfm2_segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
+                   tokens, active, o) -> list:
+    """The lfm2 step's work between its attention launches, as one more
+    function than the attention layers: 0 embeds `tokens`, runs the conv
+    layers before the first attention layer and gives its (x, q, k, v)
+    and the write index p; a (1 <= a < A) runs attention layer a-1's
+    output product and FFN, its attention's output read from `o`, the
+    conv layers after it, and attention layer a's (x, q, k, v); the last
+    runs the last attention layer's tail, the conv layers after it, the
+    f32 final norm and tied logits, and the advance of `pos` by
+    `active`.  A conv layer shifts the active slots' rows of
+    ``cache["conv"]``; rows of inactive slots route to no expert.  q and
+    k are rotated at each slot's p."""
+    pos, S = cache["pos"], cache["k"].shape[2]
+    attn = [i for i, kind in enumerate(cfg.layer_kinds) if kind == "attn"]
+
+    def convs(x, lo, hi):
+        # only active slots' conv states move: a warm-up (active all 0)
+        # and an inactive slot leave theirs as they are
+        moving = (active != 0).view(-1, 1, 1)
+        for i in range(lo, hi):
+            lp = model.layers[i]
+            with record_function("short_conv"):
+                c, z = lfm2.conv_in(lfm2.mixer_in(x, lp, cfg), lp, cfg)
+                state = cache["conv"][lfm2.kind_index(cfg, i)]
+                y, shifted = lfm2.conv_step(z, state, lp, cfg)
+                state.copy_(torch.where(moving, shifted, state))
+                x = x + lfm2.conv_out(c, y, lp, cfg)
+            x = lfm2.ffn(model, x, i, cfg, active != 0)
+        return x
+
+    def head(x, i):
+        lp = model.layers[i]
+        with record_function("attention"):
+            return (x,) + lfm2.qkv(lfm2.mixer_in(x, lp, cfg), lp, cfg,
+                                   _write_index(pos, S))
+
+    def tail(x, i):
+        lp = model.layers[i]
+        with record_function("attention"):
+            x = x + lfm2.attn_out(o, lp, cfg)
+        return lfm2.ffn(model, x, i, cfg, active != 0)
+
+    def first():
+        x = convs(model.embed[tokens], 0, attn[0])
+        return head(x, attn[0]) + (_write_index(pos, S),)
+
+    def middle(a):
+        def seg(x, *_):
+            x = convs(tail(x, attn[a - 1]), attn[a - 1] + 1, attn[a])
+            return head(x, attn[a])
+        return seg
+
+    def last(x, *_):
+        x = convs(tail(x, attn[-1]), attn[-1] + 1, cfg.n_layers)
+        pos.add_(active.to(torch.int32))
+        return lfm2.logits(model, x, cfg)
+
+    return [first] + [middle(a) for a in range(1, len(attn))] + [last]
+
+
+def _step_segments(model: TransformerLM, cache: Dict, cfg: ModelConfig,
+                   tokens, active, o) -> list:
+    fn = _lfm2_segments if _is_lfm2(cfg) else _segments
+    return fn(model, cache, cfg, tokens, active, o)
+
+
 def _graph_key(model: TransformerLM, cfg: ModelConfig, *read) -> tuple:
     """What a captured set depends on: the configuration, the matmul
     precision flags, and the address, shape and dtype of the weights and
-    of every other tensor `read` that its graphs and its attention
-    launches read or write."""
-    read += (model.embed, model.pos, model.ln_f["g"], model.ln_f["b"],
-             *model.blocks.values())
+    buffers, of the routed experts' counters, and of every other tensor
+    `read` that its graphs and its attention launches read or write."""
+    st = model.expert_stats
+    read += (*model.parameters(), *model.buffers(),
+             *(t for t in (st.counts, st.dropped) if t is not None))
     m = torch.backends.cuda.matmul
     return (cfg, m.allow_tf32, m.allow_bf16_reduced_precision_reduction,
             m.allow_fp16_reduced_precision_reduction) + tuple(
@@ -343,12 +530,14 @@ def _capture(segs: list, side: torch.cuda.Stream, pool) -> Tuple[list, list]:
 
 class StepGraphs:
     """:func:`decode_step` on one CUDA device without a mesh, its work
-    between the attention launches captured as n_layers + 1 CUDA graphs
-    for one cache, when built.  The graphs share one memory pool and
-    hold their static inputs (tokens, active, the attention's output)
-    and outputs for their lifetime; they read the cache's ``pos`` and
-    the weights by address, so :meth:`run` captures again when an
-    address, the configuration or the matmul precision flags change.
+    between the attention launches captured as one CUDA graph more than
+    the attention layers (GPT-2: n_layers + 1; lfm2: 7 at LFM2-8B-A1B's
+    6 attention layers) for one cache, when built.  The graphs share one
+    memory pool and hold their static inputs (tokens, active, the
+    attention's output) and outputs for their lifetime; they read the
+    cache's ``pos`` and the weights by address, so :meth:`run` captures
+    again when an address, the configuration or the matmul precision
+    flags change.
     ``captures`` counts the sets captured, ``steps`` the steps run."""
 
     def __init__(self, model: TransformerLM, cache: Dict, cfg: ModelConfig):
@@ -359,27 +548,30 @@ class StepGraphs:
         self._capture()
 
     def _key(self) -> tuple:
-        c = self.cache
-        return _graph_key(self.model, self.cfg, c["k"], c["v"], c["pos"])
+        return _graph_key(self.model, self.cfg, *self.cache.values())
 
     @torch.no_grad()
     def _capture(self):
         model, cache, cfg = self.model, self.cache, self.cfg
         # the old set's pool goes before the new one is taken
         self.graphs = self.outs = self.p = None
-        self.key = self._key()
         dev = self.device
-        _, N, _, H, hd = cache["k"].shape
+        N = cache["pos"].shape[0]
         self.tokens = torch.zeros(N, dtype=torch.int64, device=dev)
         # 0 while the segments are warmed up, so `pos` keeps its values
+        # (and no lfm2 row is routed or counted)
         self.active = torch.zeros(N, dtype=torch.int32, device=dev)
-        self.o = torch.zeros((N, H, hd), dtype=cfg.dtype, device=dev)
+        self.o = torch.zeros((N, cfg.n_heads, cfg.head_dim), dtype=cfg.dtype,
+                             device=dev)
         self.kv = [(cache["k"][i], cache["v"][i])
-                   for i in range(cfg.n_layers)]
-        segs = _segments(model, cache, cfg, self.tokens, self.active, self.o)
+                   for i in range(cache["k"].shape[0])]
+        segs = _step_segments(model, cache, cfg, self.tokens, self.active,
+                              self.o)
         self.graphs, self.outs = _capture(segs, torch.cuda.Stream(dev),
                                           torch.cuda.graph_pool_handle())
         self.p = self.outs[0][4]
+        # after the warm-up, which allocates the experts' counters
+        self.key = self._key()
         self.captures += 1
 
     @torch.no_grad()
@@ -405,14 +597,23 @@ class StepGraphs:
         return logits
 
 
-# the prefill's padded lengths are the multiples of this, then max_len
+# the prefill's padded lengths step by this up to PREFILL_BUCKETS_FINE,
+# then by an eighth of the power of two at or below the length, so that
+# padding is at most 127 rows below 1024 and under 12.5% of a prompt's
+# rows above it
 PREFILL_BUCKET = 128
+PREFILL_BUCKETS_FINE = 1024
 
 
 def prefill_buckets(max_len: int) -> list:
     """The padded lengths a :class:`PrefillGraphs` captures: 128, 256,
-    ... below `max_len`, then `max_len`."""
-    return list(range(PREFILL_BUCKET, max_len, PREFILL_BUCKET)) + [max_len]
+    ..., 1024, then 1152, 1280, ... 2048, 2304, ... 4096, 4608, ...
+    below `max_len`, then `max_len`."""
+    out, s = [], PREFILL_BUCKET
+    while s < max_len:
+        out.append(s)
+        s += max(PREFILL_BUCKET, (1 << (s.bit_length() - 1)) // 8)
+    return out + [max_len]
 
 
 def prefill_bucket(n: int, max_len: int) -> Optional[int]:
@@ -420,7 +621,7 @@ def prefill_bucket(n: int, max_len: int) -> Optional[int]:
     :func:`prefill_buckets` that holds it; None above `max_len`."""
     if n > max_len:
         return None
-    return min(-(-n // PREFILL_BUCKET) * PREFILL_BUCKET, max_len)
+    return next(s for s in prefill_buckets(max_len) if s >= n)
 
 
 def prefill_buffers(model: TransformerLM, cfg: ModelConfig,
@@ -428,20 +629,34 @@ def prefill_buffers(model: TransformerLM, cfg: ModelConfig,
     """The static buffers of :func:`_prefill_segments`, at `max_len` on
     the model's device, zeros: the prompt ``tokens`` [1, max_len] int64,
     the ``row`` whose logits are taken [1] int64, the residual stream
-    ``x`` [1, max_len, D] in the weights' dtype, ``q`` and the
-    attention's output ``o`` [1, max_len, H, hd] and the K/V store
-    ``k``, ``v`` [L, 1, max_len, H, hd] in cfg.dtype."""
+    ``x`` [1, max_len, D] (GPT-2: in the weights' dtype; lfm2: f32),
+    ``q`` and the attention's output ``o`` [1, max_len, H, hd] and the
+    K/V store ``k``, ``v`` [L, 1, max_len, KV, hd] (L the cached layers)
+    in cfg.dtype.  The lfm2 family also has the K/V repeated to the
+    query heads for the causal kernel, ``kr``, ``vr`` [1, max_len, H,
+    hd], and the conv state store ``conv`` [conv layers, 1, conv_width -
+    1, D], in cfg.dtype."""
     dev, dt = model.embed.device, cfg.dtype
     heads = (1, max_len, cfg.n_heads, cfg.head_dim)
-    return {
+    kv = (cached_layers(cfg), 1, max_len, cfg.kv_heads, cfg.head_dim)
+    bufs = {
         "tokens": torch.zeros((1, max_len), dtype=torch.int64, device=dev),
         "row": torch.zeros(1, dtype=torch.int64, device=dev),
-        "x": torch.zeros((1, max_len, cfg.d_model), dtype=model.embed.dtype,
-                         device=dev),
+        "x": torch.zeros((1, max_len, cfg.d_model),
+                         dtype=(torch.float32 if _is_lfm2(cfg)
+                                else model.embed.dtype), device=dev),
         "q": torch.zeros(heads, dtype=dt, device=dev),
         "o": torch.zeros(heads, dtype=dt, device=dev),
-        "k": torch.zeros((cfg.n_layers,) + heads, dtype=dt, device=dev),
-        "v": torch.zeros((cfg.n_layers,) + heads, dtype=dt, device=dev)}
+        "k": torch.zeros(kv, dtype=dt, device=dev),
+        "v": torch.zeros(kv, dtype=dt, device=dev)}
+    if _is_lfm2(cfg):
+        bufs.update(
+            kr=torch.zeros(heads, dtype=dt, device=dev),
+            vr=torch.zeros(heads, dtype=dt, device=dev),
+            conv=torch.zeros((cfg.layer_kinds.count("conv"), 1,
+                              cfg.conv_width - 1, cfg.d_model), dtype=dt,
+                             device=dev))
+    return bufs
 
 
 def _prefill_segments(model: TransformerLM, cfg: ModelConfig, bufs: Dict,
@@ -480,12 +695,104 @@ def _prefill_segments(model: TransformerLM, cfg: ModelConfig, bufs: Dict,
     return [first] + [layer(i) for i in range(1, L)] + [last]
 
 
+def _lfm2_prefill_segments(model: TransformerLM, cfg: ModelConfig,
+                           bufs: Dict, S: int) -> list:
+    """:func:`_prefill_segments` of the lfm2 family, split at its
+    attention layers as :func:`_lfm2_segments`: the prompt's n = ``row``
+    + 1 valid rows among S.  Each attention layer's head leaves the
+    residual stream in ``x``, q in ``q``, its K/V in its layer of the
+    store and repeated in ``kr``, ``vr``; each conv layer leaves the
+    state after row n - 1 in its layer of ``conv``; rows at n and past
+    route to no expert; the last gives the logits [1, vocab] f32 of
+    position ``row``."""
+    attn = [i for i, kind in enumerate(cfg.layer_kinds) if kind == "attn"]
+    row = bufs["row"]
+    tokens, x, q, o, kr, vr = (bufs[n][:, :S] for n in
+                               ("tokens", "x", "q", "o", "kr", "vr"))
+    k, v = bufs["k"][:, :, :S], bufs["v"][:, :, :S]
+
+    def valid():
+        return torch.arange(S, device=row.device) <= row
+
+    def convs(h, lo, hi):
+        for i in range(lo, hi):
+            lp = model.layers[i]
+            with record_function("short_conv"):
+                c, z = lfm2.conv_in(lfm2.mixer_in(h, lp, cfg), lp, cfg)
+                bufs["conv"][lfm2.kind_index(cfg, i)].copy_(
+                    lfm2.conv_tail(z, row + 1, cfg))
+                h = h + lfm2.conv_out(c, lfm2.conv_seq(z, lp, cfg), lp, cfg)
+            h = lfm2.ffn(model, h, i, cfg, valid())
+        return h
+
+    def head(h, i):
+        x.copy_(h)
+        lp, a = model.layers[i], lfm2.kind_index(cfg, i)
+        with record_function("attention"):
+            qi, ki, vi = lfm2.qkv(lfm2.mixer_in(h, lp, cfg), lp, cfg,
+                                  torch.arange(S, device=h.device))
+            q.copy_(qi)
+            k[a].copy_(ki)
+            v[a].copy_(vi)
+            kr.copy_(lfm2.repeat_kv(ki, cfg))
+            vr.copy_(lfm2.repeat_kv(vi, cfg))
+        return ()
+
+    def tail(i):
+        with record_function("attention"):
+            h = x + lfm2.attn_out(o, model.layers[i], cfg)
+        return lfm2.ffn(model, h, i, cfg, valid())
+
+    def first():
+        return head(convs(model.embed[tokens], 0, attn[0]), attn[0])
+
+    def middle(a):
+        return lambda: head(convs(tail(attn[a - 1]), attn[a - 1] + 1,
+                                  attn[a]), attn[a])
+
+    def last():
+        h = convs(tail(attn[-1]), attn[-1] + 1, cfg.n_layers)
+        return lfm2.logits(model, h.index_select(1, row)[:, 0], cfg)
+
+    return [first] + [middle(a) for a in range(1, len(attn))] + [last]
+
+
+def _padded_segments(model: TransformerLM, cfg: ModelConfig, bufs: Dict,
+                     S: int) -> list:
+    fn = _lfm2_prefill_segments if _is_lfm2(cfg) else _prefill_segments
+    return fn(model, cfg, bufs, S)
+
+
+def _prefill_launches(calls: list, cfg: ModelConfig, bufs: Dict, n: int):
+    """Make `calls` (a prefill's segments, or their graphs' replays) in
+    order, ``_causal_attention`` launched at the prompt's n rows of
+    :func:`prefill_buffers` between each two -> the last call's result."""
+    q, o = bufs["q"][:, :n], bufs["o"][:, :n]
+    out = calls[0]()
+    for i, (k, v) in enumerate(_attention_inputs(cfg, bufs, n)):
+        o.copy_(_causal_attention(q, k, v))
+        out = calls[i + 1]()
+    return out
+
+
+def _attention_inputs(cfg: ModelConfig, bufs: Dict, n: int) -> list:
+    """(k, v) of each attention launch of a prefill of n tokens: views of
+    the first n rows of the store (GPT-2) or of ``kr``, ``vr``, which
+    each lfm2 head rewrites."""
+    if _is_lfm2(cfg):
+        return [(bufs["kr"][:, :n], bufs["vr"][:, :n])] * \
+            bufs["k"].shape[0]
+    return [(bufs["k"][i, :, :n], bufs["v"][i, :, :n])
+            for i in range(bufs["k"].shape[0])]
+
+
 class PrefillGraphs:
     """:func:`prefill` of one prompt on one CUDA device without a mesh,
-    its work between the attention launches captured, when built, as
-    n_layers + 1 CUDA graphs (:func:`_prefill_segments`) at each padded
-    length of :func:`prefill_buckets` up to `max_len` (at most the
-    model's ``max_seq``).  One set of static buffers at `max_len`
+    its work between the attention launches captured, when built, as one
+    CUDA graph more than the attention layers (:func:`_prefill_segments`,
+    :func:`_lfm2_prefill_segments`) at each padded length of
+    :func:`prefill_buckets` up to `max_len` (at most the model's
+    ``max_seq``).  One set of static buffers at `max_len`
     (:func:`prefill_buffers`) serves every length, and every set shares
     one memory pool, replayed one at a time.  The graphs read the
     weights by address, so :meth:`run` captures again when an address,
@@ -507,28 +814,31 @@ class PrefillGraphs:
     def _capture(self):
         # the old sets' pool goes before the new one is taken
         self.sets = None
-        self.key = _graph_key(self.model, self.cfg)
         # a row every padded length holds, for the warm-ups' logits
         self.bufs["row"].zero_()
         side = torch.cuda.Stream(self.device)
         pool = torch.cuda.graph_pool_handle()
         # the longest first: each shorter length's temporaries then fit in
         # the pool's blocks that the longer ones freed
-        self.sets = {S: _capture(_prefill_segments(self.model, self.cfg,
-                                                   self.bufs, S), side, pool)
+        self.sets = {S: _capture(_padded_segments(self.model, self.cfg,
+                                                  self.bufs, S), side, pool)
                      for S in reversed(prefill_buckets(self.max_len))}
+        # after the warm-ups, which allocate the experts' counters
+        self.key = _graph_key(self.model, self.cfg)
         self.captures += 1
 
     @torch.no_grad()
     def run(self, tokens) -> Tuple:
         """One prompt, tokens [n] int64 on this device with n <=
         ``max_len`` -> (a copy of the last position's logits [1, vocab]
-        f32, k, v [L, 1, n, H, hd] in cfg.dtype), as :func:`prefill`: the
-        set of the smallest padded length S >= n replayed in order, the
-        prompt's tokens in the first n positions (the padding positions
-        keep whatever they held), ``_causal_attention`` launched at n
-        between the graphs.  k and v are views of the K/V store, valid
-        until the next prefill."""
+        f32, k, v [L, 1, n, KV, hd] in cfg.dtype, and for the lfm2 family
+        the conv state [conv layers, 1, conv_width - 1, D]), as
+        :func:`prefill`: the set of the smallest padded length S >= n
+        replayed in order, the prompt's tokens in the first n positions
+        (the padding positions keep whatever they held),
+        ``_causal_attention`` launched at n between the graphs.  k, v and
+        the conv state are views of the stores, valid until the next
+        prefill."""
         n = tokens.numel()
         b = self.bufs
         with torch.cuda.device(self.device):
@@ -537,44 +847,52 @@ class PrefillGraphs:
             graphs, held = self.sets[prefill_bucket(n, self.max_len)]
             b["tokens"][0, :n].copy_(tokens)
             b["row"].fill_(n - 1)
-            q, o = b["q"][:, :n], b["o"][:, :n]
-            k, v = b["k"][:, :, :n], b["v"][:, :, :n]
-            graphs[0].replay()
-            for i in range(self.cfg.n_layers):
-                o.copy_(_causal_attention(q, k[i], v[i]))
-                graphs[i + 1].replay()
+            _prefill_launches([g.replay for g in graphs], self.cfg, b, n)
             logits = held[-1].clone()
         self.prefills += 1
-        return logits, k, v
+        out = (logits, b["k"][:, :, :n], b["v"][:, :, :n])
+        return out + (b["conv"],) if "conv" in b else out
 
 
 # ---------------------------------------------------------------------------
 # wire (de)serialization — the bytes the KV block plane migrates
 
 
-def kv_to_bytes(k, v, device=None):
-    """[L, S, H, hd] k/v pair -> the f32 wire, k then v: host bytes, or
-    with `device` the same bytes as a flat uint8 tensor there (packed on
-    the device, no host crossing)."""
+def kv_to_bytes(k, v, device=None, conv=None):
+    """[L, S, KV, hd] k/v pair (and an lfm2 sequence's conv state [conv
+    layers, conv_width - 1, D]) -> the f32 wire, k then v then conv: host
+    bytes, or with `device` the same bytes as a flat uint8 tensor there
+    (packed on the device, no host crossing)."""
+    parts = [torch.as_tensor(t).detach() for t in (k, v, conv)
+             if t is not None]
     if device is None:
-        ka = torch.as_tensor(k).detach().to("cpu", torch.float32).contiguous()
-        va = torch.as_tensor(v).detach().to("cpu", torch.float32).contiguous()
-        return ka.numpy().tobytes() + va.numpy().tobytes()
-    k, v = torch.as_tensor(k).detach(), torch.as_tensor(v).detach()
-    out = torch.empty((2,) + tuple(k.shape), dtype=torch.float32,
+        return b"".join(t.to("cpu", torch.float32).contiguous().numpy()
+                        .tobytes() for t in parts)
+    out = torch.empty(sum(t.numel() for t in parts), dtype=torch.float32,
                       device=device)
-    out[0].copy_(k)
-    out[1].copy_(v)
-    return out.view(-1).view(torch.uint8)
+    at = 0
+    for t in parts:
+        out[at:at + t.numel()].view(t.shape).copy_(t)
+        at += t.numel()
+    return out.view(torch.uint8)
 
 
 def kv_from_bytes(data, cfg: ModelConfig, length: int) -> Tuple:
-    """Inverse of kv_to_bytes for a `length`-token sequence: numpy views
-    of host bytes, or f32 tensor views of a device wire."""
-    shape = (cfg.n_layers, length, cfg.n_heads, cfg.head_dim)
-    n = int(np.prod(shape))
+    """Inverse of kv_to_bytes for a `length`-token sequence -> (k, v), and
+    for the lfm2 family (k, v, conv): numpy views of host bytes, or f32
+    tensor views of a device wire."""
+    shape = (cached_layers(cfg), length, cfg.kv_heads, cfg.head_dim)
+    shapes = [shape, shape]
+    if _is_lfm2(cfg):
+        shapes.append((cfg.layer_kinds.count("conv"), cfg.conv_width - 1,
+                       cfg.d_model))
+    sizes = [int(np.prod(s)) for s in shapes]
     if isinstance(data, torch.Tensor):
-        flat = data.view(torch.float32)[:2 * n]
-        return flat[:n].view(shape), flat[n:].view(shape)
-    flat = np.frombuffer(data, KV_WIRE_DTYPE, count=2 * n)
-    return flat[:n].reshape(shape), flat[n:].reshape(shape)
+        flat = data.view(torch.float32)
+    else:
+        flat = np.frombuffer(data, KV_WIRE_DTYPE, count=sum(sizes))
+    out, at = [], 0
+    for s, n in zip(shapes, sizes):
+        out.append(flat[at:at + n].reshape(s))
+        at += n
+    return tuple(out)

@@ -20,8 +20,15 @@ launched from Python), and so does the admit's prefill
 128, 256, ... up to ``max_len``; the prompt takes the smallest that
 holds it and the causal kernel runs between the graphs at the prompt's
 own length, so the padding rows, which only row-wise work touches,
-reach no valid row).  The engine's ``Lockstep`` owns the cache and
-holds both, captured when the ``Lockstep`` is built, before any
+reach no valid row).  The same holds for the lfm2 family (gated short
+convolutions, grouped-query attention, routed experts): its cache holds
+the attention layers' K/V at the KV heads beside each conv layer's
+state, its graphs split at the attention layers (7 segments at
+LFM2-8B-A1B's 6), its padded prefill rows and a step's inactive slots
+route to no expert, and the engine holds its product weights, experts
+included, and its tied head in the products' dtype, cast once when it
+is built.  The engine's ``Lockstep`` owns the cache and holds both,
+captured when the ``Lockstep`` is built, before any
 traffic, so the captures land in set-up; ``stats()`` counts the steps
 that replayed them (``step_graphed``), the installed admits whose
 prefill did (``prefill_graphed``, beside ``prefills``) and the graph
@@ -58,11 +65,15 @@ Where the work happens the leader counts its time, on
 device work done), ``kv_route_us`` (``KV_ROUTE``, to the install
 returned) and ``kv_route_bytes`` (the route's four copies of the wire:
 packed, into the blocks, back from them, into the decode cache) of every
-admit that reaches the install, and a step's
+admit that reaches the install (``conv_state_bytes``: the conv state's
+share of the f32 wire an admit routes, lfm2), and a step's
 ``step_issue_us`` (to its last launch), ``step_sync_us`` (its ``.cpu()``)
 and ``emit_us`` (the token writes, grown blocks and retirements).  The
 KV plane's own ``kv_host_bytes`` and ``kv_device_fills`` join
-``stats()``.  With
+``stats()``, and for a model with routed experts its counters
+(``moe_assignments`` [MoE layers][held experts] and ``moe_dropped``,
+summed on the device over every step and prefill, padded rows and
+inactive slots excluded; reading them waits for the device).  With
 ``enable_rpcz`` on the same stamps become rpcz spans: a sampled Generate
 call's server span gets ``queue``, ``admit`` (``prefill``, ``kv_route``
 and its six) and ``first_token``; a sampled step is a trace of its own,
@@ -89,6 +100,7 @@ import numpy as np
 import torch
 
 from brpc_tpu_torch.models import decode as D
+from brpc_tpu_torch.models import lfm2
 from brpc_tpu_torch.models.transformer import ModelConfig
 from brpc_tpu_torch.models import transformer
 from brpc_tpu_torch.parallel.mesh import Mesh
@@ -163,6 +175,8 @@ class ServingEngine:
             params = transformer.init(torch.Generator().manual_seed(seed),
                                       self.cfg, self.device, mesh)
         self.params = params.to(self.device)
+        if self.cfg.family == "lfm2":
+            lfm2.hold_products(self.params, self.cfg)
         self.n_slots = n_slots or flags.get_flag("serving_slots")
         self.max_len = max_len or self.cfg.max_seq
         self.dev = Lockstep(self.params, self.cfg, self.n_slots,
@@ -172,7 +186,9 @@ class ServingEngine:
             self.kv = kv or KvBlockPlane()
             self.sched = S.Scheduler(self.n_slots, self.kv,
                                      D.kv_bytes_per_token(self.cfg),
-                                     max_waiting=max_waiting)
+                                     max_waiting=max_waiting,
+                                     bytes_per_seq=D.conv_state_bytes(
+                                         self.cfg))
         elif kv is not None:
             raise ValueError(self._follows("the KV block plane"))
         self._seq_ids = iter(range(1, 1 << 62))
@@ -190,6 +206,7 @@ class ServingEngine:
         self.prefill_us = 0
         self.kv_route_us = 0
         self.kv_route_bytes = 0
+        self.conv_state_bytes = 0
         self.step_issue_us = 0
         self.step_sync_us = 0
         self.emit_us = 0
@@ -331,6 +348,7 @@ class ServingEngine:
             "prefill_us": self.prefill_us,
             "kv_route_us": self.kv_route_us,
             "kv_route_bytes": self.kv_route_bytes,
+            "conv_state_bytes": self.conv_state_bytes,
             "step_issue_us": self.step_issue_us,
             "step_sync_us": self.step_sync_us,
             "emit_us": self.emit_us,
@@ -350,6 +368,8 @@ class ServingEngine:
             "running": len(self.sched.running()),
         }
         d.update(self.kv.stats())
+        if self.cfg.n_experts > 0:
+            d.update(self.params.stats())
         return d
 
     # -- decode loop --------------------------------------------------------
@@ -384,12 +404,12 @@ class ServingEngine:
         clock = time.monotonic_ns
         plen = seq.prompt_len
         t_admit = clock()
-        logits, k, v = self.dev.prefill(seq.prompt)
+        logits, k, v, *conv = self.dev.prefill(seq.prompt)
         p0, p1 = self.dev.prefill_ns
         route = [clock()]           # KV_ROUTE's boundaries
         kvb = D.kv_to_bytes(k[:, 0], v[:, 0],
                             self.device if self.kv.device_route(self.device)
-                            else None)
+                            else None, *(c[:, 0] for c in conv))
         route.append(clock())
         try:
             self.kv.seq_alloc(seq.seq_id, kvb)
@@ -406,16 +426,18 @@ class ServingEngine:
         self.rails[rail] = self.rails.get(rail, 0) + 1
         fetched = self.kv.seq_fetch(seq.seq_id)
         route.append(clock())
-        k2, v2 = D.kv_from_bytes(fetched, self.cfg, plen)
+        k2, v2, *conv2 = D.kv_from_bytes(fetched, self.cfg, plen)
         route.append(clock())
-        self.dev.install(seq.slot, k2, v2, plen)
+        self.dev.install(seq.slot, k2, v2, plen, *conv2)
         route.append(clock())
         self.prefills += 1
         self.prefill_graphed += self.dev.prefill_replayed
         self.prefill_us += (p1 - p0) // 1000
         self.kv_route_us += (route[-1] - route[0]) // 1000
+        conv_bytes = sum(c.nbytes for c in conv2)
         self.kv_route_bytes += (2 * len(kvb) + len(fetched) + k2.nbytes
-                                + v2.nbytes)
+                                + v2.nbytes + conv_bytes)
+        self.conv_state_bytes += conv_bytes
         if parent is not None:
             span.record(parent, "admit", t_admit, route[-1], [
                 ("prefill", p0, p1),
@@ -494,8 +516,7 @@ class ServingEngine:
     def _grow(self, seq: S.Sequence) -> bool:
         """Charge blocks for the sequence's grown K/V; preempt-by-
         eviction (youngest first) when the pool runs dry."""
-        needed = self.kv.blocks_needed(
-            seq.total_len * self.sched.bytes_per_token)
+        needed = self.kv.blocks_needed(self.sched.seq_bytes(seq.total_len))
         while self.kv.seq_blocks(seq.seq_id) < needed:
             t = time.monotonic_ns()
             try:

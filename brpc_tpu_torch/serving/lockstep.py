@@ -16,7 +16,8 @@ payload elements), then the payload in its op's dtype:
 
     PREFILL  -, prompt length; the prompt tokens (int64)
     INSTALL  slot, length; the fetched K/V, k then v [L, S, H, hd] in
-             the wire dtype (decode.KV_WIRE_DTYPE, f32)
+             the wire dtype (decode.KV_WIRE_DTYPE, f32); the gpt2 family
+             alone, since the lfm2 family serves on one device
     STEP     -; tokens then the active mask of every slot (int64 [2N])
     RESET    slot; -
     STOP     -; -  (the followers' loops return)
@@ -149,10 +150,11 @@ class Lockstep:
     # -- the operations (the leader calls these; follow() replays them) --
 
     def prefill(self, prompt) -> Tuple:
-        """(last-position logits [1, vocab], global k, v [L, 1, S, H, hd])
-        of one prompt: replayed by ``prefill_graphs`` where it holds the
-        prompt (k and v then views valid until the next prefill), else
-        ``decode.prefill``.  On a CUDA leader it returns once the
+        """(last-position logits [1, vocab], global k, v [L, 1, S, H, hd],
+        and for the lfm2 family its conv state [conv layers, 1, width - 1,
+        D]) of one prompt: replayed by ``prefill_graphs`` where it holds
+        the prompt (the state then views valid until the next prefill),
+        else ``decode.prefill``.  On a CUDA leader it returns once the
         prefill's device work is done (the K/V's copy to the host waited
         for it anyway), so ``prefill_ns`` holds the device time too."""
         t0 = time.monotonic_ns()
@@ -174,17 +176,17 @@ class Lockstep:
         self.prefill_ns = (t0, time.monotonic_ns())
         return out
 
-    def install(self, slot: int, k, v, length: int) -> None:
+    def install(self, slot: int, k, v, length: int, conv=None) -> None:
         """Install a sequence's global K/V [L, S, H, hd] (as the KV plane
-        hands it back: f32 tensors on the device, or host arrays) into
-        `slot`."""
+        hands it back: f32 tensors on the device, or host arrays), and an
+        lfm2 sequence's conv state, into `slot`."""
         if self.world > 1 and self.leader:
             kv = torch.stack([D._tensor(x).to(self.device, torch.float32)
                               for x in (k, v)])
             self._send(INSTALL, slot, length, kv)
             k, v = kv[0], kv[1]
         self.ops["install"] += 1
-        D.install(self.cache, slot, k, v, length, self.mesh)
+        D.install(self.cache, slot, k, v, length, self.mesh, conv)
 
     def step(self, tokens, active) -> np.ndarray:
         """One decode step of every slot: the greedy next token of each

@@ -76,10 +76,13 @@ class Scheduler:
 
     def __init__(self, n_slots: int, kv: KvBlockPlane,
                  bytes_per_token: int,
-                 max_waiting: Optional[int] = None):
+                 max_waiting: Optional[int] = None,
+                 bytes_per_seq: int = 0):
         self.n_slots = n_slots
         self.kv = kv
         self.bytes_per_token = bytes_per_token
+        # a sequence's state beside its per-token K/V (lfm2's conv state)
+        self.bytes_per_seq = bytes_per_seq
         self.max_waiting = (max_waiting if max_waiting is not None
                             else flags.get_flag("serving_max_waiting"))
         self._lock = threading.Lock()
@@ -98,8 +101,12 @@ class Scheduler:
 
     # -- admission (handler threads) ----------------------------------------
 
+    def seq_bytes(self, length: int) -> int:
+        """Wire bytes of a sequence of `length` tokens."""
+        return length * self.bytes_per_token + self.bytes_per_seq
+
     def prompt_blocks(self, seq: Sequence) -> int:
-        return self.kv.blocks_needed(seq.prompt_len * self.bytes_per_token)
+        return self.kv.blocks_needed(self.seq_bytes(seq.prompt_len))
 
     def submit(self, seq: Sequence) -> None:
         """Admit into the waiting room or shed with ELIMIT — decided

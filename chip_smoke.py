@@ -57,7 +57,14 @@ printing one JSON line; any failure exits non-zero with no result line:
              its memory bound, PyTorch's scaled_dot_product_attention on
              the same window timed the same way (a yardstick the port
              never calls), a one-element add_ (the floor of one graph
-             node) and the wrapper's host-inclusive time (host_call_ms)
+             node) and the wrapper's host-inclusive time (host_call_ms);
+             then its grouped-query launches at LFM2-8B-A1B's serving
+             shapes (GQA_KERNEL_SHAPE: N=128, S=8192, H=32 over KV=8,
+             hd=64) at the same two windows: the same checks (the
+             caches bit-equal to the plain version's scatter, so each KV
+             head's row p holds k_new/v_new and no other row moved), one
+             launch a call, timed the same way beside its bound with the
+             cache counted at the KV heads (decode_attention_gqa lines)
   attention  causal_attention's three kernels (forward; backward dq, which
              also writes the softmax backward's row sums; backward dk/dv)
              under autograd against autograd of the plain version at
@@ -732,13 +739,15 @@ def phase_uring():
     return line
 
 
-def decode_attention_bound(N, H, hd, p, elt):
+def decode_attention_bound(N, H, hd, p, elt, kv=None):
     """(least ms, what bounds it): each input read once (q, k_new, v_new,
     the valid K/V window of this run's p, p itself), each output written
-    once (o, the two appended rows); the products at the bf16 rate."""
+    once (o, the two appended rows); the products at the bf16 rate.  The
+    caches and the new rows are counted at the `kv` KV heads (default H)."""
+    kv = H if kv is None else kv
     window = sum(int(x) + 1 for x in p)
-    nbytes = (3 * N * H * hd * elt + 2 * window * H * hd * elt + 4 * N
-              + 3 * N * H * hd * elt)
+    nbytes = (2 * N * H * hd * elt + 4 * N * kv * hd * elt
+              + 2 * window * kv * hd * elt + 4 * N)
     flops = 4 * window * H * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -746,15 +755,21 @@ def decode_attention_bound(N, H, hd, p, elt):
 
 
 KERNEL_SHAPE = (4, 1024, 8, 64)     # N, S, H, hd: ModelConfig(), 4 slots
+# N, S, H, hd and the KV heads of LFM2-8B-A1B's served attention layers:
+# 128 slots of 8192 positions, 32 query heads over 8 KV heads of 64
+GQA_KERNEL_SHAPE = (128, 8192, 32, 64)
+GQA_KV_HEADS = 8
 WINDOWS = ("mixed", "full")
 
 
-def kernel_inputs(g, dtype, window, shape=KERNEL_SHAPE):
+def kernel_inputs(g, dtype, window, shape=KERNEL_SHAPE, kv=None):
     """q, k_new, v_new, k_cache, v_cache, p at `shape` (N, S, H, hd),
-    drawn from the CUDA generator g: p = [0, S-1, r1, r2] ("mixed") or
-    [S-1] * N ("full")."""
+    k_new, v_new and the caches at `kv` KV heads (default H), drawn from
+    the CUDA generator g: p = [0, S-1, r1, ...] ("mixed") or [S-1] * N
+    ("full")."""
     import torch
     N, S, H, hd = shape
+    kv = H if kv is None else kv
 
     def draw(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -763,11 +778,11 @@ def kernel_inputs(g, dtype, window, shape=KERNEL_SHAPE):
                    rest]).to(torch.int32)
     if window == "full":
         p = torch.full((N,), S - 1, dtype=torch.int32, device="cuda")
-    return (draw(N, H, hd), draw(N, H, hd), draw(N, H, hd),
-            draw(N, S, H, hd), draw(N, S, H, hd), p)
+    return (draw(N, H, hd), draw(N, kv, hd), draw(N, kv, hd),
+            draw(N, S, kv, hd), draw(N, S, kv, hd), p)
 
 
-def check_kernel(fn, g, window, shape=KERNEL_SHAPE):
+def check_kernel(fn, g, window, shape=KERNEL_SHAPE, kv=None):
     """fn (the kernel's wrapper, or a call of another build of the kernel)
     against the plain version on the same inputs at `shape`, in f32 then
     bf16: the
@@ -780,7 +795,7 @@ def check_kernel(fn, g, window, shape=KERNEL_SHAPE):
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain f32 einsums
     errs, shares = {}, {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        args = kernel_inputs(g, dtype, window, shape)
+        args = kernel_inputs(g, dtype, window, shape, kv)
         q, kn, vn, kc, vc, p = args
         kp, vp = kc.clone(), vc.clone()
         o = fn(*args).float()
@@ -839,7 +854,47 @@ def phase_kernel():
               "tolerance": KERNEL_TOL, "bound_share": bound_ms / cold_ms,
               **r})
         results[window] = r
+    results["gqa"] = kernel_gqa(g, flush_buf.sum)
     return results
+
+
+def kernel_gqa(g, flush):
+    """The grouped-query leg of the kernel phase at GQA_KERNEL_SHAPE, each
+    window checked (f32 and bf16, one launch a call) and timed in bf16
+    -> {window: its line}."""
+    import torch
+    from brpc_tpu_torch.ops.decode_attention import decode_attention
+    N, S, H, hd = GQA_KERNEL_SHAPE
+    kv = GQA_KV_HEADS
+    out = {}
+    for window in WINDOWS:
+        before = decode_attention.launches
+        (q, kn, vn, kc, vc, p), errs, shares = check_kernel(
+            decode_attention, g, window, GQA_KERNEL_SHAPE, kv)
+        launches = decode_attention.launches - before
+        assert launches == 2, f"gqa {window}: {launches} launches for " \
+            f"the f32 and bf16 calls"
+        assert max(shares.values()) <= 1.0, \
+            f"gqa {window}: o differs from the plain version by {errs} " \
+            f"(tolerance {KERNEL_TOL})"
+        ms, cold_ms = device_ms(
+            lambda: decode_attention(q, kn, vn, kc, vc, p), flush)
+        bound_ms, bound_by = decode_attention_bound(N, H, hd, p.tolist(), 2,
+                                                    kv)
+        r = {"window": {"name": window, "p_max": int(p.max()),
+                        "p_sum": int(p.sum())},
+             "max_abs_err": errs["bf16"], "ms": ms, "cold_ms": cold_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_share": bound_ms / cold_ms, "launches": launches}
+        emit({"phase": "kernel", "name": "decode_attention_gqa",
+              "shape": dict(zip(("N", "S", "H", "hd"), GQA_KERNEL_SHAPE),
+                            KV=kv),
+              "max_abs_err_by_dtype": errs, "share_of_tolerance": shares,
+              "tolerance": KERNEL_TOL, **r})
+        out[window] = r
+        del q, kn, vn, kc, vc, p
+        torch.cuda.empty_cache()
+    return out
 
 
 ATTN_SHAPE = (8, 1024, 8, 64)    # B, S, H, hd: one layer of the train step
@@ -3129,7 +3184,8 @@ def main() -> int:
     phase_plane()
     phase_transport()
     phase_uring()
-    k = phase_kernel()["full"]
+    kern = phase_kernel()
+    k, gqa = kern["full"], kern["gqa"]["full"]
     attn = phase_attention()
     launches, prefill_launches = phase_serving()
     train_launches, f32_twin_launches = phase_train()
@@ -3150,7 +3206,16 @@ def main() -> int:
         "host_call_ms": k["host_call_ms"], "window": k["window"],
         "mesh_serving_launches": mesh_serving["decode_attention_launches"],
         "tp_shards": {c: r for c, r in shards.items()
-                      if c.startswith("decode")}}]
+                      if c.startswith("decode")}}, {
+        "name": "decode_attention_gqa", "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "brpc_tpu/models/decode.py:178",
+        "shape": dict(zip(("N", "S", "H", "hd"), GQA_KERNEL_SHAPE),
+                      KV=GQA_KV_HEADS),
+        **{n: gqa[n] for n in ("launches", "max_abs_err", "ms", "cold_ms",
+                               "bound_ms", "bound_by", "bound_share",
+                               "window")},
+        "launches_in": "kernel phase, the GQA leg's f32 and bf16 checks"}]
 
     def compiled(kernel):   # the hd 64 instantiation the shapes here run
         return {"sass_hgmma": card["sass_hgmma"].get(kernel),

@@ -283,14 +283,20 @@ def test_config_refuses_what_it_cannot_build():
         T.TransformerLM(_cfg(), "cpu", mesh=object())
 
 
-def test_decode_refuses_the_lfm2_family():
-    cfg = _cfg()
+def test_decode_refuses_the_gpt2_family_with_experts():
+    """The decode path serves the lfm2 family's routed experts, not the
+    gpt2 family's switch layers; its message says what the lfm2 cache
+    holds."""
+    cfg = T.ModelConfig(dtype=torch.float32, **GPT_MOE)
     model = _model(cfg)
     toks = torch.zeros((1, 4), dtype=torch.int32)
     for call in (lambda: D.init_cache(cfg, 1, 8, "cpu"),
-                 lambda: D.prefill(model, toks, cfg)):
-        with pytest.raises(ValueError, match="conv-state cache"):
+                 lambda: D.prefill(model, toks, cfg),
+                 lambda: D.StepGraphs(model, {}, cfg)):
+        with pytest.raises(ValueError, match="dense-only(.|\n)*conv state"):
             call()
+    assert set(D.init_cache(_cfg(), 1, 8, "cpu")) == {"k", "v", "pos",
+                                                       "conv"}
 
 
 @pytest.fixture
